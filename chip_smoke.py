@@ -5,26 +5,44 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel).
-2. kernel   each kernel against its plain PyTorch version on the card, at
-            the serving shapes (H=384, B in {1, 4, 16}, T' in {16, 80}),
-            float32 and bfloat16.
-3. model    the full-width flagship model (model_config of
+2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
+            serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
+            {16, 80, 128}), float32 and bfloat16.
+3. kernel-bwd  lstm_bwd against its plain version at the training shapes
+            (H=384, B in {1, 16, 64}, T' in {16, 80, 128}), float32 and
+            bfloat16.
+4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
             forward with the kernel, one with the plain LSTM, log-probs
             compared.
-4. serve    the serving path a user runs: seeded 16 kHz wavs, their CMVN
+5. serve    the serving path a user runs: seeded 16 kHz wavs, their CMVN
             stats, a 41-unit inventory, a YAML config and a port checkpoint
             on disk, then `python -m mdd_tpu_torch serve` in-process on JSON
             request lines, and the engine it builds on groups that batch 1,
             4 and 16 requests.  Every response must be ok; the kernel's
             launch counter, zeroed just before, must cover all 4 acoustic
             layers of every forward.
-5. profile torch.profiler over batch-1 requests: device busy share and
+6. profile  torch.profiler over batch-1 requests: device busy share and
             the kernels that take the device time.
-6. timing   one BiLSTM layer at B=16, T'=80: the kernel, its plain version,
-            the port's layer (matmul + kernel) and, as the yardstick only,
-            one torch.nn.LSTM call on the same input.
+7. model-grad  the full-width model, one Trainer step at B=8 (dropout 0)
+            with the kernels and one with the plain LSTM: loss, every
+            parameter's gradient and the updated BN statistics compared.
+8. train    the training path a user runs: a seeded corpus (512 train, 64
+            dev utterances of 16-40 phones of the 41-unit inventory, 81-dim
+            band-template features) written with the port's ArkScpWriter, a
+            YAML of the flagship recipe, then `python -m mdd_tpu_torch train`
+            in-process for one epoch and `--resume` for a second.  Losses
+            finite and falling, `best` and `latest` on disk, the launch
+            counters (zeroed just before) covering every layer of every
+            step; then the step time at B=64.
+9. profile-train  torch.profiler over 3 train steps: device busy share and
+            the ops that take the device time.
+10. timing  one BiLSTM layer at B=16, T'=80: the forward kernel, its plain
+            version, the port's layer and one torch.nn.LSTM call; the
+            backward kernel at B=16 and 64, T'=80, its plain version, and
+            the backward of one torch.nn.LSTM (forward+backward minus
+            forward) as the yardstick only.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits 2 without a CUDA device, or when run
@@ -37,6 +55,8 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -51,7 +71,21 @@ H = 384
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # kernel vs plain, hs and cs:
 # float32 differs only in the summation order of the recurrent dot;
 # bfloat16 rounds h every step, so a 1-ulp rounding (2^-8) can carry on
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # kernel vs plain, dx_proj
+# and dW_hh, each relative to its largest magnitude: float32 sums run in
+# another order (dh over 4 interleaved K-slices, dW over all T*B rows at
+# once instead of step by step); bfloat16 rounds dgates, so a 1-ulp
+# rounding (2^-8) can carry into the earlier steps
 MODEL_TOL = 1e-4   # full-model log-probs, float32, kernel vs plain LSTM
+GRAD_TOL = 1e-3    # full-model gradients, float32, kernels vs plain LSTM,
+# each relative to its tensor's largest magnitude: the sums of both kernels
+# run in another order and the differences pass through 4 layers of
+# train-mode BatchNorm and the recurrences
+ZERO_ULPS = 64     # a tensor whose plain gradient stays within this many
+# float32 ulps of the largest gradient is 0 up to rounding (a bias that
+# feeds a train-mode BatchNorm, which subtracts the batch mean): its
+# relative error is noise, so both runs' gradients are held below that
+TRAIN_UTTS, DEV_UTTS, BATCH = 512, 64, 64
 # H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -82,16 +116,41 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple:
+    """(least ms, what bounds it) for moving nbytes and doing flops."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops
+                                   else "operations")
+
+
+def lstm_bwd_bound_ms(t: int, b: int, h: int, dtype: str) -> tuple:
+    """Least time for the backward on these inputs: x_proj, hs, cs and dhs
+    (float32) read once, dx_proj written once, w_hh read and dW_hh (float32)
+    written once; three times the forward's dots (gate recompute, dh_{t-1},
+    dW_hh) plus ~20 operations of gate math per hidden unit and step."""
+    elt = 4 if dtype == "float32" else 2
+    seq = t * 2 * b
+    nbytes = (elt * (seq * 4 * h * 2 + seq * h * 2 + 2 * h * 4 * h)
+              + 4 * (seq * h + 2 * h * 4 * h))
+    flops = 3 * 2 * seq * h * 4 * h + 20 * seq * h
+    return bound(nbytes, flops, dtype)
+
+
 def lstm_bound_ms(t: int, b: int, h: int, dtype: str) -> tuple:
     """Least time for the recurrence on these inputs: x_proj and w_hh read
     once, hs and cs written once; the recurrent dots plus the gate adds."""
     elt = 4 if dtype == "float32" else 2
     nbytes = elt * (t * 2 * b * 4 * h + 2 * h * 4 * h + 2 * t * 2 * b * h)
     flops = 2 * t * 2 * b * h * 4 * h + t * 2 * b * 4 * h + 4 * t * 2 * b * h
-    by_bytes = nbytes / PEAK_BYTES_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops
-                                   else "operations")
+    return bound(nbytes, flops, dtype)
 
 
 def phase_build() -> None:
@@ -120,8 +179,8 @@ def phase_kernel(torch) -> dict:
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         worst[dtype] = 0.0
-        for b in (1, 4, 16):
-            for t in (16, 80):
+        for b in (1, 4, 16, 64):
+            for t in (16, 80, 128):
                 x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
                           ).to("cuda", dt)
                 w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
@@ -141,6 +200,54 @@ def phase_kernel(torch) -> dict:
     log(f"[kernel] lstm_fwd matches lstm_seq_fwd_reference: float32 max err "
         f"{worst['float32']:.3e} (tol {TOL['float32']}), bfloat16 "
         f"{worst['bfloat16']:.3e} (tol {TOL['bfloat16']})")
+    return worst
+
+
+def phase_kernel_bwd(torch) -> dict:
+    """lstm_bwd against lstm_seq_bwd_reference at the training shapes, on
+    saved (hs, cs) of the plain forward and a random cotangent."""
+    from mdd_tpu_torch.ops.lstm_cuda import (
+        lstm_bwd_kernel,
+        lstm_seq_bwd_reference,
+        lstm_seq_fwd_reference,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        worst[dtype] = 0.0
+        for b in (1, 16, 64):
+            for t in (16, 80, 128):
+                x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
+                          ).to("cuda", dt)
+                w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
+                        / H ** 0.5).to("cuda", dt)
+                dhs = torch.randn((t, 2, b, H), generator=g).cuda()
+                hs, cs = lstm_seq_fwd_reference(x_proj, w_hh)
+                before = lstm_bwd_kernel.launches
+                dxp, dw = lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs)
+                torch.cuda.synchronize()
+                if lstm_bwd_kernel.launches != before + 1:
+                    raise AssertionError("lstm_bwd did not count its launch")
+                ref_dxp, ref_dw = lstm_seq_bwd_reference(x_proj, w_hh, hs,
+                                                         cs, dhs)
+                errs = [rel_err(dxp, ref_dxp), rel_err(dw, ref_dw)]
+                abs_err = max((dxp.float() - ref_dxp.float()).abs().max(),
+                              (dw - ref_dw).abs().max()).item()
+                log(f"  lstm_bwd {dtype} B={b} T'={t}: max |dx_proj - plain| "
+                    f"/ max |plain| = {errs[0]:.3e}, dW_hh {errs[1]:.3e}; "
+                    f"max abs err {abs_err:.3e}")
+                if not max(errs) <= BWD_TOL[dtype]:
+                    raise AssertionError(
+                        f"lstm_bwd {dtype} B={b} T'={t} differs from its "
+                        f"plain version by {max(errs)} > {BWD_TOL[dtype]}")
+                worst[dtype] = max(worst[dtype], *errs)
+                worst[dtype + "_abs"] = max(worst.get(dtype + "_abs", 0.0),
+                                            abs_err)
+    log(f"[kernel-bwd] lstm_bwd matches lstm_seq_bwd_reference: float32 max "
+        f"rel err {worst['float32']:.3e} (tol {BWD_TOL['float32']}), "
+        f"bfloat16 {worst['bfloat16']:.3e} (tol {BWD_TOL['bfloat16']})")
     return worst
 
 
@@ -301,7 +408,6 @@ def phase_profile(torch, engine, files, card: str) -> None:
     """Where a batch-1 request's time goes: device busy share of the wall
     clock and the kernels that take the most device time (torch.profiler
     over one request per wav, after the serve phase warmed everything)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mdd_tpu_torch.serve import handle_requests
@@ -315,15 +421,243 @@ def phase_profile(torch, engine, files, card: str) -> None:
             handle_requests(engine, [request(files, i)])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, "profile", f"{n} batch-1 requests", card)
+
+
+def report_profile(prof, wall_us: float, tag: str, what: str,
+                   card: str) -> None:
+    """Device busy share of the wall clock and the top device ops."""
+    from torch.autograd import DeviceType
+
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"[profile] {n} batch-1 requests: wall {wall_us / 1e3:.2f} ms, "
-        f"device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%"
-        f"), {sum(e.count for e in events)} device ops ({card})")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"[{tag}] {what}: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
+        f"{sum(e.count for e in events)} device ops ({card})")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+
+
+def write_corpus(split: str, n: int, seed: int) -> tuple:
+    """n utterances of 16-40 phones between two "sil" of the 41-unit
+    inventory, each phone a fixed band template over the 81 fbank bins for
+    6-15 frames plus noise (T' = 47-110 after skip and conv), the labels
+    the canonical phones with 15% substituted; -> (scp, lab, trans)."""
+    import numpy as np
+
+    from mdd_tpu_torch.frontend.kaldi_io import ArkScpWriter
+
+    rng = np.random.default_rng(seed)
+    templates = {}
+    for k, unit in enumerate(UNITS):
+        t_rng = np.random.default_rng(1000 + k)
+        base = np.full(81, -1.0, np.float32)
+        for c in t_rng.choice(np.arange(4, 77), size=3, replace=False):
+            w = int(t_rng.integers(2, 5))
+            base[c - w:c + w] = 2.0 + t_rng.uniform(0.0, 1.0)
+        templates[unit] = base
+    content = [u for u in UNITS if u not in ("sil", "err")]
+    root = WORK / "corpus"
+    root.mkdir(parents=True, exist_ok=True)
+    scp, lab, trn = (str(root / f"{split}.{x}")
+                     for x in ("scp", "phn_text", "trans"))
+    with ArkScpWriter(str(root / f"{split}.ark"), scp) as w, \
+            open(lab, "w") as fl, open(trn, "w") as ft:
+        for i in range(n):
+            canon = (["sil"] + [content[k] for k in rng.integers(
+                0, len(content), rng.integers(16, 41))] + ["sil"])
+            actual = [content[rng.integers(len(content))]
+                      if 0 < j < len(canon) - 1 and rng.random() < 0.15
+                      else p for j, p in enumerate(canon)]
+            feats = np.concatenate([np.repeat(
+                templates[p][None], rng.integers(6, 16), axis=0)
+                for p in actual])
+            feats += 0.35 * rng.standard_normal(feats.shape).astype(
+                np.float32)
+            w.write(f"{split}_{i:04d}", feats)
+            fl.write(f"{split}_{i:04d} {' '.join(actual)}\n")
+            ft.write(f"{split}_{i:04d} {' '.join(canon)}\n")
+    return scp, lab, trn
+
+
+def write_train_yaml(train, dev, epochs: int) -> str:
+    """The flagship recipe (conf/ctc_config.yaml's) in float32 on the
+    streaming loader, over the seeded corpus."""
+    fields = {
+        "exp_name": "smoke_train", "checkpoint_dir": str(WORK / "ckpt"),
+        "seed": 1234, "vocab_file": str(WORK / "units"),
+        "train_scp_path": train[0], "train_lab_path": train[1],
+        "train_trans_path": train[2], "valid_scp_path": dev[0],
+        "valid_lab_path": dev[1], "valid_trans_path": dev[2],
+        "left_ctx": 0, "right_ctx": 2, "n_skip_frame": 2, "n_downsample": 2,
+        "feature_dim": 81, "rnn_hidden_size": H, "rnn_layers": 4,
+        "drop_out": 0.2, "channel": "[(1, 32), (32, 32)]",
+        "kernel_size": "[(3, 3), (3, 3)]", "stride": "[(1, 2), (2, 2)]",
+        "padding": "[(1, 1), (1, 1)]", "use_text_attention": True,
+        "use_pallas_lstm": True, "device_frontend": True,
+        "wire_dtype": "bfloat16", "compute_dtype": "float32",
+        "device_cache": False, "init_lr": 0.001, "num_epoches": epochs,
+        "end_adjust_acc": 2.0, "lr_decay": 0.5, "batch_size": BATCH,
+        "weight_decay": 0.0005, "verbose_step": 1, "max_adjust_times": 8,
+        "plateau_patience": 10, "augment_mode": 2, "mutation_prob": 0.1,
+        "num_workers": 4}
+    path = WORK / f"train{epochs}.yaml"
+    path.write_text("".join(f"{k}: {json.dumps(v)}\n"
+                            for k, v in fields.items()))
+    return str(path)
+
+
+def phase_model_grad(torch, cfg, state, corpus) -> None:
+    """One Trainer step of the full-width model at B=8, dropout 0, with
+    the kernels and with the plain LSTM, from the same weights and batch."""
+    from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.train.loop import Trainer
+
+    ds = SpeechDataset(Vocab.from_units_file(str(WORK / "units")), *corpus,
+                       device_frontend=True)
+    batch = next(iter(BucketedLoader(ds, 8)))
+    out = {}
+    for name, use in (("kernel", True), ("plain", False)):
+        tr = Trainer(dataclasses.replace(cfg, use_pallas_lstm=use,
+                                         dropout=0.0),
+                     device="cuda", device_frontend=True)
+        tr.model.load_state_dict(state, strict=True)
+        acc = tr.train_step(tr.batch_arrays(batch),
+                            torch.zeros(4, device="cuda"))
+        out[name] = (acc.cpu(),
+                     {n: p.grad for n, p in tr.model.named_parameters()},
+                     dict(tr.model.named_buffers()))
+    (acc_k, g_k, b_k), (acc_p, g_p, b_p) = out["kernel"], out["plain"]
+    loss_err = abs(acc_k[0] - acc_p[0]).item() / abs(acc_p[0]).item()
+    top = max(g.abs().max().item() for g in g_p.values())
+    noise = ZERO_ULPS * torch.finfo(torch.float32).eps * top
+    zero = {n for n, g in g_p.items() if g.abs().max().item() <= noise}
+    zero_max = max((max(g_k[n].abs().max().item(), g_p[n].abs().max().item())
+                    for n in zero), default=0.0) / top
+    grad_err = {n: rel_err(g_k[n], g_p[n]) for n in g_p if n not in zero}
+    stat_err = max(rel_err(b_k[n], b_p[n]) for n in b_p)
+    worst = max(grad_err, key=grad_err.get)
+    log(f"[model-grad] B=8 T'={batch.inputs.shape[1] // 4}: loss "
+        f"{acc_k[0].item():.4f} vs {acc_p[0].item():.4f} (rel {loss_err:.2e}"
+        f"), WER counts {acc_k[1:3].tolist()} vs {acc_p[1:3].tolist()}; "
+        f"worst gradient {worst} rel err {grad_err[worst]:.3e} over "
+        f"{len(grad_err)} tensors; 0 up to rounding in the plain run: "
+        f"{sorted(zero)}, at most {zero_max:.2e} of the largest gradient in "
+        f"either run (limit {ZERO_ULPS * torch.finfo(torch.float32).eps:.2e})"
+        f"; BN statistics rel err {stat_err:.3e} (tol {GRAD_TOL})")
+    if not (loss_err <= 1e-5 and grad_err[worst] <= GRAD_TOL
+            and zero_max * top <= noise
+            and stat_err <= GRAD_TOL and all(torch.isfinite(
+                g).all() for g in g_k.values())):
+        raise AssertionError("kernel and plain-LSTM train steps disagree")
+
+
+def run_cli(args) -> str:
+    """`python -m mdd_tpu_torch <args>` in this process; -> its stdout."""
+    from mdd_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    if rc != 0:
+        raise AssertionError(f"{args} exited {rc}")
+    return out.getvalue()
+
+
+def phase_train(torch, train, dev) -> tuple:
+    """The training path; -> (lstm_fwd launches, lstm_bwd launches, the
+    epoch-2 YAML)."""
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+
+    confs = [write_train_yaml(train, dev, e) for e in (1, 2)]
+    lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(["train", "--conf", confs[0], "--device", "cuda"])
+    out += run_cli(["train", "--conf", confs[1], "--device", "cuda",
+                    "--resume"])
+    wall = time.perf_counter() - t0
+    fwd, bwd = lstm_fwd_kernel.launches, lstm_bwd_kernel.launches
+    for line in out.splitlines():
+        if "done" in line or "resumed" in line or "best dev" in line:
+            log(f"[train]   {line}")
+    losses = [float(v) for v in
+              re.findall(r"total_loss(?::| =) (\S+?),", out)]
+    first = float(re.search(r"Epoch = 1, step = 1, total_loss = (\S+?),",
+                            out).group(1))
+    ep2 = float(re.search(r"Epoch 2 Train done, total_loss: (\S+?),",
+                          out).group(1))
+    steps = -(-TRAIN_UTTS // BATCH) * 2
+    forwards = steps + -(-DEV_UTTS // BATCH) * 2
+    ckpt = WORK / "ckpt" / "smoke_train"
+    log(f"[train] 2 epochs of {TRAIN_UTTS} utterances at B={BATCH} in "
+        f"{wall:.1f} s (both runs' set-up included); "
+        f"first step loss {first:.4f}, epoch-2 train loss {ep2:.4f}; "
+        f"lstm_fwd launches {fwd} over {forwards} forwards, lstm_bwd "
+        f"launches {bwd} over {steps} train steps")
+    if not all(math.isfinite(v) for v in losses) or len(losses) < steps:
+        raise AssertionError(f"losses not finite or missing: {losses}")
+    if not ep2 < first:
+        raise AssertionError(f"epoch-2 loss {ep2} is not below the first "
+                             f"step's {first}")
+    for name in ("best.pt", "best.meta.json", "latest.pt", "latest.opt.pt"):
+        if not (ckpt / name).exists():
+            raise AssertionError(f"{name} was not written")
+    if bwd != 4 * steps or fwd < 4 * forwards:
+        raise AssertionError(f"{fwd} forward / {bwd} backward launches for "
+                             f"{forwards} forwards / {steps} train steps: a "
+                             "layer bypassed the kernels")
+    return fwd, bwd, confs[1]
+
+
+def phase_step_time(torch, conf: str, card: str) -> None:
+    """Train steps at B=64 on the corpus, each timed to a synchronize, then
+    torch.profiler over 3 more: device busy share and top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.dataset import pad_batch_to
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.utils.config import load_config
+
+    cfg = load_config(conf)
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    trainer = cli.build_trainer(cfg, vocab, "cuda")
+    trainer.restore(cfg.checkpoint_dir, cfg.exp_name, "latest")
+    loader = cli._build_loader(cfg, vocab, cfg.train_scp_path,
+                               cfg.train_lab_path, cfg.train_trans_path,
+                               train=True)
+    batches = [pad_batch_to(b, BATCH) for b in loader]
+    acc = torch.zeros(4, device="cuda")
+    secs, audio = [], []
+    for padded, valid in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = trainer.train_step(trainer.batch_arrays(padded, valid), acc)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        raw = padded.input_fracs[valid] * padded.inputs.shape[1]
+        audio.append(float(raw.round().sum()) * 0.01)      # 10 ms frames
+    med = statistics.median(secs)
+    log(f"[train] step time at B={BATCH}, T' {batches[0][0].inputs.shape[1] // 4}"
+        f"-{batches[-1][0].inputs.shape[1] // 4}: median {med * 1e3:.2f} ms "
+        f"over {len(secs)} steps (min {min(secs) * 1e3:.2f}, max "
+        f"{max(secs) * 1e3:.2f}); {sum(audio) / sum(secs):.1f} audio "
+        f"seconds per second ({card})")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for padded, valid in batches[:3]:
+            acc = trainer.train_step(trainer.batch_arrays(padded, valid), acc)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, "profile-train",
+                   f"3 train steps at B={BATCH}", card)
 
 
 def phase_timing(torch, card: str) -> dict:
@@ -359,9 +693,46 @@ def phase_timing(torch, card: str) -> dict:
     log(f"[timing] BiLSTM layer (768 -> 2x384): port bilstm_cuda "
         f"{layer_ms:.4f} ms, plain bilstm {layer_plain_ms:.4f} ms, "
         f"torch.nn.LSTM {library_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "timing_err": err}
+    fwd = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "timing_err": err}
+    return fwd, {b: timing_bwd(torch, t, b, g, card) for b in (64, 16)}
+
+
+def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
+    """lstm_bwd at (T', B), float32: the kernel, its plain version, its
+    bound, and the backward of one cuDNN torch.nn.LSTM layer as the
+    yardstick (its forward+backward minus its forward)."""
+    from mdd_tpu_torch.ops.lstm_cuda import (
+        lstm_bwd_kernel,
+        lstm_fwd_kernel,
+        lstm_seq_bwd_reference,
+    )
+
+    s = H ** -0.5
+    x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5).cuda()
+    w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1) * s).cuda()
+    dhs = torch.randn((t, 2, b, H), generator=g).cuda()
+    with torch.no_grad():
+        hs, cs = lstm_fwd_kernel(x_proj, w_hh)
+        fwd_ms = cuda_ms(lambda: lstm_fwd_kernel(x_proj, w_hh), 20)
+        ms = cuda_ms(lambda: lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs), 20)
+        plain_ms = cuda_ms(
+            lambda: lstm_seq_bwd_reference(x_proj, w_hh, hs, cs, dhs), 3)
+    lib = torch.nn.LSTM(2 * H, H, bidirectional=True, bias=False).cuda()
+    x = torch.randn((t, b, 2 * H), generator=g).cuda().requires_grad_()
+    dy = torch.randn((t, b, 2 * H), generator=g).cuda()
+    lib_fwd = cuda_ms(lambda: lib(x)[0], 20)
+    lib_both = cuda_ms(lambda: lib(x)[0].backward(dy), 20)
+    bnd, bound_by = lstm_bwd_bound_ms(t, b, H, "float32")
+    log(f"[timing] float32, B={b} T'={t}: lstm_bwd kernel {ms:.4f} ms "
+        f"(lstm_fwd at this shape {fwd_ms:.4f} ms), plain "
+        f"lstm_seq_bwd_reference {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"({bound_by}); torch.nn.LSTM layer backward (fwd+bwd "
+        f"{lib_both:.4f} - fwd {lib_fwd:.4f}) {lib_both - lib_fwd:.4f} ms "
+        f"({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": bound_by, "library_ms": lib_both - lib_fwd}
 
 
 def main() -> int:
@@ -388,11 +759,17 @@ def main() -> int:
 
     phase_build()
     worst = phase_kernel(torch)
+    worst_bwd = phase_kernel_bwd(torch)
     cfg, meta, state = phase_model(torch)
     files = write_serving_files(cfg, meta, state)
     launches, engine = phase_serve(files, card)
     phase_profile(torch, engine, files, card)
-    timing = phase_timing(torch, card)
+    train = write_corpus("train", TRAIN_UTTS, SEED + 2)
+    dev = write_corpus("dev", DEV_UTTS, SEED + 3)
+    phase_model_grad(torch, cfg, state, dev)
+    train_fwd, train_bwd, conf = phase_train(torch, train, dev)
+    phase_step_time(torch, conf, card)
+    timing, timing_bwd = phase_timing(torch, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = [{
@@ -400,13 +777,25 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
-        "launches": launches,
+        "launches": launches + train_fwd,
+        "launches_by_path": {"serve": launches, "train": train_fwd},
         "max_abs_err": max(worst["float32"], timing["timing_err"]),
+        "shape": f"T'=80 B=16 H={H} float32",
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+    }, {
+        "name": "lstm_bwd",
+        "route": "cuda",
+        "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
+        "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
+        "launches": train_bwd,
+        "launches_by_path": {"train": train_bwd},
+        "max_abs_err": worst_bwd["float32_abs"],
+        "shape": f"T'=80 B={BATCH} H={H} float32",
+        **timing_bwd[BATCH],
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,11 +2,13 @@
 
 The serving path of mdd_tpu (fbank front end, CMVN, splice, the
 CNN + 4 x BiLSTM + canonical-text-attention CTC model, greedy decoding,
-alignment and MDD scoring, the line-delimited JSON server) in PyTorch,
-with the acoustic BiLSTM recurrence in a hand-written Hopper kernel
-(csrc/lstm_fwd.cu).  Module names mirror mdd_tpu's, so each module's
-counterpart is easy to find.  Entry points run on the GPU ("cuda") unless
-the caller asks for the CPU.
+alignment and MDD scoring, the line-delimited JSON server) and its
+training path (ark/scp corpus, augmentation, bucketed loader, CTC loss,
+Adam and the plateau machine, resumable checkpoints) in PyTorch, with the
+acoustic BiLSTM recurrence in hand-written Hopper kernels
+(csrc/lstm_fwd.cu, csrc/lstm_bwd.cu).  Module names mirror mdd_tpu's, so
+each module's counterpart is easy to find.  Entry points run on the GPU
+("cuda") unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

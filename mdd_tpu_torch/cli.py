@@ -1,8 +1,11 @@
 """Command-line interface of the port (counterpart of mdd_tpu/cli.py).
 
+  python -m mdd_tpu_torch train --conf YAML [--resume] [--device cuda|cpu]
   python -m mdd_tpu_torch serve --conf YAML --cmvn F [--checkpoint DIR]
                                 [--device cuda|cpu] [--decode-type Greedy]
 
+`train` runs the recipe of the YAML on the streaming loader and writes
+`best` and the resumable `latest` under `<checkpoint_dir>/<exp_name>/`.
 `serve` answers line-delimited JSON requests on stdin (see serve.py).
 The checkpoint is the port's format (train/checkpoint.py): by default
 `<checkpoint_dir>/<exp_name>/best.pt` + `best.meta.json` of the config.
@@ -14,6 +17,69 @@ import argparse
 import os
 import sys
 from typing import List, Optional
+
+
+def _build_loader(cfg, vocab, scp, lab, trans, train: bool):
+    """The streaming loader of mdd_tpu's `_build_loader` (one process)."""
+    from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
+    from mdd_tpu_torch.data.prefetch import ThreadedLoader
+
+    ds = SpeechDataset(
+        vocab, scp, lab, trans,
+        left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
+        n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample,
+        train=train, augment_mode=cfg.augment_mode,
+        mutation_prob=cfg.mutation_prob,
+        device_frontend=cfg.device_frontend)
+    loader = BucketedLoader(
+        ds, cfg.batch_size, shuffle=train and cfg.shuffle_train,
+        seed=cfg.seed, num_workers=cfg.num_workers,
+        time_quantum=cfg.time_quantum, label_quantum=cfg.label_quantum,
+        wire_dtype=(cfg.wire_dtype or None) if cfg.device_frontend else None)
+    if cfg.num_workers > 0:
+        loader = ThreadedLoader(loader, prefetch=4)
+    return loader
+
+
+def build_trainer(cfg, vocab, device: str):
+    from mdd_tpu_torch.train.loop import Trainer
+
+    return Trainer(
+        cfg.model_config(vocab.n_words),
+        init_lr=cfg.init_lr, weight_decay=cfg.weight_decay,
+        lr_decay=cfg.lr_decay, end_adjust_acc=cfg.end_adjust_acc,
+        plateau_patience=cfg.plateau_patience,
+        max_adjust_times=cfg.max_adjust_times, seed=cfg.seed,
+        device=device, device_frontend=cfg.device_frontend,
+        left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
+        n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
+
+
+def cmd_train(args) -> int:
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.utils.config import check_train_config, load_config
+
+    cfg = load_config(args.conf)
+    check_train_config(cfg)
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    print(f"Vocabulary size is {vocab.n_words}")
+    trainer = build_trainer(cfg, vocab, args.device)
+    train_loader = _build_loader(cfg, vocab, cfg.train_scp_path,
+                                 cfg.train_lab_path, cfg.train_trans_path,
+                                 train=True)
+    dev_loader = _build_loader(cfg, vocab, cfg.valid_scp_path,
+                               cfg.valid_lab_path, cfg.valid_trans_path,
+                               train=False)
+    summary = trainer.fit(train_loader, dev_loader,
+                          num_epochs=cfg.num_epoches,
+                          print_every=cfg.verbose_step,
+                          checkpoint_dir=cfg.checkpoint_dir,
+                          exp_name=cfg.exp_name, resume=args.resume,
+                          checkpoint_every=cfg.checkpoint_every)
+    print("best dev loss %.4f acc %.4f after %d epochs"
+          % (summary["best_dev_loss"], summary["best_acc"],
+             summary["epochs"]))
+    return 0
 
 
 def _build_engine(args):
@@ -57,6 +123,16 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mdd_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    q = sub.add_parser("train", help="train the CTC-attention model")
+    q.add_argument("--conf", required=True)
+    q.add_argument("--resume", action="store_true",
+                   help="continue from the experiment's 'latest' "
+                        "checkpoint (params, optimizer, LR scheduler and "
+                        "loss histories are restored)")
+    q.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda)")
+    q.set_defaults(fn=cmd_train)
 
     q = sub.add_parser("serve", help="persistent diagnosis server "
                                      "(line-delimited JSON on stdin)")

@@ -1,1 +1,1 @@
-"""Vocabulary and the batch record."""
+"""Vocabulary, the speech dataset, bucketed loaders and prefetch."""

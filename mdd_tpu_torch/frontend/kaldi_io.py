@@ -1,0 +1,132 @@
+"""Minimal Kaldi ark/scp matrix IO (counterpart of mdd_tpu/frontend/kaldi_io.py).
+
+Binary float/double matrices ("BFM "/"BDM ", as `copy-feats
+--compress=false` writes them) and vectors, scp indirection
+(`utt path:offset`), and the writer the training corpus tools use.  Pure
+Python + NumPy; the native mmap reader and the header-only length scan
+(`matrix_rows`, for mdd_tpu's multi-process global schedule) wait for the
+port's scale-out slice.
+"""
+
+from __future__ import annotations
+
+import struct
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+
+
+def read_scp(path: str) -> Dict[str, str]:
+    """scp file -> {utt: rxspecifier} preserving order."""
+    out: Dict[str, str] = {}
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            utt, rx = line.split(" ", 1)
+            out[utt] = rx
+    return out
+
+
+def _read_token(f) -> str:
+    tok = b""
+    while True:
+        c = f.read(1)
+        if c in (b" ", b""):
+            break
+        tok += c
+    return tok.decode()
+
+
+def _expect(f, byte: bytes) -> None:
+    got = f.read(1)
+    if got != byte:
+        raise ValueError(f"malformed Kaldi binary header: {got!r} where "
+                         f"{byte!r} was expected")
+
+
+def _read_binary_matrix(f) -> np.ndarray:
+    token = _read_token(f)
+    if token in ("BFM", "BDM"):
+        dtype = np.float32 if token == "BFM" else np.float64
+        _expect(f, b"\x04")
+        rows = struct.unpack("<i", f.read(4))[0]
+        _expect(f, b"\x04")
+        cols = struct.unpack("<i", f.read(4))[0]
+        data = np.frombuffer(f.read(rows * cols * dtype().itemsize),
+                             dtype=dtype)
+        return data.reshape(rows, cols).astype(np.float32)
+    if token in ("BFV", "BDV"):
+        dtype = np.float32 if token == "BFV" else np.float64
+        _expect(f, b"\x04")
+        n = struct.unpack("<i", f.read(4))[0]
+        return np.frombuffer(f.read(n * dtype().itemsize),
+                             dtype=dtype).astype(np.float32)
+    raise ValueError(f"unsupported Kaldi binary token {token!r} "
+                     "(compressed matrices are not supported)")
+
+
+def _split_rx(rxspecifier: str):
+    """`path:offset` -> (path, offset); a plain path -> (path, None)."""
+    if ":" in rxspecifier and rxspecifier.rsplit(":", 1)[1].isdigit():
+        path, offset = rxspecifier.rsplit(":", 1)
+        return path, int(offset)
+    return rxspecifier, None
+
+
+def load_mat(rxspecifier: str) -> np.ndarray:
+    """Load one matrix given `path:offset` (scp entry) or a plain path."""
+    path, offset = _split_rx(rxspecifier)
+    with open(path, "rb") as f:
+        if offset is not None:
+            f.seek(offset)
+        else:
+            _read_token(f)  # skip utt id when reading a bare ark
+        if f.read(2) != b"\x00B":
+            raise ValueError("only binary Kaldi matrices are supported")
+        return _read_binary_matrix(f)
+
+
+def read_ark(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """Iterate (utt, matrix) over a binary ark file."""
+    with open(path, "rb") as f:
+        while True:
+            utt = _read_token(f)
+            if not utt:
+                return
+            if f.read(2) != b"\x00B":
+                raise ValueError("only binary arks are supported")
+            yield utt, _read_binary_matrix(f)
+
+
+class ArkScpWriter:
+    """Write (utt, matrix) pairs to a binary ark + scp pair."""
+
+    def __init__(self, ark_path: str, scp_path: str | None = None):
+        self.ark_path = ark_path
+        self._ark = open(ark_path, "wb")
+        self._scp = (open(scp_path, "w", encoding="utf-8")
+                     if scp_path else None)
+
+    def write(self, utt: str, mat: np.ndarray) -> None:
+        mat = np.ascontiguousarray(mat, dtype=np.float32)
+        self._ark.write(utt.encode() + b" ")
+        offset = self._ark.tell()
+        self._ark.write(b"\x00B" + b"BFM \x04"
+                        + struct.pack("<i", mat.shape[0]) + b"\x04"
+                        + struct.pack("<i", mat.shape[1]))
+        self._ark.write(mat.tobytes())
+        if self._scp:
+            self._scp.write(f"{utt} {self.ark_path}:{offset}\n")
+
+    def close(self) -> None:
+        self._ark.close()
+        if self._scp:
+            self._scp.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,12 +1,12 @@
 """CNN + BiLSTM CTC acoustic model with canonical-text attention, in PyTorch.
 
-Counterpart of mdd_tpu/models/ctc_model.py, in eval mode:
+Counterpart of mdd_tpu/models/ctc_model.py:
 
   acoustic:  (B, T, 243) spliced fbank
-             -> Conv 3x3 s(1,2) + BN + ReLU      (32 ch)
-             -> Conv 3x3 s(2,2) + BN + ReLU      (32 ch)
-             -> flatten freq x channel -> 4 x BiLSTM(384)  (BN before
-                layers 2..4, no recurrent bias) -> (B, T', 768)
+             -> Conv 3x3 s(1,2) + BN + ReLU + dropout      (32 ch)
+             -> Conv 3x3 s(2,2) + BN + ReLU + dropout      (32 ch)
+             -> flatten freq x channel -> 4 x BiLSTM(384) + dropout (BN
+                before layers 2..4, no recurrent bias) -> (B, T', 768)
   text:      (B, L) canonical phone ids -> Embedding(512)
              -> BiLSTM(384) with bias -> values (B, L, 768)
              -> keys = values @ W_key (768 x 768)
@@ -17,8 +17,12 @@ Parameters and buffers carry the flax module paths as their names
 (`rnn0.w_ih_fwd`, `conv.bn0.mean`, `head.kernel`, ...) and the flax
 orientation (`x @ kernel`); only the convolution kernels are stored in
 torch's OIHW layout.  convert.flax_to_torch maps a flax checkpoint onto
-them.  Dropout is the identity in eval mode; train mode (masked batch
-statistics, dropout) comes with the training slice.
+them; `init_parameters` draws fresh ones with flax's initializers.
+
+`forward(..., train=True, sample_mask=..., generator=...)` is flax's train
+mode: every BatchNorm normalises with the statistics of the rows
+`sample_mask` keeps and updates its running averages, and dropout masks
+are drawn from `generator`.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from mdd_tpu_torch.ops.lstm import bilstm
 from mdd_tpu_torch.ops.lstm_cuda import bilstm_cuda
 
 BN_EPSILON = 1e-5    # flax.linen.BatchNorm's default
+BN_MOMENTUM = 0.9    # mdd_tpu's BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,8 +58,10 @@ class ModelConfig:
     dropout: float = 0.2
     compute_dtype: str = "float32"     # "bfloat16" for throughput runs
     use_pallas_lstm: bool = False      # acoustic recurrence in the fused
-    # kernel (mdd_tpu: Pallas; here: csrc/lstm_fwd.cu via ops.lstm_cuda)
-    use_fused_dropout: bool = False    # training only; no effect in eval
+    # kernels (mdd_tpu: Pallas; here: csrc/lstm_{fwd,bwd}.cu via
+    # ops.lstm_cuda)
+    use_fused_dropout: bool = False    # in-kernel dropout masks: not ported
+    # yet, so a config that sets it is refused in train mode
 
     @property
     def time_downsample(self) -> int:
@@ -93,9 +100,32 @@ def model_config_from_meta(meta: dict) -> ModelConfig:
     return ModelConfig(**raw)
 
 
+def batch_stats(x: torch.Tensor, axis: int,
+                sample_mask: torch.Tensor | None):
+    """flax's BatchNorm statistics over every axis but `axis`, leaving out
+    the batch rows (axis 0) where `sample_mask` is False: float32 mean and
+    the fast variance E[x^2] - E[x]^2, clamped at 0 (use_fast_variance)."""
+    xf = x.float()
+    dims = [k for k in range(x.dim()) if k != axis % x.dim()]
+    if sample_mask is None:
+        mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+    else:
+        keep = sample_mask.view([-1] + [1] * (x.dim() - 1)).expand_as(xf)
+        zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
+        count = keep.sum(dims).to(xf.dtype)
+        mean = torch.where(keep, xf, zero).sum(dims) / count
+        mean2 = torch.where(keep, xf * xf, zero).sum(dims) / count
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm with flax's parameter names and arithmetic:
-    (x - mean) * (scale * rsqrt(var + eps)) + bias, over one feature axis."""
+    """BatchNorm with flax's parameter names and arithmetic:
+    (x - mean) * (scale * rsqrt(var + eps)) + bias, over one feature axis.
+
+    Eval mode normalises with the running averages.  Train mode normalises
+    with the batch statistics of the rows `sample_mask` keeps
+    (`batch_stats`) and moves the running averages towards them,
+    ra = 0.9 ra + 0.1 batch, with the biased variance, as flax does."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -104,13 +134,38 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype,
-                axis: int = -1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, axis: int = -1,
+                train: bool = False,
+                sample_mask: torch.Tensor | None = None) -> torch.Tensor:
         shape = [1] * x.dim()
         shape[axis] = -1
-        mul = torch.rsqrt(self.var + BN_EPSILON) * self.scale
-        y = (x - self.mean.view(shape)) * mul.view(shape)
+        if train:
+            mean, var = batch_stats(x, axis, sample_mask)
+            with torch.no_grad():
+                self.mean.copy_(BN_MOMENTUM * self.mean
+                                + (1 - BN_MOMENTUM) * mean)
+                self.var.copy_(BN_MOMENTUM * self.var
+                               + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        y = (x - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax nn.Dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate); the mask comes from
+    `generator`, which train mode must supply when rate > 0."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout draws its masks from an "
+                         "explicit torch.Generator; pass generator=")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class Dense(nn.Module):
@@ -129,9 +184,10 @@ class BiLstmLayer(nn.Module):
 
     def __init__(self, d_in: int, hidden_size: int,
                  use_batch_norm: bool = True, use_bias: bool = False,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, dropout: float = 0.0):
         super().__init__()
         four_h = 4 * hidden_size
+        self.dropout = dropout
         self.bn = BatchNorm(d_in) if use_batch_norm else None
         self.w_ih_fwd = nn.Parameter(torch.empty(d_in, four_h))
         self.w_hh_fwd = nn.Parameter(torch.empty(hidden_size, four_h))
@@ -143,16 +199,18 @@ class BiLstmLayer(nn.Module):
             self.b_bwd = nn.Parameter(torch.empty(four_h))
         self.rnn = bilstm_cuda if use_kernel else bilstm
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                train: bool = False, sample_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         # x: (B, T, D) -> (B, T, 2H)
         if self.bn is not None:
-            x = self.bn(x, dtype)
+            x = self.bn(x, dtype, train=train, sample_mask=sample_mask)
         w = [p.to(dtype) for p in (self.w_ih_fwd, self.w_hh_fwd,
                                    self.w_ih_bwd, self.w_hh_bwd)]
         b = [None if p is None else p.to(dtype)
              for p in (self.b_fwd, self.b_bwd)]
         y = self.rnn(x.transpose(0, 1), *w, *b)
-        return y.transpose(0, 1)
+        return dropout(y.transpose(0, 1), self.dropout, train, generator)
 
 
 class ConvSubsampler(nn.Module):
@@ -171,14 +229,18 @@ class ConvSubsampler(nn.Module):
             self.add_module(f"bn{i}", BatchNorm(ch))
             c_in = ch
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                train: bool = False, sample_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x[:, None].to(dtype)                            # NCHW, C = 1
         for i, (s, p) in enumerate(zip(self.cfg.conv_strides,
                                        self.cfg.conv_padding)):
             conv = getattr(self, f"conv{i}")
             x = F.conv2d(x, conv.kernel.to(dtype), conv.bias.to(dtype),
                          stride=tuple(s), padding=tuple(p))
-            x = F.relu(getattr(self, f"bn{i}")(x, dtype, axis=1))
+            x = F.relu(getattr(self, f"bn{i}")(
+                x, dtype, axis=1, train=train, sample_mask=sample_mask))
+            x = dropout(x, self.cfg.dropout, train, generator)
         b, c, t, f = x.shape
         # flax flattens NHWC: frequency-major, channel fastest
         return x.permute(0, 2, 3, 1).reshape(b, t, f * c)
@@ -187,7 +249,8 @@ class ConvSubsampler(nn.Module):
 class TextEncoder(nn.Module):
     """Canonical-phone encoder: Embedding -> BiLSTM -> (values, keys).
 
-    The text BiLSTM stays on the plain loop, as in mdd_tpu (short L)."""
+    The text BiLSTM stays on the plain loop, as in mdd_tpu (short L), and
+    has no BatchNorm and no dropout, so train mode changes nothing here."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -223,7 +286,8 @@ class CTCAttentionModel(nn.Module):
         for i in range(cfg.rnn_layers):
             layer = BiLstmLayer(d_in, cfg.rnn_hidden_size,
                                 use_batch_norm=i > 0,
-                                use_kernel=cfg.use_pallas_lstm)
+                                use_kernel=cfg.use_pallas_lstm,
+                                dropout=cfg.dropout)
             self.add_module(f"rnn{i}", layer)
             self.rnn_layers.append(layer)
             d_in = cfg.encoder_dim
@@ -236,14 +300,20 @@ class CTCAttentionModel(nn.Module):
 
     def forward(self, feats: torch.Tensor, trans: torch.Tensor,
                 trans_lengths: torch.Tensor | None = None,
-                train: bool = False) -> torch.Tensor:
-        if train:
+                train: bool = False,
+                sample_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """sample_mask: (B,) bool, False rows (batch padding) are left out
+        of the batch statistics; generator: the dropout masks' source."""
+        if train and self.cfg.use_fused_dropout:
             raise NotImplementedError(
-                "train mode (masked batch statistics, dropout) comes with "
-                "the training slice of the port")
-        x = self.conv(feats, self.dtype)
+                "use_fused_dropout: the fused dropout kernel (port of "
+                "mdd_tpu/ops/dropout_pallas.py) is not ported yet")
+        rest = dict(train=train, sample_mask=sample_mask,
+                    generator=generator)
+        x = self.conv(feats, self.dtype, **rest)
         for layer in self.rnn_layers:
-            x = layer(x, self.dtype)                        # (B, T', 768)
+            x = layer(x, self.dtype, **rest)                # (B, T', 768)
         if self.cfg.use_text_attention:
             values, keys = self.text(trans, trans_lengths, self.dtype)
             mask = None
@@ -252,9 +322,35 @@ class CTCAttentionModel(nn.Module):
                         < trans_lengths[:, None])
             context, _ = dot_attention(x, keys, values, mask)
             x = torch.cat([x, context], dim=-1)             # (B, T', 1536)
-        x = self.head_bn(x, self.dtype)
+        x = self.head_bn(x, self.dtype, train=train, sample_mask=sample_mask)
         logits = self.head(x, self.dtype).float()
         return torch.log_softmax(logits, dim=-1).transpose(0, 1)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Fresh weights with mdd_tpu's initializers (the distributions of
+        flax's defaults, not its random bits): LSTM weights and biases
+        U(-1/sqrt(H), 1/sqrt(H)), convolution and dense kernels
+        lecun-normal, convolution biases 0, embeddings N(0, 1/features),
+        BatchNorm at identity."""
+        lim = self.cfg.rnn_hidden_size ** -0.5
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith(("w_ih", "w_hh", "b_fwd", "b_bwd")):
+                p.uniform_(-lim, lim, generator=generator)
+            elif leaf == "kernel":
+                fan_in = p[0].numel() if p.dim() == 4 else p.shape[0]
+                std = fan_in ** -0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+            elif leaf == "embedding":
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+            elif leaf in ("bias", "scale"):
+                p.fill_(1.0 if leaf == "scale" else 0.0)
+            else:
+                raise ValueError(f"no initializer for parameter {name}")
+        for name, buf in self.named_buffers():
+            buf.fill_(1.0 if name.endswith(".var") else 0.0)

@@ -1,2 +1,2 @@
-"""Tensor functions of the port: the plain LSTM, the CUDA LSTM kernel's
-binding, attention."""
+"""Tensor functions of the port: the plain LSTM, the CUDA LSTM kernels'
+bindings, attention, the CTC loss and the device WER counts."""

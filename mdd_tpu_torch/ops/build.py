@@ -2,8 +2,8 @@
 
 Each `csrc/*.cu` file exports a plain C interface and is compiled by hand
 with `nvcc` for `sm_90a` (Hopper) into `mdd_tpu_torch/_build/`, at first
-use, keyed by a hash of the source and the flags so an edited source is
-rebuilt.  Nothing here runs at import time, and nothing falls back: a
+use, keyed by a hash of the source, the shared `csrc/*.cuh` headers and
+the flags, so an edited source or header is rebuilt.  Nothing here runs at import time, and nothing falls back: a
 missing `nvcc` or a failed compile raises.
 """
 
@@ -37,9 +37,12 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where `csrc/<source>` builds to (the name carries the source hash)."""
+    """Where `csrc/<source>` builds to (the name carries a hash of the
+    source, the shared headers and the flags)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = src.read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

@@ -1,4 +1,5 @@
-"""Fused two-direction LSTM recurrence: the Hopper kernel and its plain version.
+"""Fused two-direction LSTM recurrence: the Hopper kernels and their plain
+versions.
 
 Counterpart of mdd_tpu/ops/lstm_pallas.py.  `lstm_seq` and the
 `bilstm_cuda` facade keep that module's contract and layout:
@@ -8,11 +9,12 @@ the compute dtype, float32 accumulation and gate math, and the cell state
 carried in float32 for the whole sequence.
 
 On a CUDA tensor `lstm_seq_fwd` launches the kernel of
-`csrc/lstm_fwd.cu` (see the note there for its design) or raises; on a
-CPU tensor it runs `lstm_seq_fwd_reference`, the plain PyTorch version
-that the tests and chip_smoke.py hold the kernel against.  The CUDA path
-is forward-only: a call that autograd would have to differentiate raises
-NotImplementedError (the backward kernel is the training slice's work).
+`csrc/lstm_fwd.cu` and `lstm_seq_bwd` the kernels of `csrc/lstm_bwd.cu`
+(see the notes there for their design), or raise; on a CPU tensor they run
+`lstm_seq_fwd_reference` and `lstm_seq_bwd_reference`, the plain PyTorch
+versions that the tests and chip_smoke.py hold the kernels against.
+`LstmSeq` pairs the two as one autograd Function (the custom VJP of
+lstm_pallas.lstm_seq).
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import torch
 from mdd_tpu_torch.ops import build
 from mdd_tpu_torch.ops.lstm import input_projections
 
-SOURCE = "lstm_fwd.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -52,11 +53,85 @@ def lstm_seq_fwd_reference(x_proj: torch.Tensor, w_hh: torch.Tensor):
     return torch.stack(hs), torch.stack(cs)
 
 
-class LstmFwdKernel:
-    """ctypes binding of `mdd_lstm_fwd` with a launch counter.
+def lstm_seq_bwd_reference(x_proj, w_hh, hs, cs, dhs):
+    """The backward of `lstm_seq_fwd_reference` (_lstm_seq_bwd's contract):
+    -> (dx_proj in x_proj.dtype, dW_hh float32).
 
-    `launches` counts the kernel launches this object made; it is a plain
+    Walks t from T-1 down to 0 as the kernel does: gates recomputed from
+    h_{t-1} (hs, zero at t = 0) with dot operands in x_proj's dtype and
+    float32 sums, dh and dc carried in float32, c read from the saved cs
+    stream, and dgates rounded to x_proj's dtype before both products."""
+    t, d, b, four_h = x_proj.shape
+    h = four_h // 4
+    dtype = x_proj.dtype
+    w = w_hh.to(dtype).float()
+    w_t = w.transpose(1, 2)
+    dhs = dhs.float()
+    zeros = torch.zeros((d, b, h), dtype=torch.float32, device=x_proj.device)
+    dh, dc = zeros, zeros
+    dw = torch.zeros((d, h, four_h), dtype=torch.float32,
+                     device=x_proj.device)
+    dxp = torch.empty_like(x_proj)
+    for step in range(t - 1, -1, -1):
+        h_prev = hs[step - 1].float() if step > 0 else zeros
+        c_prev = cs[step - 1].float() if step > 0 else zeros
+        c_t = cs[step].float()
+        dh_total = dhs[step] + dh
+        gates = x_proj[step].float() + torch.bmm(h_prev, w)
+        i, f, g, o = gates.split(h, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        tanh_c = torch.tanh(c_t)
+        dc = dh_total * o * (1.0 - tanh_c * tanh_c) + dc
+        dgates = torch.cat([dc * g * i * (1.0 - i),
+                            dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - g * g),
+                            dh_total * tanh_c * o * (1.0 - o)], dim=-1)
+        dg_lp = dgates.to(dtype)
+        dxp[step] = dg_lp
+        dh = torch.bmm(dg_lp.float(), w_t)
+        dw = dw + torch.bmm(h_prev.transpose(1, 2), dg_lp.float())
+        dc = dc * f
+    return dxp, dw
+
+
+def _check_lstm_inputs(x_proj, w_hh, units_per_block):
+    """The shapes, dtypes and devices both LSTM kernels take; -> (T, B, H).
+    The device and dtype are checked before `units_per_block()` builds or
+    loads anything."""
+    if x_proj.device.type != "cuda" or w_hh.device != x_proj.device:
+        raise ValueError("the LSTM kernels take CUDA tensors on one "
+                         f"device, got {x_proj.device} and {w_hh.device}")
+    if x_proj.dtype not in _DTYPE_CODES or w_hh.dtype != x_proj.dtype:
+        raise TypeError("the LSTM kernels take float32 or bfloat16 "
+                        f"x_proj and w_hh of the same dtype, got "
+                        f"{x_proj.dtype} and {w_hh.dtype}")
+    if x_proj.dim() != 4 or x_proj.shape[1] != 2:
+        raise ValueError(f"x_proj must be (T, 2, B, 4H), got "
+                         f"{tuple(x_proj.shape)}")
+    t, d, b, four_h = x_proj.shape
+    h = four_h // 4
+    units = units_per_block()
+    if (four_h % 4 or h % units or t < 1 or b < 1
+            or tuple(w_hh.shape) != (d, h, four_h)):
+        raise ValueError(
+            f"unsupported LSTM shapes x_proj {tuple(x_proj.shape)}, "
+            f"w_hh {tuple(w_hh.shape)}: need T, B >= 1, H % {units} == 0 "
+            "and w_hh of shape (2, H, 4H)")
+    if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
+        raise ValueError("the LSTM kernels take contiguous tensors")
+    return t, b, h
+
+
+class _KernelBinding:
+    """ctypes binding of one `csrc/` library with a launch counter.
+
+    `launches` counts the calls that launched the kernel; it is a plain
     integer that a caller may reset."""
+
+    source = ""
+    entry = ""
+    n_pointers = 0
 
     def __init__(self):
         self.launches = 0
@@ -64,62 +139,85 @@ class LstmFwdKernel:
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = build.load(SOURCE)
-            lib.mdd_lstm_fwd.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p])
-            lib.mdd_lstm_fwd.restype = ctypes.c_int
-            lib.mdd_lstm_fwd_units_per_block.argtypes = []
-            lib.mdd_lstm_fwd_units_per_block.restype = ctypes.c_int
+            lib = build.load(self.source)
+            fn = getattr(lib, self.entry)
+            fn.argtypes = ([ctypes.c_void_p] * self.n_pointers
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            units = getattr(lib, self.entry + "_units_per_block")
+            units.argtypes = []
+            units.restype = ctypes.c_int
             lib.mdd_cuda_error_string.argtypes = [ctypes.c_int]
             lib.mdd_cuda_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor):
-        if x_proj.device.type != "cuda" or w_hh.device != x_proj.device:
-            raise ValueError("the LSTM kernel takes CUDA tensors on one "
-                             f"device, got {x_proj.device} and {w_hh.device}")
-        if x_proj.dtype not in _DTYPE_CODES or w_hh.dtype != x_proj.dtype:
-            raise TypeError("the LSTM kernel takes float32 or bfloat16 "
-                            f"x_proj and w_hh of the same dtype, got "
-                            f"{x_proj.dtype} and {w_hh.dtype}")
-        if x_proj.dim() != 4 or x_proj.shape[1] != 2:
-            raise ValueError(f"x_proj must be (T, 2, B, 4H), got "
-                             f"{tuple(x_proj.shape)}")
-        t, d, b, four_h = x_proj.shape
-        h = four_h // 4
+    def _launch(self, device, *args) -> None:
         lib = self.library()
-        units = lib.mdd_lstm_fwd_units_per_block()
-        if (four_h % 4 or h % units or t < 1 or b < 1
-                or tuple(w_hh.shape) != (d, h, four_h)):
-            raise ValueError(
-                f"unsupported LSTM shapes x_proj {tuple(x_proj.shape)}, "
-                f"w_hh {tuple(w_hh.shape)}: need T, B >= 1, H % {units} == 0 "
-                "and w_hh of shape (2, H, 4H)")
-        if not (x_proj.is_contiguous() and w_hh.is_contiguous()):
-            raise ValueError("the LSTM kernel takes contiguous tensors")
-        hs = torch.empty((t, d, b, h), dtype=x_proj.dtype,
-                         device=x_proj.device)
-        cs = torch.empty_like(hs)
-        c_state = torch.empty((d, b, h), dtype=torch.float32,
-                              device=x_proj.device)
-        barrier = torch.zeros(d, dtype=torch.int32, device=x_proj.device)
-        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        with torch.cuda.device(x_proj.device):
-            err = lib.mdd_lstm_fwd(
-                x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-                cs.data_ptr(), c_state.data_ptr(), barrier.data_ptr(),
-                t, b, h, _DTYPE_CODES[x_proj.dtype], stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = getattr(lib, self.entry)(*args, stream)
         if err != 0:
-            raise RuntimeError("LSTM kernel launch failed: "
+            raise RuntimeError(f"{self.entry} launch failed: "
                                + lib.mdd_cuda_error_string(err).decode())
         self.launches += 1
+
+    def units_per_block(self) -> int:
+        return getattr(self.library(), self.entry + "_units_per_block")()
+
+
+class LstmFwdKernel(_KernelBinding):
+    """`mdd_lstm_fwd` of csrc/lstm_fwd.cu: (x_proj, w_hh) -> (hs, cs)."""
+
+    source, entry, n_pointers = "lstm_fwd.cu", "mdd_lstm_fwd", 6
+
+    def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor):
+        t, b, h = _check_lstm_inputs(x_proj, w_hh, self.units_per_block)
+        dev = x_proj.device
+        hs = torch.empty((t, 2, b, h), dtype=x_proj.dtype, device=dev)
+        cs = torch.empty_like(hs)
+        c_state = torch.empty((2, b, h), dtype=torch.float32, device=dev)
+        barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+        self._launch(dev, x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+                     cs.data_ptr(), c_state.data_ptr(), barrier.data_ptr(),
+                     t, b, h, _DTYPE_CODES[x_proj.dtype])
         return hs, cs
 
 
-#: the process's binding; chip_smoke.py reads and resets its counter
+class LstmBwdKernel(_KernelBinding):
+    """`mdd_lstm_bwd` of csrc/lstm_bwd.cu (the recurrence, then the dW_hh
+    product): (x_proj, w_hh, hs, cs, dhs) -> (dx_proj, dW_hh float32)."""
+
+    source, entry, n_pointers = "lstm_bwd.cu", "mdd_lstm_bwd", 10
+
+    def __call__(self, x_proj, w_hh, hs, cs, dhs):
+        t, b, h = _check_lstm_inputs(x_proj, w_hh, self.units_per_block)
+        want = (t, 2, b, h)
+        for name, a, dtype in (("hs", hs, x_proj.dtype),
+                               ("cs", cs, x_proj.dtype),
+                               ("dhs", dhs, torch.float32)):
+            if (tuple(a.shape) != want or a.dtype != dtype
+                    or a.device != x_proj.device or not a.is_contiguous()):
+                raise ValueError(
+                    f"{name} must be a contiguous {dtype} tensor of shape "
+                    f"{want} on {x_proj.device}, got {a.dtype} "
+                    f"{tuple(a.shape)} on {a.device}")
+        dev = x_proj.device
+        dxp = torch.empty_like(x_proj)
+        dw = torch.empty((2, h, 4 * h), dtype=torch.float32, device=dev)
+        carries = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+        barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+        self._launch(dev, x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+                     cs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(),
+                     dw.data_ptr(), carries[0].data_ptr(),
+                     carries[1].data_ptr(), barrier.data_ptr(),
+                     t, b, h, _DTYPE_CODES[x_proj.dtype])
+        return dxp, dw
+
+
+#: the process's bindings; chip_smoke.py reads and resets their counters
 lstm_fwd_kernel = LstmFwdKernel()
+lstm_bwd_kernel = LstmBwdKernel()
 
 
 def lstm_seq_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor):
@@ -129,19 +227,43 @@ def lstm_seq_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor):
     w_hh = w_hh.to(x_proj.dtype)
     if x_proj.device.type == "cpu":
         return lstm_seq_fwd_reference(x_proj, w_hh)
-    if torch.is_grad_enabled() and (x_proj.requires_grad
-                                    or w_hh.requires_grad):
-        raise NotImplementedError(
-            "the CUDA LSTM kernel is forward-only: its backward kernel "
-            "(port of lstm_pallas._bwd_kernel) comes with the training "
-            "slice; run inference under torch.inference_mode()")
     return lstm_fwd_kernel(x_proj.contiguous(), w_hh.contiguous())
+
+
+def lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs):
+    """-> (dx_proj in x_proj.dtype, dW_hh float32): the kernels on a CUDA
+    tensor, the plain version on a CPU tensor.  w_hh is cast to x_proj's
+    dtype and dhs to float32, as _lstm_seq_bwd casts them."""
+    w_hh = w_hh.to(x_proj.dtype)
+    dhs = dhs.float()
+    if x_proj.device.type == "cpu":
+        return lstm_seq_bwd_reference(x_proj, w_hh, hs, cs, dhs)
+    return lstm_bwd_kernel(*(a.contiguous() for a in
+                             (x_proj, w_hh, hs, cs, dhs)))
+
+
+class LstmSeq(torch.autograd.Function):
+    """lstm_seq with its hand-written backward (lstm_pallas's custom VJP):
+    the forward saves (x_proj, w_hh, hs, cs), the backward returns
+    (dx_proj in x_proj.dtype, dW_hh in w_hh.dtype)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh):
+        hs, cs = lstm_seq_fwd(x_proj, w_hh)
+        ctx.save_for_backward(x_proj, w_hh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh, hs, cs = ctx.saved_tensors
+        dxp, dw = lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+        return dxp.to(x_proj.dtype), dw.to(w_hh.dtype)
 
 
 def lstm_seq(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """(T, 2, B, 4H) projections + (2, H, 4H) recurrent weights ->
-    (T, 2, B, H) hidden states."""
-    return lstm_seq_fwd(x_proj, w_hh)[0]
+    (T, 2, B, H) hidden states, differentiable in both."""
+    return LstmSeq.apply(x_proj, w_hh)
 
 
 def bilstm_cuda(x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd,

@@ -1,1 +1,1 @@
-"""Checkpoints (the trainer comes with the training slice)."""
+"""The trainer, the plateau learning-rate machine and checkpoints."""

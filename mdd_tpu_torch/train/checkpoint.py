@@ -1,8 +1,9 @@
-"""The port's checkpoint format (load side of mdd_tpu/train/checkpoint.py).
+"""The port's checkpoint format (counterpart of mdd_tpu/train/checkpoint.py).
 
-A checkpoint `<directory>/<name>` is two files: `<name>.pt`, the model's
-state_dict written by `torch.save`, and `<name>.meta.json`, the same
-metadata mdd_tpu bundles (its `model_config` rebuilds the model).  An
+A checkpoint `<directory>/<name>` is `<name>.pt`, the model's state_dict
+written by `torch.save`, and `<name>.meta.json`, the same metadata mdd_tpu
+bundles (its `model_config` rebuilds the model); a resumable one (the
+trainer's `latest`) adds `<name>.opt.pt`, the optimizer's state_dict.  An
 mdd_tpu (orbax) checkpoint becomes one through convert.flax_to_torch.
 """
 
@@ -10,27 +11,43 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 
+def _to_cpu(obj):
+    """A copy of a (nested) state dict with every tensor on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
 def save_checkpoint(directory: str, name: str,
                     state_dict: Dict[str, torch.Tensor],
-                    meta: Dict[str, Any]) -> str:
-    """Write `<name>.pt` and `<name>.meta.json`; returns the path prefix.
+                    meta: Dict[str, Any],
+                    optimizer_state: Optional[Dict[str, Any]] = None) -> str:
+    """Write `<name>.pt`, `<name>.meta.json` and, given an optimizer state,
+    `<name>.opt.pt`; returns the path prefix.
 
     Each file is written under a temporary name and renamed into place, so
-    an interrupted save never leaves a truncated checkpoint behind."""
+    an interrupted save never leaves a truncated file behind."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.abspath(os.path.join(directory, name))
     tmp = f"{path}.tmp-{os.getpid()}"
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
-               tmp + ".pt")
+    torch.save(_to_cpu(dict(state_dict)), tmp + ".pt")
+    suffixes = [".pt", ".meta.json"]
+    if optimizer_state is not None:
+        torch.save(_to_cpu(optimizer_state), tmp + ".opt.pt")
+        suffixes.append(".opt.pt")
     with open(tmp + ".meta.json", "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=2, default=str)
-    os.replace(tmp + ".pt", path + ".pt")
-    os.replace(tmp + ".meta.json", path + ".meta.json")
+    for suffix in suffixes:
+        os.replace(tmp + suffix, path + suffix)
     return path
 
 
@@ -42,3 +59,10 @@ def load_checkpoint(directory: str, name: str
     with open(path + ".meta.json", "r", encoding="utf-8") as f:
         meta = json.load(f)
     return state, meta
+
+
+def load_optimizer_state(directory: str, name: str) -> Dict[str, Any]:
+    """The optimizer state_dict of a resumable checkpoint, on the CPU."""
+    path = os.path.abspath(os.path.join(directory, name))
+    return torch.load(path + ".opt.pt", map_location="cpu",
+                      weights_only=True)

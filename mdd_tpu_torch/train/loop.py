@@ -1,0 +1,327 @@
+"""Training loop on one device (counterpart of mdd_tpu/train/loop.py).
+
+The reference recipe (train_ctc.py): CTCLoss(sum) / true batch size, Adam
+with coupled L2 weight decay over every parameter, greedy train-WER each
+step, and the plateau learning-rate machine with best-state snapshot and
+restore (train_ctc.py:215-268), with resumable `best` + `latest`
+checkpoints.  A step is forward (the acoustic recurrence on the
+hand-written LSTM kernels when the config asks for them), CTC loss,
+backward, Adam update and the WER counts, all on the device; the metrics
+accumulate in a device tensor that the host reads at print boundaries
+only.
+
+Not ported from mdd_tpu's Trainer: the device mesh (the port's scale-out
+slice), the cached-corpus steps (`device_cache`, same slice), asynchronous
+saves and `add_weight_noise` (no shipped recipe uses them).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mdd_tpu_torch.data.dataset import Batch, pad_batch_to
+from mdd_tpu_torch.frontend.splice import batched_splice_skip
+from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
+from mdd_tpu_torch.ops.ctc_loss import ctc_loss
+from mdd_tpu_torch.ops.wer import greedy_wer_counts
+from mdd_tpu_torch.train.checkpoint import (load_checkpoint,
+                                            load_optimizer_state,
+                                            save_checkpoint)
+from mdd_tpu_torch.train.plateau import PlateauAction, PlateauScheduler
+
+
+def exact_output_sizes(model_frames, out_len: int, total_frames: int):
+    """Per-item model-output frame counts, exact for any padded width:
+    floor(m * out_len / T) in integers (mdd_tpu's loop.py:43-54)."""
+    return (model_frames * out_len) // total_frames
+
+
+class Trainer:
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        init_lr: float = 1e-3,
+        weight_decay: float = 5e-4,
+        lr_decay: float = 0.5,
+        end_adjust_acc: float = 2.0,
+        plateau_patience: int = 10,
+        max_adjust_times: int = 8,
+        seed: int = 1234,
+        device: str = "cuda",
+        device_frontend: bool = False,
+        left_ctx: int = 0,
+        right_ctx: int = 2,
+        n_skip_frame: int = 2,
+        n_downsample: int = 2,
+    ):
+        # device_frontend: batches arrive as RAW (B, T_raw, D) features and
+        # are spliced and frame-skipped on the device in the step; their
+        # input_fracs carry raw-length fractions
+        self.device = torch.device(device)
+        self.device_frontend = device_frontend
+        self.left_ctx, self.right_ctx = left_ctx, right_ctx
+        self.n_skip_frame, self.n_downsample = n_skip_frame, n_downsample
+        self.model_cfg = model_cfg
+        ctx = left_ctx + 1 + right_ctx
+        if device_frontend and model_cfg.input_dim % ctx:
+            raise ValueError(f"input_dim {model_cfg.input_dim} is not "
+                             f"divisible by the splice context {ctx}")
+        self.model = CTCAttentionModel(model_cfg)
+        self.model.init_parameters(torch.Generator().manual_seed(seed))
+        self.model.to(self.device)
+        # torch's Adam(weight_decay) adds wd * param to the gradient before
+        # the moments: mdd_tpu's add_decayed_weights -> scale_by_adam
+        self.optimizer = torch.optim.Adam(self.model.parameters(),
+                                          lr=init_lr,
+                                          weight_decay=weight_decay)
+        self.scheduler = PlateauScheduler(
+            init_lr=init_lr, decay=lr_decay, end_adjust_acc=end_adjust_acc,
+            patience=plateau_patience, max_adjust_times=max_adjust_times)
+        # the dropout masks' stream
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed + 1)
+        self._snapshot = None      # plateau restore point
+        self._best_acc_state = None
+        self.loss_results: list = []
+        self.dev_loss_results: list = []
+        self.dev_acc_results: list = []
+
+    # ------------------------------------------------------------------
+    def _loss_and_out(self, arrays, train: bool):
+        """-> (loss, wer errors, wer tokens), device scalars.  `mask` marks
+        real rows; False rows (a ragged tail padded to the batch size) are
+        left out of the batch statistics, the loss and the WER."""
+        inputs, fracs, targets, tsizes, trans, trsizes, mask = arrays
+        model_frames = None
+        if self.device_frontend:
+            raw_len = torch.round(fracs * inputs.shape[1]).long()
+            inputs, model_frames = batched_splice_skip(
+                inputs, raw_len, self.left_ctx, self.right_ctx,
+                self.n_skip_frame, self.n_downsample)
+        if inputs.shape[-1] != self.model_cfg.input_dim:
+            raise ValueError(
+                f"spliced feature dim {inputs.shape[-1]} != model input_dim "
+                f"{self.model_cfg.input_dim}: the splice geometry "
+                "(left_ctx/right_ctx) disagrees between loader and Trainer")
+        log_probs = self.model(inputs, trans, trsizes, train=train,
+                               sample_mask=mask,
+                               generator=self.generator if train else None)
+        out_len = log_probs.shape[0]
+        if model_frames is not None:
+            input_sizes = exact_output_sizes(model_frames, out_len,
+                                             inputs.shape[1])
+        else:
+            # host-spliced path: floor(frac * out_len), the reference's
+            # length bookkeeping (train_ctc.py:68)
+            input_sizes = (fracs * out_len).long()
+        nll = ctc_loss(log_probs, input_sizes, targets, tsizes)
+        maskf = mask.to(nll.dtype)
+        # CTCLoss(sum) / true batch size — reference train_ctc.py:72-74
+        loss = (nll * maskf).sum() / maskf.sum().clamp_min(1.0)
+        ids = log_probs.detach().argmax(dim=-1).transpose(0, 1)
+        errs, tokens = greedy_wer_counts(ids, input_sizes, targets, tsizes,
+                                         mask)
+        return loss, errs, tokens
+
+    @staticmethod
+    def _acc_update(acc, loss, errs, tokens):
+        # device-resident metric accumulator (4,) float32:
+        # [loss_sum, wer_errors, wer_tokens, n_batches]
+        return acc + torch.stack([loss.detach().float(), errs.float(),
+                                  tokens.float(), torch.ones_like(acc[0])])
+
+    def train_step(self, arrays, acc: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on a batch from `batch_arrays`; returns the
+        updated metric accumulator."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, errs, tokens = self._loss_and_out(arrays, train=True)
+        loss.backward()
+        self.optimizer.step()
+        return self._acc_update(acc, loss, errs, tokens)
+
+    @torch.no_grad()
+    def eval_step(self, arrays, acc: torch.Tensor) -> torch.Tensor:
+        return self._acc_update(acc, *self._loss_and_out(arrays, train=False))
+
+    def batch_arrays(self, batch: Batch, valid: Optional[np.ndarray] = None):
+        """The batch's arrays as tensors on the trainer's device: (inputs,
+        fracs, targets, target sizes, trans, trans sizes, valid)."""
+        if valid is None:
+            valid = np.ones(batch.size, bool)
+        put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
+        return (put(batch.inputs), put(batch.input_fracs),
+                put(batch.targets).long(), put(batch.target_sizes).long(),
+                put(batch.trans).long(), put(batch.trans_sizes).long(),
+                put(np.asarray(valid, bool)))
+
+    @staticmethod
+    def _fetch(acc: torch.Tensor):
+        loss_sum, errs, tokens, n_b = (float(v) for v in acc.cpu())
+        return loss_sum / max(1.0, n_b), errs / max(1.0, tokens), n_b
+
+    def run_epoch(
+        self,
+        loader: Iterable[Batch],
+        epoch: int,
+        train: bool,
+        print_every: int = 50,
+        log=print,
+    ) -> Tuple[float, float]:
+        """-> (acc = 1 - WER, mean loss) — reference run_epoch contract.
+
+        Ragged tails are padded to the loader's batch size, so every step
+        runs at one batch size; the metrics are read from the device once
+        per print_every steps and once at the end."""
+        full_b = getattr(loader, "batch_size", None)
+        acc = torch.zeros(4, dtype=torch.float32, device=self.device)
+        for i, batch in enumerate(loader):
+            target_b = (full_b if full_b and batch.size <= full_b
+                        else batch.size)
+            padded, valid = pad_batch_to(batch, target_b)
+            arrays = self.batch_arrays(padded, valid)
+            if train:
+                acc = self.train_step(arrays, acc)
+            else:
+                acc = self.eval_step(arrays, acc)
+            if train and (i + 1) % print_every == 0:
+                avg, wer, _ = self._fetch(acc)
+                log("Epoch = %d, step = %d, total_loss = %.4f, "
+                    "total_wer = %.4f" % (epoch, i + 1, avg, wer))
+        avg_loss, wer, _ = self._fetch(acc)
+        log("Epoch %d %s done, total_loss: %.4f, total_wer: %.4f"
+            % (epoch, "Train" if train else "Valid", avg_loss, wer))
+        return 1.0 - wer, avg_loss
+
+    # ------------------------------------------------------------------
+    def _device_snapshot(self):
+        """A copy of the model and optimizer state in fresh device
+        buffers (the plateau machine's restore point)."""
+        return ({k: v.detach().clone()
+                 for k, v in self.model.state_dict().items()},
+                copy.deepcopy(self.optimizer.state_dict()))
+
+    def _restore_snapshot(self, snap) -> None:
+        """Install a snapshot by copy: the plateau machine may restore the
+        same snapshot several times (train_ctc.py:258-265), and the
+        optimizer would otherwise update the snapshot's own tensors."""
+        model_state, opt_state = snap
+        self.model.load_state_dict(model_state)
+        self.optimizer.load_state_dict(copy.deepcopy(opt_state))
+
+    def _set_lr(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def fit(
+        self,
+        train_loader,
+        dev_loader,
+        num_epochs: int = 500,
+        print_every: int = 50,
+        checkpoint_dir: Optional[str] = None,
+        exp_name: str = "default",
+        log=print,
+        resume: bool = False,
+        checkpoint_every: int = 5,
+    ) -> Dict[str, Any]:
+        """checkpoint_every: save the resumable 'latest' checkpoint every
+        N epochs, and always on the final epoch."""
+        sched = self.scheduler
+        epoch = 0
+        if resume and checkpoint_dir and os.path.exists(
+                os.path.join(checkpoint_dir, exp_name, "latest.pt")):
+            epoch = self.restore(checkpoint_dir, exp_name, "latest")
+            # continue the loaders' augmentation / shuffle sequence
+            for ld in (train_loader, dev_loader):
+                set_ep = getattr(ld, "set_epoch", None)
+                if set_ep is not None:
+                    set_ep(epoch)
+            log(f"resumed from epoch {epoch} "
+                f"(lr {sched.learning_rate:.5f})")
+        start = time.time()
+        while not sched.stopped and epoch < num_epochs:
+            epoch += 1
+            self._set_lr(sched.learning_rate)
+            log("Start training epoch: %d, learning_rate: %.5f"
+                % (epoch, sched.learning_rate))
+            _, train_loss = self.run_epoch(train_loader, epoch, True,
+                                           print_every, log)
+            acc, dev_loss = self.run_epoch(dev_loader, epoch, False,
+                                           print_every, log)
+            self.loss_results.append(train_loss)
+            self.dev_loss_results.append(dev_loss)
+            self.dev_acc_results.append(acc)
+
+            action = sched.step(dev_loss, acc)
+            if action & PlateauAction.SNAPSHOT_LOSS:
+                self._snapshot = self._device_snapshot()
+            if action & PlateauAction.SNAPSHOT_ACC:
+                self._best_acc_state = self._device_snapshot()
+            if (action & PlateauAction.DECAY_AND_RESTORE
+                    and self._snapshot is not None):
+                self._restore_snapshot(self._snapshot)
+            log("adjust_rate_count:%d adjust_time:%d"
+                % (sched.adjust_rate_count, sched.adjust_time))
+            log("epoch %d done, cv acc is: %.4f, time_used: %.4f minutes"
+                % (epoch, acc, (time.time() - start) / 60))
+            done = sched.stopped or epoch >= num_epochs
+            if checkpoint_dir and (epoch % max(checkpoint_every, 1) == 0
+                                   or done):
+                self.save(checkpoint_dir, exp_name, "latest", epoch)
+
+        log("End training, best dev loss is: %.4f, acc is: %.4f"
+            % (sched.loss_best, sched.acc_best))
+        if self._best_acc_state is not None:
+            self._restore_snapshot(self._best_acc_state)
+        if checkpoint_dir:
+            self.save(checkpoint_dir, exp_name, "best", epoch)
+        return {"loss_results": self.loss_results,
+                "dev_loss_results": self.dev_loss_results,
+                "dev_acc_results": self.dev_acc_results,
+                "best_dev_loss": sched.loss_best,
+                "best_acc": sched.acc_best,
+                "epochs": epoch}
+
+    def _save_meta(self, epoch: int) -> Dict[str, Any]:
+        return {
+            "model_config": dataclasses.asdict(self.model_cfg),
+            "epoch": epoch,
+            "loss_results": list(self.loss_results),
+            "dev_loss_results": list(self.dev_loss_results),
+            "dev_acc_results": list(self.dev_acc_results),
+            "learning_rate": self.scheduler.learning_rate,
+            "scheduler": dataclasses.asdict(self.scheduler),
+        }
+
+    def save(self, directory: str, exp_name: str, tag: str,
+             epoch: int) -> str:
+        """Synchronous save; `latest` carries the optimizer state."""
+        return save_checkpoint(
+            os.path.join(directory, exp_name), tag, self.model.state_dict(),
+            self._save_meta(epoch),
+            optimizer_state=(self.optimizer.state_dict()
+                             if tag == "latest" else None))
+
+    def restore(self, directory: str, exp_name: str,
+                tag: str = "latest") -> int:
+        """Load params, BN statistics, the optimizer state (`latest`), the
+        scheduler and the loss histories; -> the epoch to continue from."""
+        path = os.path.join(directory, exp_name)
+        state, meta = load_checkpoint(path, tag)
+        self.model.load_state_dict(state)
+        if tag == "latest":
+            self.optimizer.load_state_dict(load_optimizer_state(path, tag))
+        for k, v in meta.get("scheduler", {}).items():
+            if hasattr(self.scheduler, k):
+                setattr(self.scheduler, k, v)
+        self.loss_results = list(meta.get("loss_results", []))
+        self.dev_loss_results = list(meta.get("dev_loss_results", []))
+        self.dev_acc_results = list(meta.get("dev_acc_results", []))
+        return int(meta.get("epoch", 0))

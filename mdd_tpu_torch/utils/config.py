@@ -86,9 +86,8 @@ class Config:
     verbose_step: int = 50
     max_adjust_times: int = 8
     plateau_patience: int = 10
-    # training and data-pipeline fields below are read by mdd_tpu's
-    # trainer and loaders; the port's serving path ignores them (they
-    # are kept so one YAML file loads the same in both packages)
+    # training and data-pipeline fields: read by the trainer and the
+    # loaders (`train`; num_buckets is read by neither package's code)
     checkpoint_every: int = 5
     augment_mode: int = 2
     mutation_prob: float = 0.1
@@ -97,8 +96,8 @@ class Config:
     label_quantum: int = 16     # pad label axes to a multiple of this
     device_frontend: bool = False
     wire_dtype: str = ""        # "" = float32; "bfloat16"
-    device_cache: bool = False
-    global_schedule: bool = False
+    device_cache: bool = False      # refused by `train` until scale-out
+    global_schedule: bool = False   # refused by `train` until scale-out
 
     # decoding
     decode_type: str = "Beam"     # reference quirk: anything != 'Greedy' -> Beam
@@ -106,7 +105,8 @@ class Config:
     lm_alpha: float = 0.0
     lm_path: str = ""
 
-    # parallelism (mdd_tpu's data-parallel mesh width)
+    # parallelism (mdd_tpu's data-parallel mesh width; the port trains on
+    # one device until its scale-out slice)
     data_parallel: int = 0        # 0 = all local devices
 
     def model_config(self, num_class: int):
@@ -154,3 +154,22 @@ def load_config(path: str) -> Config:
             "device_cache: true requires device_frontend: true — the cache "
             "stores raw features and relies on on-device splice/skip")
     return cfg
+
+
+def check_train_config(cfg: Config) -> None:
+    """Refuse what the port cannot train yet, instead of training
+    something else: the HBM-resident corpus (`device_cache`) and the global
+    batch schedule form other batches than the streaming loader, and come
+    with the scale-out slice (ROADMAP.md)."""
+    if cfg.global_schedule:
+        raise ValueError(
+            "global_schedule: true is not ported yet: mdd_tpu's multi-process "
+            "batch schedule comes with the port's scale-out slice "
+            "(ROADMAP.md); set global_schedule: false to train on the "
+            "streaming loader")
+    if cfg.device_cache:
+        raise ValueError(
+            "device_cache: true is not ported yet: the device-resident "
+            "corpus (mdd_tpu/data/device_cache.py) comes with the port's "
+            "scale-out slice (ROADMAP.md); set device_cache: false to train "
+            "on the streaming loader")

@@ -1,5 +1,6 @@
-"""The CUDA LSTM kernel on the card: against its plain version, and the
-refusals of its wrapper.  Marked `cuda`; skips where there is no card.
+"""The CUDA LSTM kernels on the card: against their plain versions, the
+refusals of the wrappers, and autograd through the backward kernel.
+Marked `cuda`; skips where there is no card.
 No JAX here, so the file runs on a GPU machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 from mdd_tpu_torch.ops import lstm_cuda
+from mdd_tpu_torch.ops.lstm import bilstm
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +33,7 @@ def _inputs(t, b, h, dtype, seed=0):
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("t,b,h", [(1, 1, 8), (16, 4, 384), (80, 16, 384),
-                                   (5, 37, 64)])
+                                   (128, 64, 384), (5, 37, 64)])
 def test_kernel_matches_plain_version(cuda, dtype, atol, t, b, h):
     """hs and cs; float32 differs from the plain version only in the order
     of the recurrent dot's sums, bfloat16 by 1-ulp roundings of h."""
@@ -59,7 +61,47 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                   w_hh)
 
 
-def test_cuda_path_is_forward_only(cuda):
-    x_proj, w_hh = _inputs(3, 2, 16, torch.float32)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        lstm_cuda.lstm_seq_fwd(x_proj.requires_grad_(), w_hh)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,b,h", [(16, 1, 384), (80, 16, 384),
+                                   (80, 64, 384), (128, 64, 384),
+                                   (16, 256, 384), (1, 3, 8), (5, 37, 64)])
+def test_backward_kernel_matches_plain_version(cuda, dtype, tol, t, b, h):
+    """dx_proj and dW_hh, each relative to its largest magnitude: float32
+    sums run in another order, bfloat16 rounds dgates (1-ulp flips)."""
+    x_proj, w_hh = _inputs(t, b, h, dtype)
+    g = torch.Generator().manual_seed(1)
+    dhs = torch.randn((t, 2, b, h), generator=g).cuda()
+    hs, cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
+    before = lstm_cuda.lstm_bwd_kernel.launches
+    dxp, dw = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_bwd_kernel.launches == before + 1
+    ref_dxp, ref_dw = lstm_cuda.lstm_seq_bwd_reference(x_proj, w_hh, hs, cs,
+                                                       dhs)
+    assert dxp.dtype == dtype and dw.dtype == torch.float32
+    for got, want in ((dxp.float(), ref_dxp.float()), (dw, ref_dw)):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+def test_loss_backward_through_bilstm_cuda_launches_the_kernel(cuda):
+    """Autograd through the facade: one backward launch per call, and the
+    gradients agree with autograd through the plain loop."""
+    g = torch.Generator().manual_seed(2)
+    t, b, d_in, h = 12, 5, 24, 32
+    s = h ** -0.5
+    x = torch.randn((t, b, d_in), generator=g)
+    ws = [(torch.rand(shape, generator=g) * 2 - 1) * s
+          for shape in ((d_in, 4 * h), (h, 4 * h)) * 2]
+    grads = []
+    for fn in (lstm_cuda.bilstm_cuda, bilstm):
+        args = [a.cuda().requires_grad_() for a in [x] + ws]
+        fn(*args).square().sum().backward()
+        grads.append([a.grad for a in args])
+    before = lstm_cuda.lstm_bwd_kernel.launches
+    args = [a.cuda().requires_grad_() for a in [x] + ws]
+    lstm_cuda.bilstm_cuda(*args).sum().backward()
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_bwd_kernel.launches == before + 1
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)

@@ -78,11 +78,42 @@ def test_no_trans_lengths_means_unmasked_attention():
 
 
 def test_train_mode_is_not_ported_yet():
-    _, _, tmodel = _pair(True, True)
+    """Train mode is ported, except the fused dropout kernel: a config
+    that asks for it is refused, and plain dropout needs its generator."""
     feats, trans, lengths = _inputs(4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmodel(torch.from_numpy(feats), torch.from_numpy(trans).long(),
-               torch.from_numpy(lengths).long(), train=True)
+    args = (torch.from_numpy(feats), torch.from_numpy(trans).long(),
+            torch.from_numpy(lengths).long())
+    fused = CTCAttentionModel(ModelConfig(**SMALL, use_fused_dropout=True))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fused(*args, train=True)
+    _, _, tmodel = _pair(True, True)
+    with pytest.raises(ValueError, match="generator"):
+        tmodel(*args, train=True)
+
+
+@pytest.mark.parametrize("use_pallas_lstm", [True, False])
+def test_train_mode_matches_jax(use_pallas_lstm):
+    """flax's train mode at dropout 0: log-probs from the batch statistics
+    of the rows sample_mask keeps, and the updated running averages."""
+    kw = dict(SMALL, dropout=0.0, use_pallas_lstm=use_pallas_lstm)
+    jmodel = JaxModel(JaxConfig(**kw))
+    _, variables, _ = _pair(True, use_pallas_lstm, seed=5)
+    tmodel = CTCAttentionModel(ModelConfig(**kw))
+    tmodel.load_state_dict(flax_to_torch(variables["params"],
+                                         variables["batch_stats"]))
+    feats, trans, lengths = _inputs(6)
+    mask = np.array([True, False, True])
+    ref, upd = jmodel.apply(variables, feats, trans, lengths, train=True,
+                            sample_mask=mask, mutable=["batch_stats"])
+    out = tmodel(torch.from_numpy(feats), torch.from_numpy(trans).long(),
+                 torch.from_numpy(lengths).long(), train=True,
+                 sample_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-4)
+    want = flax_to_torch(variables["params"], upd["batch_stats"])
+    for name, buf in tmodel.named_buffers():
+        np.testing.assert_allclose(buf.numpy(), want[name].numpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("use_text_attention", [True, False])
