@@ -4,7 +4,8 @@
 
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
-1. build    nvcc every CUDA source of the port for sm_90a (in parallel).
+1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
+            lstm_fwd.cu, lstm_bwd.cu, dropout.cu.
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
             serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
             {16, 80, 128}), float32 and bfloat16.
@@ -43,6 +44,39 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             backward kernel at B=16 and 64, T'=80, its plain version, and
             the backward of one torch.nn.LSTM (forward+backward minus
             forward) as the yardstick only.
+
+11. kernel-dropout  fused_dropout against its plain version, bit for bit,
+            float32 and bfloat16, rates 0.1 / 0.2 / 0.5, at the 3 site
+            shapes of a B=64, T=220 (T'=110) step (conv0 64x32x220x122,
+            conv1 64x32x110x61, BiLSTM 110x64x768) and at sizes that are
+            not multiples of 4 (1, 3, 1023, 7x129); kept share within 4
+            sigma of keep; the autograd gradient = mask / keep * dy with
+            the forward's mask; two seeds, two masks.
+12. train-fused  the flagship model with use_fused_dropout=True through
+            cli._build_loader, cli.build_trainer and Trainer.fit for 3
+            epochs of the corpus (seconds; after one epoch the posteriors
+            are too flat to score a beam with an LM against greedy): loss
+            finite and falling, 12 dropout launches a train step (6 sites,
+            forward and backward), `best` on disk with use_fused_dropout
+            in its meta; then the step time and the device time of a step
+            with fused and with plain dropout, in turns.
+13. evaluate  `train-lm` on the training labels, then `evaluate` (beam
+            width 10 + that LM at alpha 0.5, device front end, the dev
+            split as test split) on the `best` of phase 12 with
+            --dump-dir, `evaluate --lm-alpha 0`, `evaluate --decode-type
+            Greedy`, and `mdd-result` on the beam + LM dumps, all
+            in-process: the reports parse, the canonical total equals the
+            dump's phones, mdd-result's PER is evaluate's, lstm_fwd
+            launched 4 times a forward, the three PERs close; on one
+            batch of that model's log-probs the
+            device beam against the host beam (decode/beam.py), at least
+            95% of the sequences identical.
+14. profile-evaluate  evaluate_model over the 512 training utterances, beam
+            and greedy: utterances per second, and torch.profiler's device
+            busy share over one beam pass; the beam alone at B=64, T'=110,
+            K=10, C=43 (ms a batch and a frame); fused_dropout at the
+            conv0 and BiLSTM site shapes beside its bound, its plain
+            version and F.dropout (the yardstick only).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits 2 without a CUDA device, or when run
@@ -86,6 +120,16 @@ ZERO_ULPS = 64     # a tensor whose plain gradient stays within this many
 # feeds a train-mode BatchNorm, which subtracts the batch mean): its
 # relative error is noise, so both runs' gradients are held below that
 TRAIN_UTTS, DEV_UTTS, BATCH = 512, 64, 64
+# the dropout sites of one train step at B=64, T=220 model frames (T'=110)
+DROPOUT_SITES = {"conv0": (BATCH, 32, 220, 122), "conv1": (BATCH, 32, 110, 61),
+                 "bilstm": (110, BATCH, 2 * H)}
+FUSED_EPOCHS = 3
+PER_GAP = 5.0      # beam (with and without the LM) vs greedy PER, percentage
+# points: the LM trained on the corpus's near-uniform phone strings acts as
+# an insertion penalty of ~1.8 nats a phone at alpha 0.5, which a model of
+# 3 epochs mostly outweighs
+BEAM_MATCH = 0.95  # device beam vs host beam, share of identical sequences
+# (float32 against float64 scores can reorder near-tied prefixes)
 # H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -735,6 +779,476 @@ def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
             "bound_by": bound_by, "library_ms": lib_both - lib_fwd}
 
 
+def dropout_bound_ms(n: int, dtype: str) -> tuple:
+    """Least time for dropout over n elements: x read once, out written
+    once; ~30 integer operations an element never bound it."""
+    elt = 4 if dtype == "float32" else 2
+    return 2 * n * elt / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def phase_kernel_dropout(torch) -> float:
+    """fused_dropout_kernel == fused_dropout_reference, bit for bit; ->
+    the largest |kernel - plain| seen (0.0 or the phase raises)."""
+    from mdd_tpu_torch.ops.dropout_cuda import (
+        fused_dropout,
+        fused_dropout_kernel,
+        fused_dropout_reference,
+    )
+
+    g = torch.Generator().manual_seed(SEED + 4)
+    shapes = list(DROPOUT_SITES.items()) + [
+        (f"n={n}", (n,)) for n in (1, 3, 1023)] + [("7x129", (7, 129))]
+    worst, checked = 0.0, 0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        bits = torch.int32 if dtype == "float32" else torch.int16
+        for name, shape in shapes:
+            x = torch.randn(shape, generator=g).to("cuda", dt)
+            for rate in (0.1, 0.2, 0.5):
+                seed = torch.randint(0, 2 ** 63 - 1, (1,), generator=g).cuda()
+                before = fused_dropout_kernel.launches
+                out = fused_dropout_kernel(x, seed, rate)
+                torch.cuda.synchronize()
+                if fused_dropout_kernel.launches != before + 1:
+                    raise AssertionError("fused_dropout did not count its "
+                                         "launch")
+                ref = fused_dropout_reference(x, seed, rate)
+                same = torch.equal(out.view(bits), ref.view(bits))
+                err = (out.float() - ref.float()).abs().max().item()
+                worst = max(worst, err)
+                n, keep = x.numel(), 1.0 - rate
+                kept = (out != 0).sum().item() / n
+                sigma = (keep * rate / n) ** 0.5
+                if not same:
+                    raise AssertionError(
+                        f"fused_dropout {dtype} {name} rate {rate} differs "
+                        f"from its plain version (max abs {err})")
+                if n >= 1000 and abs(kept - keep) > 4 * sigma:
+                    raise AssertionError(
+                        f"fused_dropout {dtype} {name} rate {rate}: kept "
+                        f"share {kept} is over 4 sigma from {keep}")
+                checked += 1
+            log(f"  fused_dropout {dtype} {name} {tuple(shape)}: bit for bit "
+                f"its plain version at rates 0.1, 0.2, 0.5; kept share at "
+                f"0.5: {kept:.6f}")
+    # autograd: the backward regenerates the forward's mask
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # x > 0, so that out != 0 is the mask (a normal draw of this size holds
+    # a few exact zeros on the card)
+    x = (torch.rand(DROPOUT_SITES["bilstm"], device="cuda") + 0.5
+         ).requires_grad_()
+    dy = torch.randn((BATCH, 110, 2 * H), device="cuda").transpose(0, 1)
+    before = fused_dropout_kernel.launches
+    out = fused_dropout(x, 0.2, gen)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    mask = out != 0
+    scale = torch.tensor(1.0 / 0.8, dtype=torch.float32, device="cuda")
+    made = fused_dropout_kernel.launches - before
+    wrong = (x.grad != torch.where(mask, dy * scale, 0.0)).sum().item()
+    if made != 2 or wrong:
+        raise AssertionError(
+            f"fused_dropout forward + backward made {made} launches (want "
+            f"2) and {wrong} gradient entries differ from mask / keep * dy "
+            "with the forward's mask")
+    other = fused_dropout(x.detach(), 0.2, gen) != 0
+    differ = (other != mask).float().mean().item()
+    if not 0.2 < differ < 0.45:      # independent masks differ on 2 * .8 * .2
+        raise AssertionError(f"two seeds' masks differ on {differ} of the "
+                             "elements, not about 0.32")
+    log(f"[kernel-dropout] fused_dropout equals fused_dropout_reference bit "
+        f"for bit in {checked} cases (max abs err {worst}); gradient = mask "
+        f"/ keep * dy; two seeds' masks differ on {differ:.4f} of the "
+        "elements")
+    return worst
+
+
+def step_losses(lines) -> list:
+    """Each step's own loss from the running means `run_epoch` prints."""
+    means = [float(m.group(1)) for l in lines for m in
+             [re.search(r"Epoch = 1, step = \d+, total_loss = (\S+?),", l)]
+             if m]
+    return [means[0]] + [(i + 1) * means[i] - i * means[i - 1]
+                         for i in range(1, len(means))]
+
+
+def phase_train_fused(torch, conf: str, card: str) -> dict:
+    """One epoch with use_fused_dropout=True through the entry points
+    `train` uses; -> the launch counts of the path and the YAML's config."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.utils.config import load_config
+
+    cfg = load_config(conf)
+    cfg.exp_name, cfg.num_epoches = "smoke_fused", FUSED_EPOCHS
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    loaders = [cli._build_loader(cfg, vocab, *paths, train=train)
+               for paths, train in (
+                   ((cfg.train_scp_path, cfg.train_lab_path,
+                     cfg.train_trans_path), True),
+                   ((cfg.valid_scp_path, cfg.valid_lab_path,
+                     cfg.valid_trans_path), False))]
+    trainer = cli.build_trainer(cfg, vocab, "cuda", use_fused_dropout=True)
+    lines = []
+    kernels = (fused_dropout_kernel, lstm_fwd_kernel, lstm_bwd_kernel)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(*loaders, num_epochs=FUSED_EPOCHS, print_every=1,
+                checkpoint_dir=cfg.checkpoint_dir, exp_name=cfg.exp_name,
+                log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drops, fwd, bwd = (k.launches for k in kernels)
+    steps = -(-TRAIN_UTTS // BATCH) * FUSED_EPOCHS
+    forwards = steps + -(-DEV_UTTS // BATCH) * FUSED_EPOCHS
+    losses = step_losses(lines)            # the first epoch's steps
+    epochs = [float(v) for l in lines for v in
+              re.findall(r"Train done, total_loss: (\S+?),", l)]
+    for line in lines:
+        if "done" in line:
+            log(f"[train-fused]   {line}")
+    log(f"[train-fused] {FUSED_EPOCHS} epochs of {TRAIN_UTTS} utterances at "
+        f"B={BATCH} with use_fused_dropout in {wall:.1f} s; first epoch's "
+        f"step losses {losses[0]:.4f} -> {losses[-1]:.4f}, epoch losses "
+        f"{epochs}; fused_dropout launches {drops} over {steps} train "
+        f"steps, lstm_fwd {fwd} over {forwards} forwards, lstm_bwd {bwd}")
+    if (len(losses) * FUSED_EPOCHS != steps or len(epochs) != FUSED_EPOCHS
+            or not all(math.isfinite(v) for v in losses + epochs)):
+        raise AssertionError(f"losses missing or not finite: {losses}, "
+                             f"{epochs}")
+    if not (losses[-1] < losses[0] and epochs[-1] < epochs[0]):
+        raise AssertionError(f"the loss did not fall: {losses}, {epochs}")
+    if drops != 12 * steps or bwd != 4 * steps or fwd != 4 * forwards:
+        raise AssertionError(
+            f"{drops} dropout / {fwd} lstm_fwd / {bwd} lstm_bwd launches for "
+            f"{steps} train steps and {forwards} forwards: a site or a layer "
+            "bypassed its kernel")
+    meta = json.loads((Path(cfg.checkpoint_dir) / cfg.exp_name
+                       / "best.meta.json").read_text())
+    if meta["model_config"].get("use_fused_dropout") is not True:
+        raise AssertionError("best.meta.json does not carry "
+                             "use_fused_dropout")
+    compare_dropout_steps(torch, cfg, vocab, card)
+    return {"fused_dropout": drops, "lstm_fwd": fwd, "lstm_bwd": bwd}
+
+
+def compare_dropout_steps(torch, cfg, vocab, card: str) -> None:
+    """Train steps at B=64 from the epoch's `latest`, with fused and with
+    plain dropout in turns (plain, fused, fused, plain): each pass's median
+    step time, and the device time of 3 profiled steps of each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.dataset import pad_batch_to
+
+    trainers = {}
+    for name, fused in (("plain", False), ("fused", True)):
+        tr = cli.build_trainer(cfg, vocab, "cuda", use_fused_dropout=fused)
+        tr.restore(cfg.checkpoint_dir, cfg.exp_name, "latest")
+        trainers[name] = tr
+    loader = cli._build_loader(cfg, vocab, cfg.train_scp_path,
+                               cfg.train_lab_path, cfg.train_trans_path,
+                               train=True)
+    batches = [pad_batch_to(b, BATCH) for b in loader]
+    acc = torch.zeros(4, device="cuda")
+    medians = {"plain": [], "fused": []}
+    for name in ("plain", "fused", "fused", "plain"):
+        tr, secs = trainers[name], []
+        for padded, valid in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            acc = tr.train_step(tr.batch_arrays(padded, valid), acc)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        medians[name].append(statistics.median(secs) * 1e3)
+    busy = {}
+    for name, tr in trainers.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for padded, valid in batches[:3]:
+                acc = tr.train_step(tr.batch_arrays(padded, valid), acc)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy[name] = (sum(e.self_device_time_total for e in events) / 3e3,
+                      sum(e.count for e in events) // 3)
+        if name == "fused":
+            for e in events:
+                if "dropout_kernel" in e.key:
+                    log(f"[train-fused]   {e.self_device_time_total / 3e3:.3f}"
+                        f" ms a step in {e.count // 3} launches of "
+                        f"{e.key[:70]}")
+    log(f"[train-fused] step time at B={BATCH}, median of {len(batches)} "
+        f"steps, passes in turn: plain dropout {medians['plain'][0]:.2f} / "
+        f"{medians['plain'][1]:.2f} ms, fused {medians['fused'][0]:.2f} / "
+        f"{medians['fused'][1]:.2f} ms; device time a step (3 profiled): "
+        f"plain {busy['plain'][0]:.2f} ms in {busy['plain'][1]} ops, fused "
+        f"{busy['fused'][0]:.2f} ms in {busy['fused'][1]} ops ({card})")
+
+
+def write_eval_yaml(conf: str, name: str, split: tuple, lm: str) -> str:
+    """The train YAML with the `smoke_fused` experiment, `split` as test
+    split, and beam + LM decoding."""
+    fields = {
+        "exp_name": "smoke_fused", "test_scp_path": split[0],
+        "test_lab_path": split[1], "test_trans_path": split[2],
+        "decode_type": "Beam", "beam_width": 10, "lm_alpha": 0.5,
+        "lm_path": lm}
+    lines = [l for l in Path(conf).read_text().splitlines()
+             if l.split(":")[0] not in fields]
+    path = WORK / f"{name}.yaml"
+    path.write_text("\n".join(lines) + "\n" + "".join(
+        f"{k}: {json.dumps(v)}\n" for k, v in fields.items()))
+    return str(path)
+
+
+def parse_report(text: str) -> dict:
+    """The all-languages block of format_mdd_report."""
+    block = text.split(" mandarin ")[0]
+    grab = lambda pat: re.search(pat, block).groups()
+    total, parts = map(int, grab(r"total :  (\d+) (\d+)"))
+    out = {"errors": int(grab(r"total_error: (\d+)")[0]),
+           "tokens": int(grab(r"total_phoneme: (\d+)")[0]),
+           "per": float(grab(r"Phoneme error rate on test set: (\S+)")[0]),
+           "total": total, "parts": parts}
+    for key in ("TA", "FR", "FA", "TR"):
+        out[key] = int(grab(rf"{key} :  (\d+)")[0])
+    out["f1"] = float(grab(r"F1 score : (\S+)")[0])
+    out["utts"] = int(re.search(r"time used for decode (\d+) sentences",
+                                text).group(1))
+    if not all(math.isfinite(v) for v in out.values()):
+        raise AssertionError(f"report holds a value that is not finite: {out}")
+    return out
+
+
+def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
+                   card: str) -> tuple:
+    """The evaluation path; -> (lstm_fwd launches, the YAML)."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.decode.arpa import ArpaBigramLM
+    from mdd_tpu_torch.decode.beam import BeamSearchDecoder
+    from mdd_tpu_torch.evals.evaluate import EvalSession
+    from mdd_tpu_torch.evals.wer import read_trn
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
+    from mdd_tpu_torch.utils.config import load_config
+
+    lm = str(WORK / "lm.arpa")
+    log("[evaluate] " + run_cli(["train-lm", "--phn-text", train[1],
+                                 "--out", lm]).strip())
+    yaml_path = write_eval_yaml(conf, "eval_dev", dev, lm)
+    kinds = (("beam", []), ("beam_no_lm", ["--lm-alpha", "0"]),
+             ("greedy", ["--decode-type", "Greedy"]))
+    dumps = {k: WORK / f"dump_{k}" for k, _ in kinds}
+    lstm_fwd_kernel.launches = 0
+    reports, wall = {}, {}
+    for kind, flags in kinds:
+        t0 = time.perf_counter()
+        text = run_cli(["evaluate", "--conf", yaml_path, "--device", "cuda",
+                        "--dump-dir", str(dumps[kind])] + flags)
+        wall[kind] = time.perf_counter() - t0
+        reports[kind] = parse_report(text)
+    launches = lstm_fwd_kernel.launches
+    forwards = len(kinds) * -(-DEV_UTTS // BATCH)
+    result = run_cli(["mdd-result", "--ref", str(dumps["beam"] / "transcribe.log"),
+                      "--human", str(dumps["beam"] / "human_seq.log"),
+                      "--hyp", str(dumps["beam"] / "decode_seq.log"),
+                      "--detail-dir", str(WORK / "detail")])
+    wer = re.search(r"%WER (\S+) \[ (\d+) / (\d+), (\d+) ins, (\d+) del, "
+                    r"(\d+) sub \]", result)
+    recall = float(re.search(r"Recall: (\S+)", result).group(1))
+    canon = sum(len(v) for v in read_trn(
+        str(dumps["beam"] / "transcribe.log")).values())
+    beam, greedy = reports["beam"], reports["greedy"]
+    for kind, r in reports.items():
+        log(f"[evaluate] {kind}: PER {r['per']:.4f} ({r['errors']} / "
+            f"{r['tokens']}), TA {r['TA']} FR {r['FR']} FA {r['FA']} TR "
+            f"{r['TR']} over {r['total']} canonical phones, F1 {r['f1']:.2f}; "
+            f"{r['utts']} utterances in {wall[kind]:.2f} s, set-up included "
+            f"({card})")
+    log(f"[evaluate] mdd-result on the beam + LM dumps: {wer.group(0)}; recall "
+        f"{recall:.4f}; lstm_fwd launches {launches} over {forwards} "
+        "forwards")
+    for r in reports.values():
+        if (r["utts"] != DEV_UTTS or r["total"] != canon
+                or r["parts"] != r["TA"] + r["FR"] + r["FA"] + r["TR"]
+                or r["parts"] < r["total"] or r["tokens"] <= 0):
+            raise AssertionError(f"report does not add up: {r}, {canon} "
+                                 "canonical phones in the dump")
+    if (int(wer.group(2)), int(wer.group(3))) != (beam["errors"],
+                                                  beam["tokens"]):
+        raise AssertionError("mdd-result's PER is not evaluate's: "
+                             f"{wer.group(0)} vs {beam}")
+    if not math.isfinite(recall) or launches != 4 * forwards:
+        raise AssertionError(f"{launches} lstm_fwd launches for {forwards} "
+                             "forwards, or recall not finite")
+    for kind in ("beam", "beam_no_lm"):
+        if abs(reports[kind]["per"] - greedy["per"]) > PER_GAP:
+            raise AssertionError(
+                f"{kind} PER {reports[kind]['per']} and greedy PER "
+                f"{greedy['per']} are over {PER_GAP} apart")
+
+    # one batch of this model's log-probs: device beam vs host beam
+    cfg = load_config(yaml_path)
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    state, model_cfg = cli._load_best(cfg, None)
+    session = EvalSession(
+        model_cfg, state, vocab, decode_type="Beam", beam_width=10,
+        lm_path=lm, lm_alpha=0.5, device="cuda", device_frontend=True,
+        left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
+        n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
+    batch = next(iter(cli._build_loader(cfg, vocab, *dev, train=False)))
+    log_probs, frames = session._forward(*session.stage_batch(batch)[1])
+    lp = log_probs.transpose(0, 1)
+    on_card = session.beam.decode_log(lp, frames.tolist())
+    on_cpu = session.beam.decode_log(lp.cpu(), frames.tolist())
+
+    class TotalLM(ArpaBigramLM):
+        """bi_prob for every unit: a word the LM never saw ("err" is in
+        the inventory, not in the corpus) gets the -1e30 that dense_matrix
+        gives the device beam, where the host beam would raise."""
+
+        def bi_prob(self, w1: str, w2: str) -> float:
+            known = all(w in self.unigram for w in (w1 or self.start,
+                                                    w2 or self.end))
+            return super().bi_prob(w1, w2) if known else -1e30
+
+    host = BeamSearchDecoder(vocab.index2word, beam_width=10,
+                             lm=TotalLM(lm), lm_alpha=0.5)
+    t0 = time.perf_counter()
+    want = host.decode(torch.exp(lp).double().cpu().numpy(), frames.tolist())
+    host_s = time.perf_counter() - t0
+    share = sum(a == b for a, b in zip(on_card, want)) / len(want)
+    same_cpu = sum(a == b for a, b in zip(on_card, on_cpu)) / len(want)
+    log(f"[evaluate] device beam vs host beam on {len(want)} utterances of "
+        f"the model's log-probs (T' up to {int(frames.max())}): "
+        f"{100 * share:.1f}% identical (bar {100 * BEAM_MATCH:.0f}%); the "
+        f"same search on the CPU: {100 * same_cpu:.1f}% identical; host "
+        f"beam {host_s:.1f} s")
+    if share < BEAM_MATCH or same_cpu < BEAM_MATCH:
+        raise AssertionError("the device beam disagrees with the host beam")
+    return launches, yaml_path
+
+
+def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> dict:
+    """Throughput and device busy share of evaluate_model, the beam alone,
+    and the dropout kernel's times; -> the kernels-line entry's numbers."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.decode.beam_jit import BatchedBeamDecoder
+    from mdd_tpu_torch.evals.evaluate import EvalSession, evaluate_model
+    from mdd_tpu_torch.ops.dropout_cuda import (
+        fused_dropout_kernel,
+        fused_dropout_reference,
+    )
+    from mdd_tpu_torch.utils.config import load_config
+
+    lm = str(WORK / "lm.arpa")
+    cfg = load_config(write_eval_yaml(conf, "eval_train", train, lm))
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    state, model_cfg = cli._load_best(cfg, None)
+    quiet = lambda *_: None
+    for kind in ("Beam", "Greedy"):
+        session = EvalSession(
+            model_cfg, state, vocab, decode_type=kind, beam_width=10,
+            lm_path=lm, lm_alpha=0.5, device="cuda", device_frontend=True,
+            left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
+            n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
+        rates = []
+        for _ in range(2):
+            loader = cli._build_loader(cfg, vocab, *train, train=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = evaluate_model(session, loader, log=quiet)
+            torch.cuda.synchronize()
+            rates.append(rep.n_utts / (time.perf_counter() - t0))
+        log(f"[profile-evaluate] evaluate_model, {kind}, {rep.n_utts} "
+            f"utterances in batches of {BATCH}: {rates[0]:.1f} then "
+            f"{rates[1]:.1f} utterances per second; PER {rep.per:.2f} "
+            f"({card})")
+        if kind == "Beam":
+            loader = cli._build_loader(cfg, vocab, *train, train=False)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                evaluate_model(session, loader, log=quiet)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            report_profile(prof, wall_us, "profile-evaluate",
+                           f"one beam pass over {rep.n_utts} utterances "
+                           "(profiler on)", card)
+
+    # the beam alone at the evaluation shape
+    t_out, n_class, width = 110, len(UNITS) + 2, 10
+    g = torch.Generator().manual_seed(SEED + 5)
+    logits = torch.randn((BATCH, t_out, n_class), generator=g)
+    logits[:, :, 0] += 1.5
+    lp = torch.log_softmax(logits, dim=-1).cuda()
+    beam = BatchedBeamDecoder(vocab.index2word, beam_width=width,
+                              device="cuda")
+    lengths = [t_out] * BATCH
+    beam.decode_log(lp, lengths)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beam.decode_log(lp, lengths)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        beam.decode_log(lp, lengths)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ms = statistics.median(walls)
+    log(f"[timing] device beam, B={BATCH} T'={t_out} K={width} C={n_class}: "
+        f"{ms:.2f} ms a batch (median of 3; {min(walls):.2f}-"
+        f"{max(walls):.2f}), {ms / t_out:.4f} ms a frame, "
+        f"{BATCH / ms * 1e3:.0f} utterances per second ({card})")
+    report_profile(prof, wall_us, "timing", "one beam batch (profiler on)",
+                   card)
+
+    # the dropout kernel at its two kinds of site
+    out = {}
+    seed = torch.tensor([SEED + 6], device="cuda")
+    for name in ("conv0", "bilstm"):
+        shape = DROPOUT_SITES[name]
+        n = math.prod(shape)
+        # rotate over enough buffers that no call finds its input in L2
+        xs = [torch.randn(shape, device="cuda")
+              for _ in range(max(2, -(-200_000_000 // (8 * n))))]
+        turn = iter(range(10 ** 9))
+        pick = lambda: xs[next(turn) % len(xs)]
+        ms = cuda_ms(lambda: fused_dropout_kernel(pick(), seed, 0.2), 50)
+        plain_ms = cuda_ms(
+            lambda: fused_dropout_reference(pick(), seed, 0.2), 3, warmup=1)
+        library_ms = cuda_ms(lambda: F.dropout(pick(), 0.2, True), 50)
+        bnd, bound_by = dropout_bound_ms(n, "float32")
+        err = (fused_dropout_kernel(xs[0], seed, 0.2)
+               - fused_dropout_reference(xs[0], seed, 0.2)).abs().max().item()
+        log(f"[timing] fused_dropout float32 {name} {tuple(shape)} "
+            f"({n / 1e6:.1f} M elements): kernel {ms:.4f} ms "
+            f"({2 * n * 4 / ms / 1e6:.0f} GB/s), bound {bnd:.4f} ms "
+            f"({bound_by}), plain fused_dropout_reference {plain_ms:.2f} ms, "
+            f"F.dropout {library_ms:.4f} ms ({card})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "timing_err": err}
+        del xs
+    return out
+
+
+
 def main() -> int:
     try:
         import torch
@@ -770,6 +1284,10 @@ def main() -> int:
     train_fwd, train_bwd, conf = phase_train(torch, train, dev)
     phase_step_time(torch, conf, card)
     timing, timing_bwd = phase_timing(torch, card)
+    dropout_err = phase_kernel_dropout(torch)
+    fused = phase_train_fused(torch, conf, card)
+    eval_fwd, _ = phase_evaluate(torch, conf, train, dev, card)
+    dropout_timing = phase_profile_evaluate(torch, conf, train, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     kernels = [{
@@ -777,8 +1295,10 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
-        "launches": launches + train_fwd,
-        "launches_by_path": {"serve": launches, "train": train_fwd},
+        "launches": launches + train_fwd + fused["lstm_fwd"] + eval_fwd,
+        "launches_by_path": {"serve": launches, "train": train_fwd,
+                             "train-fused": fused["lstm_fwd"],
+                             "evaluate": eval_fwd},
         "max_abs_err": max(worst["float32"], timing["timing_err"]),
         "shape": f"T'=80 B=16 H={H} float32",
         "ms": timing["ms"],
@@ -791,11 +1311,24 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
-        "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd},
+        "launches": train_bwd + fused["lstm_bwd"],
+        "launches_by_path": {"train": train_bwd,
+                             "train-fused": fused["lstm_bwd"]},
         "max_abs_err": worst_bwd["float32_abs"],
         "shape": f"T'=80 B={BATCH} H={H} float32",
         **timing_bwd[BATCH],
+    }, {
+        "name": "fused_dropout",
+        "route": "cuda",
+        "source": "mdd_tpu_torch/csrc/dropout.cu",
+        "replaces": "mdd_tpu/ops/dropout_pallas.py:53",
+        "launches": fused["fused_dropout"],
+        "launches_by_path": {"train-fused": fused["fused_dropout"]},
+        "max_abs_err": max(dropout_err,
+                           dropout_timing["conv0"].pop("timing_err")),
+        "shape": "conv0 site %s float32" % "x".join(
+            map(str, DROPOUT_SITES["conv0"])),
+        **dropout_timing["conv0"],
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-// Helpers shared by the LSTM recurrence kernels (lstm_fwd.cu, lstm_bwd.cu):
-// dtype conversions, 4-wide loads, the L2 read of data other blocks wrote,
-// and the per-direction grid barrier.
+// Helpers shared by the package's kernels: dtype conversions and 4-wide
+// loads and stores (lstm_fwd.cu, lstm_bwd.cu, dropout.cu); the L2 read of
+// data other blocks wrote and the per-direction grid barrier (the LSTM
+// recurrences).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +37,19 @@ __device__ __forceinline__ float4 load4(const float* p) {
 }
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
+}
+
+// four floats to four consecutive elements (16- or 8-byte aligned)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // Data written by other blocks during the launch: read it from L2, never

@@ -2,7 +2,8 @@
 mdd_tpu/infer.py).
 
   resample -> fbank (device) + committed CMVN -> splice / skip / pad ->
-  CTC-attention forward + greedy decode (device) -> strip sil / drop err
+  CTC-attention forward + greedy or beam decode (device) -> strip sil /
+  drop err
   -> align decoded vs canonical -> per-phone fault lists -> 0-100 score.
 
 The canonical phones come with each item: the lexicon (word -> phones,
@@ -87,6 +88,9 @@ class InferenceEngine:
         vocab: Vocab,
         cmvn: CmvnStats,
         decode_type: str = "greedy",
+        beam_width: int = 10,
+        lm_path: Optional[str] = None,
+        lm_alpha: float = 0.0,
         left_ctx: int = 0,
         right_ctx: int = 2,
         n_skip_frame: int = 2,
@@ -94,7 +98,9 @@ class InferenceEngine:
         device: str | torch.device = "cuda",
     ):
         self.session = EvalSession(model_cfg, state_dict, vocab,
-                                   decode_type, device)
+                                   decode_type=decode_type,
+                                   beam_width=beam_width, lm_path=lm_path,
+                                   lm_alpha=lm_alpha, device=device)
         self.vocab = vocab
         self.cmvn = cmvn
         self.fbank = BatchedFbank(FbankConfig(), device)

@@ -22,7 +22,10 @@ them; `init_parameters` draws fresh ones with flax's initializers.
 `forward(..., train=True, sample_mask=..., generator=...)` is flax's train
 mode: every BatchNorm normalises with the statistics of the rows
 `sample_mask` keeps and updates its running averages, and dropout masks
-are drawn from `generator`.
+are drawn from `generator`.  With `use_fused_dropout` every dropout site
+(the 2 convolution outputs and the 4 acoustic BiLSTM outputs) goes through
+ops.dropout_cuda.fused_dropout: one seed from `generator` per site and
+call, the mask made in the kernel on both passes.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdd_tpu_torch.ops.attention import dot_attention
+from mdd_tpu_torch.ops.dropout_cuda import fused_dropout
 from mdd_tpu_torch.ops.lstm import bilstm
 from mdd_tpu_torch.ops.lstm_cuda import bilstm_cuda
 
@@ -60,8 +64,9 @@ class ModelConfig:
     use_pallas_lstm: bool = False      # acoustic recurrence in the fused
     # kernels (mdd_tpu: Pallas; here: csrc/lstm_{fwd,bwd}.cu via
     # ops.lstm_cuda)
-    use_fused_dropout: bool = False    # in-kernel dropout masks: not ported
-    # yet, so a config that sets it is refused in train mode
+    use_fused_dropout: bool = False    # dropout masks made in the kernel
+    # from a seed (mdd_tpu: Pallas; here: csrc/dropout.cu via
+    # ops.dropout_cuda); the backward regenerates the mask from the seed
 
     @property
     def time_downsample(self) -> int:
@@ -154,15 +159,20 @@ class BatchNorm(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            fused: bool = False) -> torch.Tensor:
     """flax nn.Dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate); the mask comes from
-    `generator`, which train mode must supply when rate > 0."""
+    `generator`, which train mode must supply when rate > 0.  `fused`
+    (mdd_tpu's _Dropout(fused=True)) draws only a seed from it and makes
+    the mask inside the fused dropout kernel."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout draws its masks from an "
                          "explicit torch.Generator; pass generator=")
+    if fused:
+        return fused_dropout(x, rate, generator)
     keep_prob = 1.0 - rate
     keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
@@ -184,10 +194,12 @@ class BiLstmLayer(nn.Module):
 
     def __init__(self, d_in: int, hidden_size: int,
                  use_batch_norm: bool = True, use_bias: bool = False,
-                 use_kernel: bool = False, dropout: float = 0.0):
+                 use_kernel: bool = False, dropout: float = 0.0,
+                 fused_dropout: bool = False):
         super().__init__()
         four_h = 4 * hidden_size
         self.dropout = dropout
+        self.fused_dropout = fused_dropout
         self.bn = BatchNorm(d_in) if use_batch_norm else None
         self.w_ih_fwd = nn.Parameter(torch.empty(d_in, four_h))
         self.w_hh_fwd = nn.Parameter(torch.empty(hidden_size, four_h))
@@ -209,7 +221,14 @@ class BiLstmLayer(nn.Module):
                                    self.w_ih_bwd, self.w_hh_bwd)]
         b = [None if p is None else p.to(dtype)
              for p in (self.b_fwd, self.b_bwd)]
-        y = self.rnn(x.transpose(0, 1), *w, *b)
+        y = self.rnn(x.transpose(0, 1), *w, *b)                  # (T, B, 2H)
+        if self.fused_dropout:
+            # the kernel indexes flat contiguous memory: drop the
+            # time-major tensor the recurrence returns, not its transposed
+            # view (the mask is independent per element, so the order of
+            # the two does not matter to the law)
+            return dropout(y, self.dropout, train, generator,
+                           fused=True).transpose(0, 1)
         return dropout(y.transpose(0, 1), self.dropout, train, generator)
 
 
@@ -240,7 +259,8 @@ class ConvSubsampler(nn.Module):
                          stride=tuple(s), padding=tuple(p))
             x = F.relu(getattr(self, f"bn{i}")(
                 x, dtype, axis=1, train=train, sample_mask=sample_mask))
-            x = dropout(x, self.cfg.dropout, train, generator)
+            x = dropout(x, self.cfg.dropout, train, generator,
+                        fused=self.cfg.use_fused_dropout)
         b, c, t, f = x.shape
         # flax flattens NHWC: frequency-major, channel fastest
         return x.permute(0, 2, 3, 1).reshape(b, t, f * c)
@@ -287,7 +307,8 @@ class CTCAttentionModel(nn.Module):
             layer = BiLstmLayer(d_in, cfg.rnn_hidden_size,
                                 use_batch_norm=i > 0,
                                 use_kernel=cfg.use_pallas_lstm,
-                                dropout=cfg.dropout)
+                                dropout=cfg.dropout,
+                                fused_dropout=cfg.use_fused_dropout)
             self.add_module(f"rnn{i}", layer)
             self.rnn_layers.append(layer)
             d_in = cfg.encoder_dim
@@ -305,10 +326,6 @@ class CTCAttentionModel(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """sample_mask: (B,) bool, False rows (batch padding) are left out
         of the batch statistics; generator: the dropout masks' source."""
-        if train and self.cfg.use_fused_dropout:
-            raise NotImplementedError(
-                "use_fused_dropout: the fused dropout kernel (port of "
-                "mdd_tpu/ops/dropout_pallas.py) is not ported yet")
         rest = dict(train=train, sample_mask=sample_mask,
                     generator=generator)
         x = self.conv(feats, self.dtype, **rest)

@@ -3,8 +3,10 @@
 Each `csrc/*.cu` file exports a plain C interface and is compiled by hand
 with `nvcc` for `sm_90a` (Hopper) into `mdd_tpu_torch/_build/`, at first
 use, keyed by a hash of the source, the shared `csrc/*.cuh` headers and
-the flags, so an edited source or header is rebuilt.  Nothing here runs at import time, and nothing falls back: a
-missing `nvcc` or a failed compile raises.
+the flags, so an edited source or header is rebuilt.  Nothing here runs
+at import time, and nothing falls back: a missing `nvcc` or a failed
+compile raises.  `KernelBinding` binds one library's entry point and counts
+its launches.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -93,3 +97,40 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(source)))
         _loaded[source] = lib
     return lib
+
+
+class KernelBinding:
+    """ctypes binding of one `csrc/` library with a launch counter.
+
+    `argtypes` are the entry point's arguments before the stream.
+    `launches` counts the calls that launched the kernel; it is a plain
+    integer that a caller may reset."""
+
+    source = ""
+    entry = ""
+    argtypes: tuple = ()
+
+    def __init__(self):
+        self.launches = 0
+        self._lib = None
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.source)
+            fn = getattr(lib, self.entry)
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            lib.mdd_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.mdd_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def _launch(self, device, *args) -> None:
+        lib = self.library()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = getattr(lib, self.entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.entry} launch failed: "
+                               + lib.mdd_cuda_error_string(err).decode())
+        self.launches += 1

@@ -123,50 +123,24 @@ def _check_lstm_inputs(x_proj, w_hh, units_per_block):
     return t, b, h
 
 
-class _KernelBinding:
-    """ctypes binding of one `csrc/` library with a launch counter.
+class _LstmBinding(build.KernelBinding):
+    """An LSTM kernel: n_pointers tensors, then T, B, H and the dtype."""
 
-    `launches` counts the calls that launched the kernel; it is a plain
-    integer that a caller may reset."""
-
-    source = ""
-    entry = ""
     n_pointers = 0
 
-    def __init__(self):
-        self.launches = 0
-        self._lib = None
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.source)
-            fn = getattr(lib, self.entry)
-            fn.argtypes = ([ctypes.c_void_p] * self.n_pointers
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            units = getattr(lib, self.entry + "_units_per_block")
-            units.argtypes = []
-            units.restype = ctypes.c_int
-            lib.mdd_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.mdd_cuda_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
-
-    def _launch(self, device, *args) -> None:
-        lib = self.library()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            err = getattr(lib, self.entry)(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.entry} launch failed: "
-                               + lib.mdd_cuda_error_string(err).decode())
-        self.launches += 1
+    @property
+    def argtypes(self):
+        return (ctypes.c_void_p,) * self.n_pointers + (ctypes.c_int,) * 4
 
     def units_per_block(self) -> int:
-        return getattr(self.library(), self.entry + "_units_per_block")()
+        """Hidden units each block owns; H must be a multiple of it."""
+        units = getattr(self.library(), self.entry + "_units_per_block")
+        units.argtypes = []
+        units.restype = ctypes.c_int
+        return units()
 
 
-class LstmFwdKernel(_KernelBinding):
+class LstmFwdKernel(_LstmBinding):
     """`mdd_lstm_fwd` of csrc/lstm_fwd.cu: (x_proj, w_hh) -> (hs, cs)."""
 
     source, entry, n_pointers = "lstm_fwd.cu", "mdd_lstm_fwd", 6
@@ -184,7 +158,7 @@ class LstmFwdKernel(_KernelBinding):
         return hs, cs
 
 
-class LstmBwdKernel(_KernelBinding):
+class LstmBwdKernel(_LstmBinding):
     """`mdd_lstm_bwd` of csrc/lstm_bwd.cu (the recurrence, then the dW_hh
     product): (x_proj, w_hh, hs, cs, dhs) -> (dx_proj, dW_hh float32)."""
 

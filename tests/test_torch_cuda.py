@@ -1,5 +1,6 @@
-"""The CUDA LSTM kernels on the card: against their plain versions, the
-refusals of the wrappers, and autograd through the backward kernel.
+"""The CUDA kernels on the card (the LSTM recurrences and the fused
+dropout): against their plain versions, the refusals of the wrappers, and
+autograd through the backward kernels.
 Marked `cuda`; skips where there is no card.
 No JAX here, so the file runs on a GPU machine without it:
 
@@ -9,7 +10,7 @@ No JAX here, so the file runs on a GPU machine without it:
 import pytest
 import torch
 
-from mdd_tpu_torch.ops import lstm_cuda
+from mdd_tpu_torch.ops import dropout_cuda, lstm_cuda
 from mdd_tpu_torch.ops.lstm import bilstm
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +106,69 @@ def test_loss_backward_through_bilstm_cuda_launches_the_kernel(cuda):
     assert lstm_cuda.lstm_bwd_kernel.launches == before + 1
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (3,), (4,), (1023,), (7, 129),
+                                   (16, 110, 768), (8, 32, 220, 122)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_kernel_equals_plain_version_bit_for_bit(cuda, dtype, shape,
+                                                         rate):
+    """Same Philox, same float32 product, same rounding: no tolerance."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).to("cuda", dtype)
+    seed = torch.tensor([0x1234_5678_9ABC_DEF0 >> 1], device="cuda")
+    before = dropout_cuda.fused_dropout_kernel.launches
+    out = dropout_cuda.fused_dropout_apply(x, seed, rate)
+    torch.cuda.synchronize()
+    assert dropout_cuda.fused_dropout_kernel.launches == before + 1
+    ref = dropout_cuda.fused_dropout_reference(x, seed, rate)
+    assert out.dtype == dtype and out.shape == x.shape
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), ref.view(bits))
+
+
+def test_dropout_kernel_on_unaligned_storage(cuda):
+    """A contiguous slice that starts 4 bytes into an allocation takes the
+    scalar path and the same mask."""
+    x = torch.randn(4099, device="cuda")
+    seed = torch.tensor([77], device="cuda")
+    out = dropout_cuda.fused_dropout_apply(x[1:], seed, 0.2)
+    assert torch.equal(out, dropout_cuda.fused_dropout_reference(
+        x[1:].clone(), seed, 0.2))
+    assert torch.equal(out, dropout_cuda.fused_dropout_apply(
+        x[1:].clone(), seed, 0.2))
+
+
+def test_dropout_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(8, 6, device="cuda")
+    seed = torch.tensor([1], device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        dropout_cuda.fused_dropout_kernel(x.t(), seed, 0.2)
+    with pytest.raises(TypeError):
+        dropout_cuda.fused_dropout_kernel(x.half(), seed, 0.2)
+    with pytest.raises(ValueError, match="seed"):
+        dropout_cuda.fused_dropout_kernel(x, seed.cpu(), 0.2)
+    with pytest.raises(ValueError, match="rate"):
+        dropout_cuda.fused_dropout_kernel(x, seed, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        dropout_cuda.fused_dropout_kernel(x.cpu(), seed.cpu(), 0.2)
+
+
+def test_dropout_backward_regenerates_the_forward_mask(cuda):
+    """Two launches (forward, backward), gradient = mask / keep * dy, also
+    through a transposed cotangent; another seed gives another mask."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.rand(33, 70, device="cuda") + 0.5).requires_grad_()   # no 0
+    dy = torch.randn(70, 33, device="cuda").t()
+    before = dropout_cuda.fused_dropout_kernel.launches
+    out = dropout_cuda.fused_dropout(x, 0.2, gen)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert dropout_cuda.fused_dropout_kernel.launches == before + 2
+    mask = out != 0
+    want = torch.where(mask, (dy * torch.tensor(1.25, device="cuda")), 0.0)
+    assert torch.equal(x.grad, want)
+    assert abs(mask.float().mean().item() - 0.8) < 4 * (0.16 / x.numel()) ** 0.5
+    other = dropout_cuda.fused_dropout(x, 0.2, gen)
+    assert not torch.equal(other != 0, mask)

@@ -32,3 +32,20 @@ def test_no_jax_or_mdd_tpu_imports(path):
 def test_every_package_module_is_checked():
     assert len(SOURCES) > 20
     assert all(p.exists() for p in SOURCES)
+
+
+@pytest.mark.parametrize("module", [
+    "ops/dropout_cuda.py", "decode/arpa.py", "decode/lm_train.py",
+    "decode/beam.py", "decode/beam_jit.py", "evals/wer.py",
+    "evals/analysis.py", "evals/evaluate.py", "align/levenshtein.py",
+    "align/mdd.py", "cli.py"])
+def test_evaluation_slice_modules_are_checked(module):
+    """The modules of the train-with-fused-dropout -> evaluate path exist
+    and are among the checked sources; none imports `triton` or builds a
+    kernel at import time (the sandbox's CPU tests import every module)."""
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    top_level = {alias.name.split(".")[0]
+                 for node in ast.parse(path.read_text()).body
+                 if isinstance(node, ast.Import) for alias in node.names}
+    assert "triton" not in top_level

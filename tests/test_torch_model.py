@@ -78,13 +78,26 @@ def test_no_trans_lengths_means_unmasked_attention():
 
 
 def test_train_mode_is_not_ported_yet():
-    """Train mode is ported, except the fused dropout kernel: a config
-    that asks for it is refused, and plain dropout needs its generator."""
+    """The name dates from when the port refused `use_fused_dropout`; now
+    train mode is ported whole.  A config that asks for the fused dropout
+    runs: train-mode output is finite, differs from eval's, is repeatable
+    from the generator's seed, and gradients reach every parameter.  Both
+    kinds of dropout need their generator."""
     feats, trans, lengths = _inputs(4)
     args = (torch.from_numpy(feats), torch.from_numpy(trans).long(),
             torch.from_numpy(lengths).long())
     fused = CTCAttentionModel(ModelConfig(**SMALL, use_fused_dropout=True))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    fused.init_parameters(torch.Generator().manual_seed(0))
+    outs = [fused(*args, train=True,
+                  generator=torch.Generator().manual_seed(seed))
+            for seed in (7, 7, 8)]
+    assert torch.isfinite(outs[0]).all() and outs[0].shape == (12, 3, 12)
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+    outs[0].sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in fused.parameters())
+    with pytest.raises(ValueError, match="generator"):
         fused(*args, train=True)
     _, _, tmodel = _pair(True, True)
     with pytest.raises(ValueError, match="generator"):
