@@ -5,13 +5,15 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
-            lstm_fwd.cu, lstm_bwd.cu, dropout.cu.
+            lstm_fwd.cu, lstm_bwd.cu, dropout.cu, and mma_rate.cu (the
+            mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
+            the model's path).
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
             serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
             {16, 80, 128}), float32 and bfloat16.
 3. kernel-bwd  lstm_bwd against its plain version at the training shapes
-            (H=384, B in {1, 16, 64}, T' in {16, 80, 128}), float32 and
-            bfloat16.
+            (H=384, B in {1, 4, 16, 24, 64}, T' in {16, 80, 128}), float32
+            and bfloat16.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -41,9 +43,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             the ops that take the device time.
 10. timing  one BiLSTM layer at B=16, T'=80: the forward kernel, its plain
             version, the port's layer and one torch.nn.LSTM call; the
-            backward kernel at B=16 and 64, T'=80, its plain version, and
-            the backward of one torch.nn.LSTM (forward+backward minus
-            forward) as the yardstick only.
+            backward at B=16 and 64, T'=80, its plain version, its launches
+            one by one (the pre-activation product, the recurrence, the
+            dW_hh product: ms and effective TFLOP/s), and the backward of
+            one torch.nn.LSTM (forward+backward minus forward) as the
+            yardstick only.
 
 11. kernel-dropout  fused_dropout against its plain version, bit for bit,
             float32 and bfloat16, rates 0.1 / 0.2 / 0.5, at the 3 site
@@ -107,9 +111,10 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # kernel vs plain, hs and cs:
 # bfloat16 rounds h every step, so a 1-ulp rounding (2^-8) can carry on
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # kernel vs plain, dx_proj
 # and dW_hh, each relative to its largest magnitude: float32 sums run in
-# another order (dh over 4 interleaved K-slices, dW over all T*B rows at
-# once instead of step by step); bfloat16 rounds dgates, so a 1-ulp
-# rounding (2^-8) can carry into the earlier steps
+# another order (dh as partial sums of up to H/8 blocks, dW over all T*B
+# rows at once instead of step by step) and every float32 product is three
+# TF32 passes on the tensor cores (~2^-20 of a product); bfloat16 rounds
+# dgates, so a 1-ulp rounding (2^-8) can carry into the earlier steps
 MODEL_TOL = 1e-4   # full-model log-probs, float32, kernel vs plain LSTM
 GRAD_TOL = 1e-3    # full-model gradients, float32, kernels vs plain LSTM,
 # each relative to its tensor's largest magnitude: the sums of both kernels
@@ -261,7 +266,7 @@ def phase_kernel_bwd(torch) -> dict:
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         worst[dtype] = 0.0
-        for b in (1, 16, 64):
+        for b in (1, 4, 16, 24, 64):
             for t in (16, 80, 128):
                 x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
                           ).to("cuda", dt)
@@ -481,7 +486,10 @@ def report_profile(prof, wall_us: float, tag: str, what: str,
     log(f"[{tag}] {what}: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%), "
         f"{sum(e.count for e in events)} device ops ({card})")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the top ten, and below them every kernel of the package's own
+    for e in ranked[:10] + [e for e in ranked[10:]
+                            if "lstm_" in e.key or "dropout_kernel" in e.key]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
@@ -744,9 +752,11 @@ def phase_timing(torch, card: str) -> dict:
 
 
 def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
-    """lstm_bwd at (T', B), float32: the kernel, its plain version, its
-    bound, and the backward of one cuDNN torch.nn.LSTM layer as the
-    yardstick (its forward+backward minus its forward)."""
+    """lstm_bwd at (T', B), float32: the backward, its launches one by one
+    (each product with its effective rate: the float32 operations of the
+    product over its time), its plain version, its bound, and the backward
+    of one cuDNN torch.nn.LSTM layer as the yardstick (its forward+backward
+    minus its forward)."""
     from mdd_tpu_torch.ops.lstm_cuda import (
         lstm_bwd_kernel,
         lstm_fwd_kernel,
@@ -763,6 +773,25 @@ def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
         ms = cuda_ms(lambda: lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs), 20)
         plain_ms = cuda_ms(
             lambda: lstm_seq_bwd_reference(x_proj, w_hh, hs, cs, dhs), 3)
+        k = lstm_bwd_kernel
+        buffers = k.buffers(x_proj)
+        part_ms = {name: cuda_ms(lambda: k.run_parts(
+            x_proj, w_hh, hs, cs, dhs, buffers, part), 20)
+            for name, part in (("all", k.ALL), ("z", k.Z_PRODUCT),
+                               ("chain", k.CHAIN), ("dw", k.DW_PRODUCT))}
+    plan = lstm_bwd_kernel.plan(t, b, H, torch.float32)
+    dot_flops = 2 * 2 * b * H * 4 * H        # one step's dot, 2 directions
+    z_tflops = t * dot_flops / part_ms["z"] / 1e9
+    dw_tflops = (t - 1) * dot_flops / part_ms["dw"] / 1e9
+    log(f"[timing] float32, B={b} T'={t}: lstm_bwd launches one by one: "
+        f"pre-activation product {part_ms['z']:.4f} ms ({z_tflops:.1f} "
+        f"TFLOP/s effective), recurrence {part_ms['chain']:.4f} ms "
+        f"({part_ms['chain'] * 1e3 / max(t - 1, 1):.2f} us a step; "
+        f"{plan['blocks']} blocks of {8 * plan['unit_groups']} units x "
+        f"{16 * plan['batch_tiles']} rows, {plan['smem_bytes']} B shared), "
+        f"dW_hh product + reduce {part_ms['dw']:.4f} ms ({dw_tflops:.1f} "
+        f"TFLOP/s effective, {plan['k_slices']} slices); with reused "
+        f"buffers {part_ms['all']:.4f} ms ({card})")
     lib = torch.nn.LSTM(2 * H, H, bidirectional=True, bias=False).cuda()
     x = torch.randn((t, b, 2 * H), generator=g).cuda().requires_grad_()
     dy = torch.randn((t, b, 2 * H), generator=g).cuda()
@@ -776,7 +805,9 @@ def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
         f"{lib_both:.4f} - fwd {lib_fwd:.4f}) {lib_both - lib_fwd:.4f} ms "
         f"({card})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-            "bound_by": bound_by, "library_ms": lib_both - lib_fwd}
+            "bound_by": bound_by, "library_ms": lib_both - lib_fwd,
+            "parts_ms": {name: part_ms[name] for name in ("z", "chain", "dw")},
+            "product_tflops": {"z": z_tflops, "dw": dw_tflops}}
 
 
 def dropout_bound_ms(n: int, dtype: str) -> tuple:

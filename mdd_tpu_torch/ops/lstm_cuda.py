@@ -159,12 +159,39 @@ class LstmFwdKernel(_LstmBinding):
 
 
 class LstmBwdKernel(_LstmBinding):
-    """`mdd_lstm_bwd` of csrc/lstm_bwd.cu (the recurrence, then the dW_hh
-    product): (x_proj, w_hh, hs, cs, dhs) -> (dx_proj, dW_hh float32)."""
+    """`mdd_lstm_bwd` of csrc/lstm_bwd.cu: (x_proj, w_hh, hs, cs, dhs) ->
+    (dx_proj, dW_hh float32).  Inside, four launches: the gate
+    pre-activations of every step as one product, the recurrence, and the
+    dW_hh product with its reduce; one count a backward."""
 
-    source, entry, n_pointers = "lstm_bwd.cu", "mdd_lstm_bwd", 10
+    source, entry, n_pointers = "lstm_bwd.cu", "mdd_lstm_bwd", 11
+    #: `parts` bits of the entry point; ALL is the backward
+    Z_PRODUCT, CHAIN, DW_PRODUCT, ALL = 1, 2, 4, 7
+    #: one zeroed 128-byte line of counters per barrier group
+    _COUNTER_STRIDE = 32
+    _ROWS_TILE = 16
 
-    def __call__(self, x_proj, w_hh, hs, cs, dhs):
+    @property
+    def argtypes(self):
+        return (ctypes.c_void_p,) * self.n_pointers + (ctypes.c_int,) * 5
+
+    def plan(self, t: int, b: int, h: int, dtype: torch.dtype) -> dict:
+        """How the kernels lay a call of these shapes out on the current
+        card; raises when the batch is too large for the recurrence's
+        blocks to be resident together at this H and dtype."""
+        fn = self.library().mdd_lstm_bwd_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 6)()
+        err = fn(t, b, h, _DTYPE_CODES[dtype], out)
+        if err != 0:
+            raise ValueError(
+                f"lstm_bwd takes no batch of {b} at H={h} in {dtype}: "
+                + self.library().mdd_cuda_error_string(err).decode())
+        return dict(zip(("unit_groups", "batch_tiles", "blocks", "smem_bytes",
+                         "k_slices", "exchange_elems"), out))
+
+    def _check(self, x_proj, w_hh, hs, cs, dhs):
         t, b, h = _check_lstm_inputs(x_proj, w_hh, self.units_per_block)
         want = (t, 2, b, h)
         for name, a, dtype in (("hs", hs, x_proj.dtype),
@@ -176,17 +203,44 @@ class LstmBwdKernel(_LstmBinding):
                     f"{name} must be a contiguous {dtype} tensor of shape "
                     f"{want} on {x_proj.device}, got {a.dtype} "
                     f"{tuple(a.shape)} on {a.device}")
-        dev = x_proj.device
-        dxp = torch.empty_like(x_proj)
-        dw = torch.empty((2, h, 4 * h), dtype=torch.float32, device=dev)
-        carries = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
-        barrier = torch.zeros(2, dtype=torch.int32, device=dev)
-        self._launch(dev, x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-                     cs.data_ptr(), dhs.data_ptr(), dxp.data_ptr(),
-                     dw.data_ptr(), carries[0].data_ptr(),
-                     carries[1].data_ptr(), barrier.data_ptr(),
-                     t, b, h, _DTYPE_CODES[x_proj.dtype])
-        return dxp, dw
+        return t, b, h
+
+    def buffers(self, x_proj) -> tuple:
+        """(dx_proj, dW_hh, z, dW_hh partial sums, exchange) for a call on
+        x_proj: the outputs, the float32 gate pre-activations (T, 2, B, 4H),
+        one (2, H, 4H) float32 partial sum per slice of dW_hh's reduction,
+        and the float32 partial dh the recurrence's blocks pass each other."""
+        t, _, b, four_h = x_proj.shape
+        h, dev = four_h // 4, x_proj.device
+        with torch.cuda.device(dev):
+            plan = self.plan(t, b, h, x_proj.dtype)
+        f32 = dict(dtype=torch.float32, device=dev)
+        return (torch.empty_like(x_proj), torch.empty((2, h, four_h), **f32),
+                torch.empty((t, 2, b, four_h), **f32),
+                torch.empty((plan["k_slices"], 2, h, four_h), **f32),
+                torch.empty(plan["exchange_elems"], **f32))
+
+    def run_parts(self, x_proj, w_hh, hs, cs, dhs, buffers, parts) -> None:
+        """Launch the kernels that `parts` names into `buffers`.  A part
+        reads what the earlier ones left there; anything but ALL exists to
+        time the launches one by one."""
+        t, b, h = self._check(x_proj, w_hh, hs, cs, dhs)
+        dxp, dw, z, dw_partial, exchange = buffers
+        groups = 2 * -(-b // self._ROWS_TILE)
+        barrier = torch.zeros(groups * self._COUNTER_STRIDE,
+                              dtype=torch.int32, device=x_proj.device)
+        self._launch(x_proj.device, x_proj.data_ptr(), w_hh.data_ptr(),
+                     hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                     dxp.data_ptr(), dw.data_ptr(), z.data_ptr(),
+                     dw_partial.data_ptr(), exchange.data_ptr(),
+                     barrier.data_ptr(), t, b, h,
+                     _DTYPE_CODES[x_proj.dtype], parts)
+
+    def __call__(self, x_proj, w_hh, hs, cs, dhs):
+        self._check(x_proj, w_hh, hs, cs, dhs)
+        buffers = self.buffers(x_proj)
+        self.run_parts(x_proj, w_hh, hs, cs, dhs, buffers, self.ALL)
+        return buffers[0], buffers[1]
 
 
 #: the process's bindings; chip_smoke.py reads and resets their counters

@@ -66,10 +66,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("t,b,h", [(16, 1, 384), (80, 16, 384),
                                    (80, 64, 384), (128, 64, 384),
-                                   (16, 256, 384), (1, 3, 8), (5, 37, 64)])
+                                   (16, 256, 384), (1, 3, 8), (5, 37, 64),
+                                   (80, 4, 384), (16, 24, 384), (1, 24, 384),
+                                   (2, 4, 384), (2, 24, 40), (1, 4, 24),
+                                   (7, 17, 72)])
 def test_backward_kernel_matches_plain_version(cuda, dtype, tol, t, b, h):
     """dx_proj and dW_hh, each relative to its largest magnitude: float32
-    sums run in another order, bfloat16 rounds dgates (1-ulp flips)."""
+    sums run in another order and its products are three TF32 passes,
+    bfloat16 rounds dgates (1-ulp flips).  The shapes cover the partition
+    over (direction, 16-row batch tile, group of 8 units): batches under a
+    tile, between tiles and over several tiles a block, no recurrent step
+    and one, H a multiple of 8 but not of 64."""
     x_proj, w_hh = _inputs(t, b, h, dtype)
     g = torch.Generator().manual_seed(1)
     dhs = torch.randn((t, 2, b, h), generator=g).cuda()
@@ -83,6 +90,36 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, tol, t, b, h):
     assert dxp.dtype == dtype and dw.dtype == torch.float32
     for got, want in ((dxp.float(), ref_dxp.float()), (dw, ref_dw)):
         assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+def test_backward_kernel_is_the_same_from_run_to_run(cuda):
+    """Every sum inside runs in a fixed order (no atomics on data)."""
+    x_proj, w_hh = _inputs(40, 24, 384, torch.float32)
+    dhs = torch.randn((40, 2, 24, 384), device="cuda")
+    hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+    first = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    again = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_backward_wrapper_refuses_a_batch_whose_blocks_cannot_be_resident(
+        cuda):
+    """The recurrence is one cooperative launch: at H=384 in float32 a
+    block holds the w_hh columns of at most 24 units and 64 batch rows, so
+    a batch of 512 has no layout in which every block is resident; the
+    wrapper says so and launches nothing."""
+    x_proj, w_hh = _inputs(2, 512, 384, torch.float32)
+    dhs = torch.zeros((2, 2, 512, 384), device="cuda")
+    hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+    before = lstm_cuda.lstm_bwd_kernel.launches
+    with pytest.raises(ValueError, match="no batch of 512"):
+        lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    assert lstm_cuda.lstm_bwd_kernel.launches == before
+    plan = lstm_cuda.lstm_bwd_kernel.plan(80, 64, 384, torch.float32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 0 < plan["blocks"] <= 2 * sms
+    assert plan["blocks"] == 2 * -(-4 // plan["batch_tiles"]) * (
+        384 // (8 * plan["unit_groups"]))
 
 
 def test_loss_backward_through_bilstm_cuda_launches_the_kernel(cuda):

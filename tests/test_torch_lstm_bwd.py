@@ -45,6 +45,45 @@ def test_reference_matches_pallas_backward(t, b):
     np.testing.assert_allclose(dw_t.numpy(), np.asarray(dw_j), **GRAD_TOL)
 
 
+# what the kernel's partition over (direction, 16-row batch tile, group of 8
+# hidden units) makes interesting: a batch under one tile and one that is no
+# multiple of 16, no recurrent step and exactly one, H a multiple of the unit
+# group but not of 64
+PARTITION_SHAPES = [(1, 4, 24), (2, 4, 24), (1, 24, 40), (2, 24, 40),
+                    (5, 24, 8), (3, 17, 72)]
+
+
+@pytest.mark.parametrize("t,b,h", PARTITION_SHAPES)
+def test_reference_matches_pallas_backward_at_partition_shapes(t, b, h):
+    x_proj, w_hh, dhs = _seq_inputs(100 * t + b + h, t, b, h)
+    hs, cs = _lstm_seq_fwd(jnp.asarray(x_proj), jnp.asarray(w_hh))
+    dxp_j, dw_j = _lstm_seq_bwd(jnp.asarray(x_proj), jnp.asarray(w_hh), hs,
+                                cs, jnp.asarray(dhs))
+    dxp_t, dw_t = lstm_cuda.lstm_seq_bwd_reference(
+        torch.from_numpy(x_proj), torch.from_numpy(w_hh),
+        torch.from_numpy(np.array(hs)), torch.from_numpy(np.array(cs)),
+        torch.from_numpy(dhs))
+    np.testing.assert_allclose(dxp_t.numpy(), np.asarray(dxp_j), **GRAD_TOL)
+    np.testing.assert_allclose(dw_t.numpy(), np.asarray(dw_j), **GRAD_TOL)
+    if t == 1:   # no recurrent step: nothing reaches dW_hh
+        assert not dw_t.any()
+
+
+@pytest.mark.parametrize("t,b,h", PARTITION_SHAPES)
+def test_lstm_seq_function_matches_jax_grad_at_partition_shapes(t, b, h):
+    x_proj, w_hh, _ = _seq_inputs(7 * t + b + h, t, b, h)
+
+    def loss(xp, w):
+        return jnp.sum(jnp.tanh(jax_lstm_seq(xp, w)) * 0.7)
+
+    val_j, (gx_j, gw_j) = jax.value_and_grad(loss, argnums=(0, 1))(
+        jnp.asarray(x_proj), jnp.asarray(w_hh))
+    val_t, gx_t, gw_t = _port_grads(x_proj, w_hh, lstm_cuda.lstm_seq)
+    np.testing.assert_allclose(val_t, float(val_j), rtol=1e-5)
+    np.testing.assert_allclose(gx_t, np.asarray(gx_j), **GRAD_TOL)
+    np.testing.assert_allclose(gw_t, np.asarray(gw_j), **GRAD_TOL)
+
+
 def test_reference_matches_pallas_backward_bf16():
     """bfloat16 x_proj, hs and cs (c read rounded, as the Pallas kernel
     reads it): dgates round to bf16, so a 1-ulp difference (2^-8
