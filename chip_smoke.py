@@ -10,7 +10,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             the model's path).
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
             serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
-            {16, 80, 128}), float32 and bfloat16.
+            {16, 80, 128}) and at B=24, 256 and 512 (two unit groups a
+            block, four and eight launches), float32 and bfloat16.
 3. kernel-bwd  lstm_bwd against its plain version at the training shapes
             (H=384, B in {1, 4, 16, 24, 64}, T' in {16, 80, 128}), float32
             and bfloat16.
@@ -41,8 +42,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             step; then the step time at B=64.
 9. profile-train  torch.profiler over 3 train steps: device busy share and
             the ops that take the device time.
-10. timing  one BiLSTM layer at B=16, T'=80: the forward kernel, its plain
-            version, the port's layer and one torch.nn.LSTM call; the
+10. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
+            (and its plan), its plain version, its bound, the port's layer
+            and one torch.nn.LSTM call (a whole layer, the yardstick); the
             backward at B=16 and 64, T'=80, its plain version, its launches
             one by one (the pre-activation product, the recurrence, the
             dW_hh product: ms and effective TFLOP/s), and the backward of
@@ -107,8 +109,9 @@ WORK = ROOT / "_smoke"
 SEED = 0
 H = 384
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # kernel vs plain, hs and cs:
-# float32 differs only in the summation order of the recurrent dot;
-# bfloat16 rounds h every step, so a 1-ulp rounding (2^-8) can carry on
+# float32 differs in the summation order of the recurrent dot and in its
+# three TF32 passes (~2^-20 of a product); bfloat16 rounds h every step, so
+# a 1-ulp rounding (2^-8) can carry on
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # kernel vs plain, dx_proj
 # and dW_hh, each relative to its largest magnitude: float32 sums run in
 # another order (dh as partial sums of up to H/8 blocks, dW over all T*B
@@ -228,24 +231,26 @@ def phase_kernel(torch) -> dict:
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         worst[dtype] = 0.0
-        for b in (1, 4, 16, 64):
-            for t in (16, 80, 128):
-                x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
-                          ).to("cuda", dt)
-                w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
-                        / H ** 0.5).to("cuda", dt)
-                hs, cs = lstm_fwd_kernel(x_proj, w_hh)
-                torch.cuda.synchronize()
-                ref_hs, ref_cs = lstm_seq_fwd_reference(x_proj, w_hh)
-                err = max((hs.float() - ref_hs.float()).abs().max().item(),
-                          (cs.float() - ref_cs.float()).abs().max().item())
-                log(f"  lstm_fwd {dtype} B={b} T'={t}: max |hs, cs - plain| "
-                    f"= {err:.3e}")
-                if not err <= TOL[dtype]:
-                    raise AssertionError(
-                        f"lstm_fwd {dtype} B={b} T'={t} differs from its "
-                        f"plain version by {err} > {TOL[dtype]}")
-                worst[dtype] = max(worst[dtype], err)
+        # the serving and training shapes, then a batch the kernel splits
+        # over two unit groups a block and two that take several launches
+        cases = [(b, t) for b in (1, 4, 16, 64) for t in (16, 80, 128)]
+        for b, t in cases + [(24, 16), (256, 16), (512, 4)]:
+            x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
+                      ).to("cuda", dt)
+            w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
+                    / H ** 0.5).to("cuda", dt)
+            hs, cs = lstm_fwd_kernel(x_proj, w_hh)
+            torch.cuda.synchronize()
+            ref_hs, ref_cs = lstm_seq_fwd_reference(x_proj, w_hh)
+            err = max((hs.float() - ref_hs.float()).abs().max().item(),
+                      (cs.float() - ref_cs.float()).abs().max().item())
+            log(f"  lstm_fwd {dtype} B={b} T'={t}: max |hs, cs - plain| "
+                f"= {err:.3e}")
+            if not err <= TOL[dtype]:
+                raise AssertionError(
+                    f"lstm_fwd {dtype} B={b} T'={t} differs from its "
+                    f"plain version by {err} > {TOL[dtype]}")
+            worst[dtype] = max(worst[dtype], err)
     log(f"[kernel] lstm_fwd matches lstm_seq_fwd_reference: float32 max err "
         f"{worst['float32']:.3e} (tol {TOL['float32']}), bfloat16 "
         f"{worst['bfloat16']:.3e} (tol {TOL['bfloat16']})")
@@ -712,7 +717,22 @@ def phase_step_time(torch, conf: str, card: str) -> None:
                    f"3 train steps at B={BATCH}", card)
 
 
-def phase_timing(torch, card: str) -> dict:
+FWD_TIMING_BATCHES = (1, 16, 64)   # serving, serving groups, train/evaluate
+
+
+def phase_timing(torch, card: str) -> tuple:
+    """lstm_fwd at the batches of the main paths, then lstm_bwd at B=64 and
+    16; -> ({B: forward timing}, {B: backward timing})."""
+    g = torch.Generator().manual_seed(SEED)
+    fwd = {b: timing_fwd(torch, 80, b, g, card) for b in FWD_TIMING_BATCHES}
+    return fwd, {b: timing_bwd(torch, 80, b, g, card) for b in (64, 16)}
+
+
+def timing_fwd(torch, t: int, b: int, g, card: str) -> dict:
+    """lstm_fwd at (T', B), float32: the kernel, its plain version, its
+    bound, its plan; one BiLSTM layer through the port (input projection +
+    kernel), through the plain loop, and one torch.nn.LSTM call as the
+    yardstick: a whole layer, its input projection included."""
     from mdd_tpu_torch.ops.lstm import bilstm
     from mdd_tpu_torch.ops.lstm_cuda import (
         bilstm_cuda,
@@ -720,8 +740,7 @@ def phase_timing(torch, card: str) -> dict:
         lstm_seq_fwd_reference,
     )
 
-    t, b, d_in = 80, 16, 2 * H
-    g = torch.Generator().manual_seed(SEED)
+    d_in = 2 * H
     s = H ** -0.5
     x = torch.randn((t, b, d_in), generator=g).cuda()
     w = [((torch.rand(shape, generator=g) * 2 - 1) * s).cuda()
@@ -737,18 +756,23 @@ def phase_timing(torch, card: str) -> dict:
         layer_ms = cuda_ms(lambda: bilstm_cuda(x, *w), 50)
         layer_plain_ms = cuda_ms(lambda: bilstm(x, *w), 10)
         library_ms = cuda_ms(lambda: lib(x), 50)
-    bound, bound_by = lstm_bound_ms(t, b, H, "float32")
-    log(f"[timing] {card}; float32, B={b} T'={t} H={H}")
-    log(f"[timing] recurrence: lstm_fwd kernel {ms:.4f} ms, plain "
-        f"lstm_seq_fwd_reference {plain_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({bound_by})")
-    log(f"[timing] BiLSTM layer (768 -> 2x384): port bilstm_cuda "
-        f"{layer_ms:.4f} ms, plain bilstm {layer_plain_ms:.4f} ms, "
-        f"torch.nn.LSTM {library_ms:.4f} ms")
-    fwd = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": bound_by, "library_ms": library_ms,
-           "timing_err": err}
-    return fwd, {b: timing_bwd(torch, t, b, g, card) for b in (64, 16)}
+    bnd, bound_by = lstm_bound_ms(t, b, H, "float32")
+    plan = lstm_fwd_kernel.plan(b, H, torch.float32)
+    log(f"[timing] float32, B={b} T'={t} H={H}: lstm_fwd kernel {ms:.4f} ms "
+        f"({ms * 1e3 / t:.2f} us a step; {plan['blocks']} blocks of "
+        f"{8 * plan['unit_groups']} units x 16 rows, "
+        f"{plan['smem_bytes']} B shared, w_hh split at load "
+        f"{bool(plan['split_w'])}, {plan['launches']} launch(es) of "
+        f"{plan['chunk_rows']} rows, global barrier, no cluster), plain "
+        f"lstm_seq_fwd_reference {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"({bound_by}) ({card})")
+    log(f"[timing] float32, B={b} T'={t}: BiLSTM layer (768 -> 2x384): port "
+        f"bilstm_cuda {layer_ms:.4f} ms, plain bilstm {layer_plain_ms:.4f} "
+        f"ms, torch.nn.LSTM (whole layer, input projection included) "
+        f"{library_ms:.4f} ms ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "timing_err": err}
 
 
 def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
@@ -1321,6 +1345,8 @@ def main() -> int:
     dropout_timing = phase_profile_evaluate(torch, conf, train, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
+    by_batch = {str(b): {k: v for k, v in timing[b].items()
+                         if k != "timing_err"} for b in FWD_TIMING_BATCHES}
     kernels = [{
         "name": "lstm_fwd",
         "route": "cuda",
@@ -1330,13 +1356,11 @@ def main() -> int:
         "launches_by_path": {"serve": launches, "train": train_fwd,
                              "train-fused": fused["lstm_fwd"],
                              "evaluate": eval_fwd},
-        "max_abs_err": max(worst["float32"], timing["timing_err"]),
+        "max_abs_err": max(worst["float32"],
+                           *(timing[b]["timing_err"] for b in timing)),
         "shape": f"T'=80 B=16 H={H} float32",
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
+        **by_batch["16"],
+        "by_batch": by_batch,
     }, {
         "name": "lstm_bwd",
         "route": "cuda",

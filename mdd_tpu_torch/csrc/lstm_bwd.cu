@@ -78,8 +78,8 @@
 // reach 44-48 TFLOP/s effective).  wgmma would need the split operands
 // written back to shared memory; not used.  Built with
 // -DMDD_LSTM_BWD_STAMPS, thread 0 of block 0 of the chain kernel sums
-// clock64() differences per phase of a step (ops/lstm_bwd_stamps.py prints
-// them).
+// clock64() differences per phase of a step (python -m
+// mdd_tpu_torch.ops.lstm_stamps --kernel bwd prints them).
 
 #include <type_traits>
 

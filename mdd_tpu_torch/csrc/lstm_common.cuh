@@ -1,10 +1,9 @@
 // Helpers shared by the package's kernels: dtype conversions and 4-wide
-// loads and stores (lstm_fwd.cu, lstm_bwd.cu, dropout.cu); the L2 read of
-// data other blocks wrote and the per-direction grid barrier (the LSTM
-// recurrences); and what the backward's tensor-core kernels share: the
-// TF32 split, the warp-level TF32 product, 16-byte asynchronous copies
-// into shared memory, and a barrier over a group of blocks whose arrival
-// and wait are separate calls.
+// loads and stores (lstm_fwd.cu, lstm_bwd.cu, dropout.cu); and what the
+// LSTM recurrences share: the L2 read of data other blocks wrote, a
+// barrier over a group of blocks whose arrival and wait are separate
+// calls, the TF32 split, the warp-level TF32 product and 16-byte
+// asynchronous copies into shared memory.
 #pragma once
 
 #include <cstdint>
@@ -58,56 +57,32 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 }
 
 // Data written by other blocks during the launch: read it from L2, never
-// from a (non-coherent) L1 line; four elements at a time.
-__device__ __forceinline__ void copy4_from_l2(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) =
-      __ldcg(reinterpret_cast<const float4*>(src));
+// from a (non-coherent) L1 line; four consecutive elements (16- or 8-byte
+// aligned) as floats.
+__device__ __forceinline__ float4 load4_l2(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ void copy4_from_l2(__nv_bfloat16* dst,
-                                              const __nv_bfloat16* src) {
-  *reinterpret_cast<uint2*>(dst) =
-      __ldcg(reinterpret_cast<const uint2*>(src));
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+__device__ __forceinline__ float4 load4_l2(const __nv_bfloat16* p) {
+  return bf16x4_to_float4(__ldcg(reinterpret_cast<const uint2*>(p)));
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Barrier over the blocks of one direction (the pattern of cooperative
-// groups' grid sync: the block's threads meet, one thread publishes with a
-// device-scope fence and an atomic, then waits).  `target` grows by the
-// number of blocks of the direction at every step, so the counter never
-// needs a reset inside the launch.  A wait that lasts seconds means the
-// blocks are not all resident: trap, so that the fault reaches the caller
-// instead of a hang.
-__device__ __forceinline__ void direction_barrier(unsigned* counter,
-                                                  unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    long long spins = 0;
-    while (*reinterpret_cast<volatile unsigned*>(counter) < target) {
-      if (++spins > (1ll << 31)) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // Barrier over a group of `size` blocks that share one zeroed counter, in
 // two halves: every thread of the block calls arrive() once its writes of
-// the step are made, may then do work that needs nothing of the other
-// blocks, and calls wait() before it reads what they wrote.  The target
-// grows by `size` at every use, so the counter needs no reset inside the
-// launch; the fences and the trap are those of direction_barrier.
+// the step are made (the block's threads meet, then one thread adds to the
+// counter with device-scope release semantics), may then do work that
+// needs nothing of the other blocks, and calls wait() before it reads what
+// they wrote (one thread polls the counter with acquire loads, then the
+// block's threads meet).  Release and acquire order the step's writes and
+// reads without a full fence (__threadfence) on either side: on an H100,
+// lstm_fwd at T' = 80 takes 0.235 ms at B = 1 and 0.492 ms at B = 64
+// against 0.264 and 0.542 ms with the fences.  The target grows by `size`
+// at every use, so the counter needs no reset inside the launch.  A wait
+// that lasts seconds means the blocks are not all resident: trap, so that
+// the fault reaches the caller instead of a hang.
 struct GroupBarrier {
   unsigned* counter;
   unsigned size;
@@ -119,19 +94,20 @@ struct GroupBarrier {
   __device__ __forceinline__ void arrive() {
     target += size;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      atomicAdd(counter, 1u);
-    }
+    if (threadIdx.x == 0)
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                   :: "l"(counter) : "memory");
   }
 
   __device__ __forceinline__ void wait() {
     if (threadIdx.x == 0) {
       long long spins = 0;
-      while (*reinterpret_cast<volatile unsigned*>(counter) < target) {
+      unsigned seen;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                     : "=r"(seen) : "l"(counter) : "memory");
         if (++spins > (1ll << 31)) __trap();
-      }
-      __threadfence();
+      } while (seen < target);
     }
     __syncthreads();
   }

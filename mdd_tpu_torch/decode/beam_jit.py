@@ -209,7 +209,7 @@ class BatchedBeamDecoder:
         lm=None,
         lm_alpha: float = 0.0,
         blank_skip_threshold: float = 0.1,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.id2word = id2word
         self.beam_width = beam_width

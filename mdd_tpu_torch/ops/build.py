@@ -6,7 +6,8 @@ use, keyed by a hash of the source, the shared `csrc/*.cuh` headers and
 the flags, so an edited source or header is rebuilt.  Nothing here runs
 at import time, and nothing falls back: a missing `nvcc` or a failed
 compile raises.  `KernelBinding` binds one library's entry point and counts
-its launches.
+its launches; extra flags (`-DMDD_LSTM_FWD_STAMPS`) build a separate
+library beside the normal one.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -40,13 +41,15 @@ def nvcc_path() -> str:
                        "of mdd_tpu_torch are built from source on first use")
 
 
-def library_path(source: str) -> Path:
-    """Where `csrc/<source>` builds to (the name carries a hash of the
-    source, the shared headers and the flags)."""
+def library_path(source: str, extra: tuple = ()) -> Path:
+    """Where `csrc/<source>` builds to with NVCC_FLAGS + `extra` (the name
+    carries a hash of the source, the shared headers and the flags).  An
+    absolute `source` names a file outside `csrc/` (a variant under
+    trial); it includes the headers of `csrc/` all the same."""
     src = CSRC / source
     text = src.read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS + extra).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
@@ -56,25 +59,26 @@ def _tmp_path(out: Path) -> Path:
     return out.with_name(f"{out.name}.{os.getpid()}.tmp")
 
 
-def start_build(source: str) -> subprocess.Popen | None:
+def start_build(source: str, extra: tuple = ()) -> subprocess.Popen | None:
     """Start `nvcc` for one source in the background (None if built).
 
     `finish_build` waits for it; starting every source first lets the
     compiles run in parallel."""
-    out = library_path(source)
+    out = library_path(source, extra)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(_tmp_path(out)),
-           str(CSRC / source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o",
+           str(_tmp_path(out)), str(CSRC / source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def finish_build(source: str, proc: subprocess.Popen | None) -> str:
+def finish_build(source: str, proc: subprocess.Popen | None,
+                 extra: tuple = ()) -> str:
     """Wait for `start_build`'s compile; returns nvcc's output (the
     `-Xptxas -v` register and shared-memory report)."""
-    out = library_path(source)
+    out = library_path(source, extra)
     if proc is None:
         return ""
     log, _ = proc.communicate()
@@ -85,17 +89,18 @@ def finish_build(source: str, proc: subprocess.Popen | None) -> str:
     return log
 
 
-def build(source: str) -> str:
-    return finish_build(source, start_build(source))
+def build(source: str, extra: tuple = ()) -> str:
+    return finish_build(source, start_build(source, extra), extra)
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<source>`; cached per process."""
-    lib = _loaded.get(source)
+def load(source: str, extra: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<source>` with NVCC_FLAGS +
+    `extra`; cached per process."""
+    lib = _loaded.get((source, extra))
     if lib is None:
-        build(source)
-        lib = ctypes.CDLL(str(library_path(source)))
-        _loaded[source] = lib
+        build(source, extra)
+        lib = ctypes.CDLL(str(library_path(source, extra)))
+        _loaded[(source, extra)] = lib
     return lib
 
 
@@ -104,19 +109,21 @@ class KernelBinding:
 
     `argtypes` are the entry point's arguments before the stream.
     `launches` counts the calls that launched the kernel; it is a plain
-    integer that a caller may reset."""
+    integer that a caller may reset.  `extra_flags` are passed to nvcc
+    after NVCC_FLAGS (a binding of the stamped build sets them)."""
 
     source = ""
     entry = ""
     argtypes: tuple = ()
 
-    def __init__(self):
+    def __init__(self, extra_flags: tuple = ()):
         self.launches = 0
+        self.extra_flags = tuple(extra_flags)
         self._lib = None
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = load(self.source)
+            lib = load(self.source, self.extra_flags)
             fn = getattr(lib, self.entry)
             fn.argtypes = [*self.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int

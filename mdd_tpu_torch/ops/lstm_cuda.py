@@ -140,20 +140,49 @@ class _LstmBinding(build.KernelBinding):
         return units()
 
 
+#: one zeroed 128-byte line of counters per barrier group of the kernels
+_COUNTER_STRIDE = 32
+_ROWS_TILE = 16
+
+
+def _barrier_counters(b: int, device) -> torch.Tensor:
+    """Zeroed counters for every (direction, batch group) there can be."""
+    return torch.zeros(2 * -(-b // _ROWS_TILE) * _COUNTER_STRIDE,
+                       dtype=torch.int32, device=device)
+
+
 class LstmFwdKernel(_LstmBinding):
     """`mdd_lstm_fwd` of csrc/lstm_fwd.cu: (x_proj, w_hh) -> (hs, cs)."""
 
-    source, entry, n_pointers = "lstm_fwd.cu", "mdd_lstm_fwd", 6
+    source, entry, n_pointers = "lstm_fwd.cu", "mdd_lstm_fwd", 5
+
+    def plan(self, b: int, h: int, dtype: torch.dtype) -> dict:
+        """How the kernel lays a batch of b rows out on the current card
+        (a block owns one 16-row batch tile): unit groups of 8 a block
+        owns, whether the float32 w_hh slice is split into TF32 parts at
+        load, blocks and shared bytes of a launch, batch rows a launch,
+        launches a call."""
+        fn = self.library().mdd_lstm_fwd_plan
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 6)()
+        err = fn(b, h, _DTYPE_CODES[dtype], out)
+        if err != 0:
+            raise ValueError(
+                f"lstm_fwd has no layout for B={b}, H={h} in {dtype}: "
+                + self.library().mdd_cuda_error_string(err).decode())
+        return dict(zip(("unit_groups", "split_w", "blocks", "smem_bytes",
+                         "chunk_rows", "launches"), out))
 
     def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor):
         t, b, h = _check_lstm_inputs(x_proj, w_hh, self.units_per_block)
+        if w_hh.data_ptr() % 16:     # the kernel reads it 16 bytes at a time
+            w_hh = w_hh.clone()
         dev = x_proj.device
         hs = torch.empty((t, 2, b, h), dtype=x_proj.dtype, device=dev)
         cs = torch.empty_like(hs)
-        c_state = torch.empty((2, b, h), dtype=torch.float32, device=dev)
-        barrier = torch.zeros(2, dtype=torch.int32, device=dev)
         self._launch(dev, x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-                     cs.data_ptr(), c_state.data_ptr(), barrier.data_ptr(),
+                     cs.data_ptr(), _barrier_counters(b, dev).data_ptr(),
                      t, b, h, _DTYPE_CODES[x_proj.dtype])
         return hs, cs
 
@@ -167,9 +196,6 @@ class LstmBwdKernel(_LstmBinding):
     source, entry, n_pointers = "lstm_bwd.cu", "mdd_lstm_bwd", 11
     #: `parts` bits of the entry point; ALL is the backward
     Z_PRODUCT, CHAIN, DW_PRODUCT, ALL = 1, 2, 4, 7
-    #: one zeroed 128-byte line of counters per barrier group
-    _COUNTER_STRIDE = 32
-    _ROWS_TILE = 16
 
     @property
     def argtypes(self):
@@ -226,14 +252,11 @@ class LstmBwdKernel(_LstmBinding):
         time the launches one by one."""
         t, b, h = self._check(x_proj, w_hh, hs, cs, dhs)
         dxp, dw, z, dw_partial, exchange = buffers
-        groups = 2 * -(-b // self._ROWS_TILE)
-        barrier = torch.zeros(groups * self._COUNTER_STRIDE,
-                              dtype=torch.int32, device=x_proj.device)
         self._launch(x_proj.device, x_proj.data_ptr(), w_hh.data_ptr(),
                      hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
                      dxp.data_ptr(), dw.data_ptr(), z.data_ptr(),
                      dw_partial.data_ptr(), exchange.data_ptr(),
-                     barrier.data_ptr(), t, b, h,
+                     _barrier_counters(b, x_proj.device).data_ptr(), t, b, h,
                      _DTYPE_CODES[x_proj.dtype], parts)
 
     def __call__(self, x_proj, w_hh, hs, cs, dhs):

@@ -109,7 +109,7 @@ def test_beams_return_identical_sequences(name, arpa_path):
     host = BeamSearchDecoder(vocab.index2word, **kw).decode(probs, lengths)
     assert host == JaxHostBeam(vocab.index2word, **jax_kw).decode(probs,
                                                                   lengths)
-    device = BatchedBeamDecoder(vocab.index2word, **kw)
+    device = BatchedBeamDecoder(vocab.index2word, device="cpu", **kw)
     got = device.decode(probs, lengths)
     assert got == JaxBatchedBeam(vocab.index2word, **jax_kw).decode(probs,
                                                                     lengths)
@@ -132,7 +132,8 @@ def test_peaky_probabilities_decode_as_greedy():
     probs = np.full((t, c), 1e-5, np.float32)
     probs[np.arange(t), ids] = 1.0
     probs /= probs.sum(-1, keepdims=True)
-    beam = BatchedBeamDecoder(vocab.index2word, beam_width=4).decode(
+    beam = BatchedBeamDecoder(vocab.index2word, beam_width=4,
+                              device="cpu").decode(
         probs[None], [t])[0]
     greedy = jax_greedy_decode(np.log(probs)[:, None, :], np.asarray([t]))[0]
     assert beam == greedy
@@ -153,7 +154,8 @@ def test_statistical_agreement_at_scale():
     logits[:, :, 0] += 1.5
     probs = np.exp(logits - logits.max(-1, keepdims=True))
     probs /= probs.sum(-1, keepdims=True)
-    ours = BatchedBeamDecoder(vocab.index2word, beam_width=10).decode(
+    ours = BatchedBeamDecoder(vocab.index2word, beam_width=10,
+                              device="cpu").decode(
         probs, [T] * B)
     for other in (
             BeamSearchDecoder(vocab.index2word, beam_width=10),

@@ -31,13 +31,25 @@ def _inputs(t, b, h, dtype, seed=0):
     return x_proj.to("cuda", dtype), w_hh.to("cuda", dtype)
 
 
+# the partition over (direction, 16-row batch tile, group of 8 units):
+# batches under a tile, between tiles, over several tiles a launch and over
+# several launches (256, 512 at H=384), no recurrent step and one, H a
+# multiple of 8 but not of 64, and an H whose K-slices take a warp two
+# rounds of loads (512)
+PARTITION_SHAPES = [(16, 1, 384), (80, 16, 384), (80, 64, 384),
+                    (128, 64, 384), (16, 256, 384), (1, 3, 8), (5, 37, 64),
+                    (80, 4, 384), (16, 24, 384), (1, 24, 384), (2, 4, 384),
+                    (2, 24, 40), (1, 4, 24), (7, 17, 72), (1, 1, 8),
+                    (16, 4, 384), (4, 512, 384), (8, 20, 512)]
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t,b,h", [(1, 1, 8), (16, 4, 384), (80, 16, 384),
-                                   (128, 64, 384), (5, 37, 64)])
+@pytest.mark.parametrize("t,b,h", PARTITION_SHAPES)
 def test_kernel_matches_plain_version(cuda, dtype, atol, t, b, h):
     """hs and cs; float32 differs from the plain version only in the order
-    of the recurrent dot's sums, bfloat16 by 1-ulp roundings of h."""
+    of the recurrent dot's sums and its three TF32 passes (~2^-20 of a
+    product), bfloat16 by 1-ulp roundings of h."""
     x_proj, w_hh = _inputs(t, b, h, dtype)
     before = lstm_cuda.lstm_fwd_kernel.launches
     hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
@@ -47,6 +59,35 @@ def test_kernel_matches_plain_version(cuda, dtype, atol, t, b, h):
     assert hs.dtype == cs.dtype == dtype
     torch.testing.assert_close(hs.float(), ref_hs.float(), atol=atol, rtol=0)
     torch.testing.assert_close(cs.float(), ref_cs.float(), atol=atol, rtol=0)
+
+
+def test_forward_kernel_is_the_same_from_run_to_run(cuda):
+    """Every sum inside runs in a fixed order (no atomics on data)."""
+    for b in (4, 24, 64):
+        x_proj, w_hh = _inputs(40, b, 384, torch.float32)
+        first = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+        again = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_plan_keeps_every_block_resident(cuda, dtype):
+    """The recurrence is a cooperative launch: a launch's blocks, one a
+    (direction, 16-row tile, unit group), fit the card's SMs at the shared
+    memory each takes, and a batch too large for one launch runs as
+    several of whole tiles."""
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for b in (1, 4, 16, 24, 64, 256, 512):
+        plan = lstm_cuda.lstm_fwd_kernel.plan(b, 384, dtype)
+        per_sm = smem_sm // (plan["smem_bytes"] + 1024)
+        assert 0 < plan["blocks"] <= sms * per_sm
+        tiles = -(-min(b, plan["chunk_rows"]) // 16)
+        assert plan["blocks"] == 2 * tiles * (384 // (8 * plan["unit_groups"]))
+        assert plan["launches"] == -(-b // plan["chunk_rows"])
+        assert plan["split_w"] in (0, 1)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -11,6 +11,7 @@ from mdd_tpu.ops import lstm as jax_lstm
 from mdd_tpu.ops.lstm_pallas import _lstm_seq_fwd, bilstm_pallas
 from mdd_tpu_torch.ops import lstm as port_lstm
 from mdd_tpu_torch.ops import lstm_cuda
+from test_torch_lstm_bwd import PARTITION_SHAPES
 
 
 def _seq_inputs(seed, t, b, h):
@@ -39,6 +40,22 @@ def test_reference_matches_pallas_forward_fp32(t, b, h):
     hs_j, cs_j = _lstm_seq_fwd(jnp.asarray(x_proj), jnp.asarray(w_hh))
     hs_t, cs_t = lstm_cuda.lstm_seq_fwd_reference(torch.from_numpy(x_proj),
                                                   torch.from_numpy(w_hh))
+    np.testing.assert_allclose(hs_t.numpy(), np.asarray(hs_j), atol=1e-5)
+    np.testing.assert_allclose(cs_t.numpy(), np.asarray(cs_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("t,b,h", PARTITION_SHAPES)
+def test_reference_matches_pallas_forward_at_partition_shapes(t, b, h):
+    """The shapes the kernel's partition over (direction, 16-row batch
+    tile, group of 8 hidden units) makes interesting: a batch under one
+    tile and one that is no multiple of 16, one step and two, H a multiple
+    of 8 but not of 64.  float32 reproduces the Pallas kernel up to the
+    summation order of the recurrent dot (atol 1e-5)."""
+    x_proj, w_hh = _seq_inputs(100 * t + b + h, t, b, h)
+    hs_j, cs_j = _lstm_seq_fwd(jnp.asarray(x_proj), jnp.asarray(w_hh))
+    hs_t, cs_t = lstm_cuda.lstm_seq_fwd_reference(torch.from_numpy(x_proj),
+                                                  torch.from_numpy(w_hh))
+    assert hs_t.shape == cs_t.shape == (t, 2, b, h)
     np.testing.assert_allclose(hs_t.numpy(), np.asarray(hs_j), atol=1e-5)
     np.testing.assert_allclose(cs_t.numpy(), np.asarray(cs_j), atol=1e-5)
 
