@@ -13,8 +13,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             {16, 80, 128}) and at B=24, 256 and 512 (two unit groups a
             block, four and eight launches), float32 and bfloat16.
 3. kernel-bwd  lstm_bwd against its plain version at the training shapes
-            (H=384, B in {1, 4, 16, 24, 64}, T' in {16, 80, 128}), float32
-            and bfloat16.
+            (H=384, B in {1, 4, 16, 24, 64}, T' in {16, 80, 128}) and at
+            B=256, 300 and 512 (each as several recurrence launches, 300
+            with a ragged last one; the same bits twice), float32 and
+            bfloat16.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -45,19 +47,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 10. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
             (and its plan), its plain version, its bound, the port's layer
             and one torch.nn.LSTM call (a whole layer, the yardstick); the
-            backward at B=16 and 64, T'=80, its plain version, its launches
-            one by one (the pre-activation product, the recurrence, the
-            dW_hh product: ms and effective TFLOP/s), and the backward of
-            one torch.nn.LSTM (forward+backward minus forward) as the
-            yardstick only.
-
+            backward at B=16, 64, 256 and 512, T'=80, its plain version,
+            its launches one by one (the pre-activation product, the
+            recurrence, the dW_hh product: ms and effective TFLOP/s), and
+            the backward of one torch.nn.LSTM (forward+backward minus
+            forward) as the yardstick only.
 11. kernel-dropout  fused_dropout against its plain version, bit for bit,
             float32 and bfloat16, rates 0.1 / 0.2 / 0.5, at the 3 site
             shapes of a B=64, T=220 (T'=110) step (conv0 64x32x220x122,
             conv1 64x32x110x61, BiLSTM 110x64x768) and at sizes that are
-            not multiples of 4 (1, 3, 1023, 7x129); kept share within 4
-            sigma of keep; the autograd gradient = mask / keep * dy with
-            the forward's mask; two seeds, two masks.
+            not multiples of 4 (1, 3, 1023, 7x129), past one wave of
+            resident threads (9,000,001) and on storage one element off
+            16-byte alignment; kept share within 4 sigma of keep; the
+            autograd gradient = mask / keep * dy with the forward's mask;
+            two seeds, two masks.
 12. train-fused  the flagship model with use_fused_dropout=True through
             cli._build_loader, cli.build_trainer and Trainer.fit for 3
             epochs of the corpus (seconds; after one epoch the posteriors
@@ -66,7 +69,15 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             forward and backward), `best` on disk with use_fused_dropout
             in its meta; then the step time and the device time of a step
             with fused and with plain dropout, in turns.
-13. evaluate  `train-lm` on the training labels, then `evaluate` (beam
+13. train-bf16  the flagship recipe with compute_dtype bfloat16 (the
+            shipped recipes' dtype) and use_fused_dropout=True, through the
+            entry points of phase 12 for one epoch: losses finite and
+            falling, every layer of every step on the kernels, the step
+            median; then one Trainer step of the full-width model at
+            bench.py's cell, B=512 x 160 input frames (T'=80, 48 canonical
+            phones) in bfloat16: loss finite, one lstm_bwd count a layer
+            (its recurrence in several launches), the step time.
+14. evaluate  `train-lm` on the training labels, then `evaluate` (beam
             width 10 + that LM at alpha 0.5, device front end, the dev
             split as test split) on the `best` of phase 12 with
             --dump-dir, `evaluate --lm-alpha 0`, `evaluate --decode-type
@@ -77,12 +88,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             batch of that model's log-probs the
             device beam against the host beam (decode/beam.py), at least
             95% of the sequences identical.
-14. profile-evaluate  evaluate_model over the 512 training utterances, beam
+15. profile-evaluate  evaluate_model over the 512 training utterances, beam
             and greedy: utterances per second, and torch.profiler's device
             busy share over one beam pass; the beam alone at B=64, T'=110,
-            K=10, C=43 (ms a batch and a frame); fused_dropout at the
-            conv0 and BiLSTM site shapes beside its bound, its plain
-            version and F.dropout (the yardstick only).
+            K=10, C=43 (ms a batch and a frame); fused_dropout at the 3
+            site shapes in float32 and bfloat16: a call (CUDA events) and
+            its kernel's device time (torch.profiler) beside its bound (the
+            larger of bytes and integer operations), its plain version and
+            F.dropout (the yardstick only; ops/dropout_time.py).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits 2 without a CUDA device, or when run
@@ -128,9 +141,6 @@ ZERO_ULPS = 64     # a tensor whose plain gradient stays within this many
 # feeds a train-mode BatchNorm, which subtracts the batch mean): its
 # relative error is noise, so both runs' gradients are held below that
 TRAIN_UTTS, DEV_UTTS, BATCH = 512, 64, 64
-# the dropout sites of one train step at B=64, T=220 model frames (T'=110)
-DROPOUT_SITES = {"conv0": (BATCH, 32, 220, 122), "conv1": (BATCH, 32, 110, 61),
-                 "bilstm": (110, BATCH, 2 * H)}
 FUSED_EPOCHS = 3
 PER_GAP = 5.0      # beam (with and without the LM) vs greedy PER, percentage
 # points: the LM trained on the corpus's near-uniform phone strings acts as
@@ -268,37 +278,47 @@ def phase_kernel_bwd(torch) -> dict:
 
     g = torch.Generator().manual_seed(SEED + 1)
     worst = {}
+    # the training shapes, then batches whose recurrence runs as several
+    # launches (300: a ragged last one; 512: bench.py's batch)
+    cases = [(b, t) for b in (1, 4, 16, 24, 64) for t in (16, 80, 128)]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         worst[dtype] = 0.0
-        for b in (1, 4, 16, 24, 64):
-            for t in (16, 80, 128):
-                x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
-                          ).to("cuda", dt)
-                w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
-                        / H ** 0.5).to("cuda", dt)
-                dhs = torch.randn((t, 2, b, H), generator=g).cuda()
-                hs, cs = lstm_seq_fwd_reference(x_proj, w_hh)
-                before = lstm_bwd_kernel.launches
-                dxp, dw = lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs)
-                torch.cuda.synchronize()
-                if lstm_bwd_kernel.launches != before + 1:
-                    raise AssertionError("lstm_bwd did not count its launch")
-                ref_dxp, ref_dw = lstm_seq_bwd_reference(x_proj, w_hh, hs,
-                                                         cs, dhs)
-                errs = [rel_err(dxp, ref_dxp), rel_err(dw, ref_dw)]
-                abs_err = max((dxp.float() - ref_dxp.float()).abs().max(),
-                              (dw - ref_dw).abs().max()).item()
-                log(f"  lstm_bwd {dtype} B={b} T'={t}: max |dx_proj - plain| "
-                    f"/ max |plain| = {errs[0]:.3e}, dW_hh {errs[1]:.3e}; "
-                    f"max abs err {abs_err:.3e}")
-                if not max(errs) <= BWD_TOL[dtype]:
-                    raise AssertionError(
-                        f"lstm_bwd {dtype} B={b} T'={t} differs from its "
-                        f"plain version by {max(errs)} > {BWD_TOL[dtype]}")
-                worst[dtype] = max(worst[dtype], *errs)
-                worst[dtype + "_abs"] = max(worst.get(dtype + "_abs", 0.0),
-                                            abs_err)
+        for b, t in cases + [(256, 16), (300, 8), (512, 8)]:
+            x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
+                      ).to("cuda", dt)
+            w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
+                    / H ** 0.5).to("cuda", dt)
+            dhs = torch.randn((t, 2, b, H), generator=g).cuda()
+            hs, cs = lstm_seq_fwd_reference(x_proj, w_hh)
+            before = lstm_bwd_kernel.launches
+            dxp, dw = lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs)
+            torch.cuda.synchronize()
+            if lstm_bwd_kernel.launches != before + 1:
+                raise AssertionError("lstm_bwd did not count its launch")
+            plan = lstm_bwd_kernel.plan(t, b, H, dt)
+            if b >= 256:
+                again = lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs)
+                if not (torch.equal(dxp, again[0])
+                        and torch.equal(dw, again[1])):
+                    raise AssertionError(f"lstm_bwd B={b} changed its bits "
+                                         "from one run to the next")
+            ref_dxp, ref_dw = lstm_seq_bwd_reference(x_proj, w_hh, hs, cs,
+                                                     dhs)
+            errs = [rel_err(dxp, ref_dxp), rel_err(dw, ref_dw)]
+            abs_err = max((dxp.float() - ref_dxp.float()).abs().max(),
+                          (dw - ref_dw).abs().max()).item()
+            log(f"  lstm_bwd {dtype} B={b} T'={t}: max |dx_proj - plain| "
+                f"/ max |plain| = {errs[0]:.3e}, dW_hh {errs[1]:.3e}; "
+                f"max abs err {abs_err:.3e}; {plan['launches']} recurrence "
+                f"launch(es) of {plan['chunk_rows']} rows")
+            if not max(errs) <= BWD_TOL[dtype]:
+                raise AssertionError(
+                    f"lstm_bwd {dtype} B={b} T'={t} differs from its "
+                    f"plain version by {max(errs)} > {BWD_TOL[dtype]}")
+            worst[dtype] = max(worst[dtype], *errs)
+            worst[dtype + "_abs"] = max(worst.get(dtype + "_abs", 0.0),
+                                        abs_err)
     log(f"[kernel-bwd] lstm_bwd matches lstm_seq_bwd_reference: float32 max "
         f"rel err {worst['float32']:.3e} (tol {BWD_TOL['float32']}), "
         f"bfloat16 {worst['bfloat16']:.3e} (tol {BWD_TOL['bfloat16']})")
@@ -541,9 +561,10 @@ def write_corpus(split: str, n: int, seed: int) -> tuple:
     return scp, lab, trn
 
 
-def write_train_yaml(train, dev, epochs: int) -> str:
-    """The flagship recipe (conf/ctc_config.yaml's) in float32 on the
-    streaming loader, over the seeded corpus."""
+def write_train_yaml(train, dev, epochs: int,
+                     compute_dtype: str = "float32") -> str:
+    """The flagship recipe (conf/ctc_config.yaml's, in float32 unless
+    said) on the streaming loader, over the seeded corpus."""
     fields = {
         "exp_name": "smoke_train", "checkpoint_dir": str(WORK / "ckpt"),
         "seed": 1234, "vocab_file": str(WORK / "units"),
@@ -556,13 +577,13 @@ def write_train_yaml(train, dev, epochs: int) -> str:
         "kernel_size": "[(3, 3), (3, 3)]", "stride": "[(1, 2), (2, 2)]",
         "padding": "[(1, 1), (1, 1)]", "use_text_attention": True,
         "use_pallas_lstm": True, "device_frontend": True,
-        "wire_dtype": "bfloat16", "compute_dtype": "float32",
+        "wire_dtype": "bfloat16", "compute_dtype": compute_dtype,
         "device_cache": False, "init_lr": 0.001, "num_epoches": epochs,
         "end_adjust_acc": 2.0, "lr_decay": 0.5, "batch_size": BATCH,
         "weight_decay": 0.0005, "verbose_step": 1, "max_adjust_times": 8,
         "plateau_patience": 10, "augment_mode": 2, "mutation_prob": 0.1,
         "num_workers": 4}
-    path = WORK / f"train{epochs}.yaml"
+    path = WORK / f"train{epochs}_{compute_dtype}.yaml"
     path.write_text("".join(f"{k}: {json.dumps(v)}\n"
                             for k, v in fields.items()))
     return str(path)
@@ -718,14 +739,17 @@ def phase_step_time(torch, conf: str, card: str) -> None:
 
 
 FWD_TIMING_BATCHES = (1, 16, 64)   # serving, serving groups, train/evaluate
+# train at B=16 and 64; the quality recipe's 256 and bench.py's 512
+BWD_TIMING_BATCHES = (16, 64, 256, 512)
 
 
 def phase_timing(torch, card: str) -> tuple:
-    """lstm_fwd at the batches of the main paths, then lstm_bwd at B=64 and
-    16; -> ({B: forward timing}, {B: backward timing})."""
+    """lstm_fwd at the batches of the main paths, then lstm_bwd at the
+    training batches; -> ({B: forward timing}, {B: backward timing})."""
     g = torch.Generator().manual_seed(SEED)
     fwd = {b: timing_fwd(torch, 80, b, g, card) for b in FWD_TIMING_BATCHES}
-    return fwd, {b: timing_bwd(torch, 80, b, g, card) for b in (64, 16)}
+    return fwd, {b: timing_bwd(torch, 80, b, g, card)
+                 for b in BWD_TIMING_BATCHES}
 
 
 def timing_fwd(torch, t: int, b: int, g, card: str) -> dict:
@@ -811,8 +835,9 @@ def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
         f"pre-activation product {part_ms['z']:.4f} ms ({z_tflops:.1f} "
         f"TFLOP/s effective), recurrence {part_ms['chain']:.4f} ms "
         f"({part_ms['chain'] * 1e3 / max(t - 1, 1):.2f} us a step; "
+        f"{plan['launches']} launch(es) of {plan['chunk_rows']} rows, "
         f"{plan['blocks']} blocks of {8 * plan['unit_groups']} units x "
-        f"{16 * plan['batch_tiles']} rows, {plan['smem_bytes']} B shared), "
+        f"16 rows, {plan['smem_bytes']} B shared), "
         f"dW_hh product + reduce {part_ms['dw']:.4f} ms ({dw_tflops:.1f} "
         f"TFLOP/s effective, {plan['k_slices']} slices); with reused "
         f"buffers {part_ms['all']:.4f} ms ({card})")
@@ -834,25 +859,20 @@ def timing_bwd(torch, t: int, b: int, g, card: str) -> dict:
             "product_tflops": {"z": z_tflops, "dw": dw_tflops}}
 
 
-def dropout_bound_ms(n: int, dtype: str) -> tuple:
-    """Least time for dropout over n elements: x read once, out written
-    once; ~30 integer operations an element never bound it."""
-    elt = 4 if dtype == "float32" else 2
-    return 2 * n * elt / PEAK_BYTES_S * 1e3, "bytes"
-
-
 def phase_kernel_dropout(torch) -> float:
     """fused_dropout_kernel == fused_dropout_reference, bit for bit; ->
     the largest |kernel - plain| seen (0.0 or the phase raises)."""
     from mdd_tpu_torch.ops.dropout_cuda import (
+        SITES,
         fused_dropout,
         fused_dropout_kernel,
         fused_dropout_reference,
     )
 
     g = torch.Generator().manual_seed(SEED + 4)
-    shapes = list(DROPOUT_SITES.items()) + [
-        (f"n={n}", (n,)) for n in (1, 3, 1023)] + [("7x129", (7, 129))]
+    shapes = list(SITES.items()) + [
+        (f"n={n}", (n,)) for n in (1, 3, 1023, 9_000_001)] + [
+        ("7x129", (7, 129))]
     worst, checked = 0.0, 0
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -886,12 +906,19 @@ def phase_kernel_dropout(torch) -> float:
             log(f"  fused_dropout {dtype} {name} {tuple(shape)}: bit for bit "
                 f"its plain version at rates 0.1, 0.2, 0.5; kept share at "
                 f"0.5: {kept:.6f}")
+        # storage one element off 16-byte alignment: the scalar path
+        x = torch.randn(4099, generator=g).to("cuda", dt)[1:]
+        seed = torch.tensor([SEED + 7], device="cuda")
+        if not torch.equal(fused_dropout_kernel(x, seed, 0.2).view(bits),
+                           fused_dropout_reference(x, seed, 0.2).view(bits)):
+            raise AssertionError(f"fused_dropout {dtype} on unaligned "
+                                 "storage differs from its plain version")
+        checked += 1
     # autograd: the backward regenerates the forward's mask
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     # x > 0, so that out != 0 is the mask (a normal draw of this size holds
     # a few exact zeros on the card)
-    x = (torch.rand(DROPOUT_SITES["bilstm"], device="cuda") + 0.5
-         ).requires_grad_()
+    x = (torch.rand(SITES["bilstm"], device="cuda") + 0.5).requires_grad_()
     dy = torch.randn((BATCH, 110, 2 * H), device="cuda").transpose(0, 1)
     before = fused_dropout_kernel.launches
     out = fused_dropout(x, 0.2, gen)
@@ -1046,6 +1073,125 @@ def compare_dropout_steps(torch, cfg, vocab, card: str) -> None:
         f"{busy['fused'][0]:.2f} ms in {busy['fused'][1]} ops ({card})")
 
 
+def phase_train_bf16(torch, train, dev, card: str) -> dict:
+    """One epoch of the flagship recipe in bfloat16 with use_fused_dropout
+    through the entry points `train` uses, its step time, then one step at
+    bench.py's cell; -> the launch counts of the epoch."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.dataset import pad_batch_to
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.utils.config import load_config
+
+    cfg = load_config(write_train_yaml(train, dev, 1, "bfloat16"))
+    cfg.exp_name = "smoke_bf16"
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    loaders = [cli._build_loader(cfg, vocab, *paths, train=is_train)
+               for paths, is_train in (
+                   ((cfg.train_scp_path, cfg.train_lab_path,
+                     cfg.train_trans_path), True),
+                   ((cfg.valid_scp_path, cfg.valid_lab_path,
+                     cfg.valid_trans_path), False))]
+    trainer = cli.build_trainer(cfg, vocab, "cuda", use_fused_dropout=True)
+    if trainer.model.dtype != torch.bfloat16:
+        raise AssertionError("compute_dtype bfloat16 did not reach the model")
+    kernels = (fused_dropout_kernel, lstm_fwd_kernel, lstm_bwd_kernel)
+    for k in kernels:
+        k.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    trainer.fit(*loaders, num_epochs=1, print_every=1,
+                checkpoint_dir=cfg.checkpoint_dir, exp_name=cfg.exp_name,
+                log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drops, fwd, bwd = (k.launches for k in kernels)
+    steps = -(-TRAIN_UTTS // BATCH)
+    forwards = steps + -(-DEV_UTTS // BATCH)
+    losses = step_losses(lines)
+    dev_line = next(l for l in lines if "Valid done" in l)
+    log(f"[train-bf16] 1 epoch of {TRAIN_UTTS} utterances at B={BATCH}, "
+        f"compute_dtype bfloat16, use_fused_dropout, in {wall:.1f} s: step "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; {dev_line}; "
+        f"fused_dropout launches {drops} over {steps} train steps, lstm_fwd "
+        f"{fwd} over {forwards} forwards, lstm_bwd {bwd}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses missing or not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the bfloat16 loss did not fall: {losses}")
+    if drops != 12 * steps or bwd != 4 * steps or fwd != 4 * forwards:
+        raise AssertionError(
+            f"{drops} dropout / {fwd} lstm_fwd / {bwd} lstm_bwd launches for "
+            f"{steps} train steps and {forwards} forwards: a site or a layer "
+            "bypassed its kernel")
+    # the step time at B=64, one pass over the corpus from the epoch's state
+    loader = cli._build_loader(cfg, vocab, cfg.train_scp_path,
+                               cfg.train_lab_path, cfg.train_trans_path,
+                               train=True)
+    acc = torch.zeros(4, device="cuda")
+    secs = []
+    for padded, valid in (pad_batch_to(b, BATCH) for b in loader):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = trainer.train_step(trainer.batch_arrays(padded, valid), acc)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"[train-bf16] step time at B={BATCH}: median "
+        f"{statistics.median(secs) * 1e3:.2f} ms over {len(secs)} steps "
+        f"(min {min(secs) * 1e3:.2f}, max {max(secs) * 1e3:.2f}) ({card})")
+    bench_cell_step(torch, trainer.model_cfg, card)
+    return {"fused_dropout": drops, "lstm_fwd": fwd, "lstm_bwd": bwd}
+
+
+def bench_cell_step(torch, model_cfg, card: str) -> None:
+    """Trainer steps of the full-width model at bench.py's cell (B=512 x
+    160 spliced input frames, T'=80, 48 canonical phones, bfloat16, the
+    kernels and fused dropout) on seeded random batches: the first step's
+    loss finite and one lstm_bwd count a layer, then the step time."""
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel
+    from mdd_tpu_torch.train.loop import Trainer
+
+    b, frames, labels = 512, 160, 48
+    tr = Trainer(model_cfg, device="cuda", device_frontend=False)
+    g = torch.Generator().manual_seed(SEED + 8)
+    n_class = model_cfg.num_class
+    arrays = (torch.randn((b, frames, model_cfg.input_dim), generator=g),
+              torch.ones(b),
+              torch.randint(2, n_class, (b, labels), generator=g),
+              torch.full((b,), labels),
+              torch.randint(2, n_class, (b, labels), generator=g),
+              torch.full((b,), labels), torch.ones(b, dtype=torch.bool))
+    arrays = tuple(a.cuda() for a in arrays)
+    plan = lstm_bwd_kernel.plan(model_cfg.output_frames(frames), b,
+                                model_cfg.rnn_hidden_size, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    before = lstm_bwd_kernel.launches
+    acc = tr.train_step(arrays, torch.zeros(4, device="cuda"))
+    torch.cuda.synchronize()
+    made = lstm_bwd_kernel.launches - before
+    loss = acc[0].item()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        acc = tr.train_step(arrays, acc)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log(f"[train-bf16] bench.py's cell, B={b} x {frames} frames (T'="
+        f"{model_cfg.output_frames(frames)}), {labels} canonical phones, "
+        f"bfloat16: first step loss {loss:.4f}; lstm_bwd counts {made} for "
+        f"{model_cfg.rnn_layers} layers, its recurrence in "
+        f"{plan['launches']} launch(es) of {plan['chunk_rows']} rows; step "
+        f"time {' / '.join(f'{v * 1e3:.1f}' for v in secs)} ms; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+        f"({card})")
+    if not math.isfinite(loss) or loss >= 1e29:
+        raise AssertionError(f"bench-cell step loss {loss}")
+    if made != model_cfg.rnn_layers:
+        raise AssertionError(f"{made} lstm_bwd counts for "
+                             f"{model_cfg.rnn_layers} layers")
+
+
 def write_eval_yaml(conf: str, name: str, split: tuple, lm: str) -> str:
     """The train YAML with the `smoke_fused` experiment, `split` as test
     split, and beam + LM decoding."""
@@ -1190,20 +1336,15 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
     return launches, yaml_path
 
 
-def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> dict:
-    """Throughput and device busy share of evaluate_model, the beam alone,
-    and the dropout kernel's times; -> the kernels-line entry's numbers."""
-    import torch.nn.functional as F
+def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> None:
+    """Throughput and device busy share of evaluate_model, and the beam
+    alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from mdd_tpu_torch import cli
     from mdd_tpu_torch.data.vocab import Vocab
     from mdd_tpu_torch.decode.beam_jit import BatchedBeamDecoder
     from mdd_tpu_torch.evals.evaluate import EvalSession, evaluate_model
-    from mdd_tpu_torch.ops.dropout_cuda import (
-        fused_dropout_kernel,
-        fused_dropout_reference,
-    )
     from mdd_tpu_torch.utils.config import load_config
 
     lm = str(WORK / "lm.arpa")
@@ -1273,35 +1414,52 @@ def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> dict:
     report_profile(prof, wall_us, "timing", "one beam batch (profiler on)",
                    card)
 
-    # the dropout kernel at its two kinds of site
-    out = {}
-    seed = torch.tensor([SEED + 6], device="cuda")
-    for name in ("conv0", "bilstm"):
-        shape = DROPOUT_SITES[name]
-        n = math.prod(shape)
-        # rotate over enough buffers that no call finds its input in L2
-        xs = [torch.randn(shape, device="cuda")
-              for _ in range(max(2, -(-200_000_000 // (8 * n))))]
-        turn = iter(range(10 ** 9))
-        pick = lambda: xs[next(turn) % len(xs)]
-        ms = cuda_ms(lambda: fused_dropout_kernel(pick(), seed, 0.2), 50)
-        plain_ms = cuda_ms(
-            lambda: fused_dropout_reference(pick(), seed, 0.2), 3, warmup=1)
-        library_ms = cuda_ms(lambda: F.dropout(pick(), 0.2, True), 50)
-        bnd, bound_by = dropout_bound_ms(n, "float32")
-        err = (fused_dropout_kernel(xs[0], seed, 0.2)
-               - fused_dropout_reference(xs[0], seed, 0.2)).abs().max().item()
-        log(f"[timing] fused_dropout float32 {name} {tuple(shape)} "
-            f"({n / 1e6:.1f} M elements): kernel {ms:.4f} ms "
-            f"({2 * n * 4 / ms / 1e6:.0f} GB/s), bound {bnd:.4f} ms "
-            f"({bound_by}), plain fused_dropout_reference {plain_ms:.2f} ms, "
-            f"F.dropout {library_ms:.4f} ms ({card})")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "timing_err": err}
-        del xs
-    return out
 
+
+def phase_timing_dropout(torch, card: str) -> dict:
+    """fused_dropout at the 3 sites of a train step, float32 and bfloat16
+    (ops/dropout_time.py): a call (CUDA events over back-to-back calls,
+    inputs rotating past L2) and the kernel's device time (torch.profiler),
+    each the mean of two turns, beside the bound, the plain version and
+    F.dropout; -> {site: {dtype: numbers}}."""
+    from mdd_tpu_torch.ops.dropout_cuda import (
+        SITES,
+        bound_ms,
+        fused_dropout_kernel,
+    )
+    from mdd_tpu_torch.ops.dropout_time import time_site
+
+    out = {}
+    for name, shape in SITES.items():
+        n = math.prod(shape)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            times = time_site(name, dt, {"fused_dropout": fused_dropout_kernel},
+                              50, plain_iters=3)
+            (calls, kern, equal), (lib_calls, lib_kern, _) = (
+                times["fused_dropout"], times["F.dropout"])
+            if not equal:
+                raise AssertionError(f"fused_dropout {dtype} at {name} "
+                                     "differs from its plain version")
+            bnd, bound_by = bound_ms(n, dt)
+            entry = {"ms": statistics.mean(calls),
+                     "kernel_ms": statistics.mean(kern),
+                     "plain_ms": times["plain"][0][0], "bound_ms": bnd,
+                     "bound_by": bound_by,
+                     "library_ms": statistics.mean(lib_calls),
+                     "library_kernel_ms": statistics.mean(lib_kern)}
+            out.setdefault(name, {})[dtype] = entry
+            log(f"[timing] fused_dropout {dtype} {name} {tuple(shape)} "
+                f"({n / 1e6:.1f} M elements): a call "
+                f"{' / '.join(f'{v:.4f}' for v in calls)} ms, kernel "
+                f"{' / '.join(f'{v:.4f}' for v in kern)} ms "
+                f"({100 * bnd / entry['kernel_ms']:.0f}% of its bound "
+                f"{bnd:.4f} ms, {bound_by}); plain fused_dropout_reference "
+                f"{entry['plain_ms']:.2f} ms; F.dropout a call "
+                f"{' / '.join(f'{v:.4f}' for v in lib_calls)} ms, kernel "
+                f"{' / '.join(f'{v:.4f}' for v in lib_kern)} ms ({card})")
+            torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1341,8 +1499,10 @@ def main() -> int:
     timing, timing_bwd = phase_timing(torch, card)
     dropout_err = phase_kernel_dropout(torch)
     fused = phase_train_fused(torch, conf, card)
+    bf16 = phase_train_bf16(torch, train, dev, card)
     eval_fwd, _ = phase_evaluate(torch, conf, train, dev, card)
-    dropout_timing = phase_profile_evaluate(torch, conf, train, card)
+    phase_profile_evaluate(torch, conf, train, card)
+    dropout_timing = phase_timing_dropout(torch, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
     by_batch = {str(b): {k: v for k, v in timing[b].items()
@@ -1352,9 +1512,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
-        "launches": launches + train_fwd + fused["lstm_fwd"] + eval_fwd,
+        "launches": (launches + train_fwd + fused["lstm_fwd"]
+                     + bf16["lstm_fwd"] + eval_fwd),
         "launches_by_path": {"serve": launches, "train": train_fwd,
                              "train-fused": fused["lstm_fwd"],
+                             "train-bf16": bf16["lstm_fwd"],
                              "evaluate": eval_fwd},
         "max_abs_err": max(worst["float32"],
                            *(timing[b]["timing_err"] for b in timing)),
@@ -1366,24 +1528,26 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
-        "launches": train_bwd + fused["lstm_bwd"],
+        "launches": train_bwd + fused["lstm_bwd"] + bf16["lstm_bwd"],
         "launches_by_path": {"train": train_bwd,
-                             "train-fused": fused["lstm_bwd"]},
+                             "train-fused": fused["lstm_bwd"],
+                             "train-bf16": bf16["lstm_bwd"]},
         "max_abs_err": worst_bwd["float32_abs"],
         "shape": f"T'=80 B={BATCH} H={H} float32",
         **timing_bwd[BATCH],
+        "by_batch": {str(b): timing_bwd[b] for b in BWD_TIMING_BATCHES},
     }, {
         "name": "fused_dropout",
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/dropout.cu",
         "replaces": "mdd_tpu/ops/dropout_pallas.py:53",
-        "launches": fused["fused_dropout"],
-        "launches_by_path": {"train-fused": fused["fused_dropout"]},
-        "max_abs_err": max(dropout_err,
-                           dropout_timing["conv0"].pop("timing_err")),
-        "shape": "conv0 site %s float32" % "x".join(
-            map(str, DROPOUT_SITES["conv0"])),
-        **dropout_timing["conv0"],
+        "launches": fused["fused_dropout"] + bf16["fused_dropout"],
+        "launches_by_path": {"train-fused": fused["fused_dropout"],
+                             "train-bf16": bf16["fused_dropout"]},
+        "max_abs_err": dropout_err,
+        "shape": "conv0 site 64x32x220x122 float32",
+        **dropout_timing["conv0"]["float32"],
+        "by_site": dropout_timing,
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,12 +35,12 @@
 //    (T B x H) @ (H x 4H) product a direction on the whole card.
 // 2. lstm_bwd_chain_kernel: one persistent cooperative launch over the T
 //    steps that keeps only what depends on the chain.  Batch rows never
-//    interact, so the blocks are split over (direction, group of 16-row
-//    batch tiles, group of 8 G hidden units), and only the blocks of one
-//    (direction, batch group) exchange anything and share a barrier.  A
-//    block owns the 4 x 8 G gate columns of its units and keeps THOSE
-//    COLUMNS of w_hh (for every hidden unit: H x 32 G) in shared memory for
-//    the whole sequence.  A step: the dgates of its units from dh, dc and
+//    interact, so the blocks are split over (direction, 16-row batch tile,
+//    group of 8 G hidden units), and only the blocks of one (direction,
+//    batch tile) exchange anything and share a barrier.  A block owns the
+//    4 x 8 G gate columns of its units and keeps THOSE COLUMNS of w_hh
+//    (for every hidden unit: H x 32 G) in shared memory for the whole
+//    sequence.  A step: the dgates of its units from dh, dc and
 //    six coefficients a unit (7 multiply-adds, no transcendental), stored
 //    to dx_proj and to shared memory; then its share of dh_{t-1} for EVERY
 //    unit of the direction, (16 x 32 G) @ (32 G x H) on the tensor cores
@@ -55,8 +55,13 @@
 //    tile's dgates (98 KB a block and step, which the L2's bandwidth
 //    bounds when 128 blocks do it at once) a step moves 48 KB a block.  dh
 //    and dc stay in the registers of the thread that owns the (row, unit).
-//    G and the number of batch tiles a block owns are chosen per call so
-//    that every block is resident (make_plan()).
+//    A block owns one 16-row batch tile; G is chosen per call so that the
+//    blocks of a launch are all resident (make_plan()), and a batch too
+//    large for that runs as several launches over chunks of its rows, one
+//    after another in stream order, each on barrier counters of its own
+//    and all on one exchange buffer sized for a chunk.  Batch rows never
+//    interact in the chain, so the chunks change no sum: the result has
+//    the same bits however the batch is cut.
 // 3. lstm_product_kernel<T, true>: dW_hh = sum over t >= 1 and b of
 //    h_{t-1}^T dgates_t, an (H x (T-1) B) @ ((T-1) B x 4H) product, split
 //    over slices of the reduction so that it fills the card; the slices'
@@ -82,6 +87,7 @@
 // mdd_tpu_torch.ops.lstm_stamps --kernel bwd prints them).
 
 #include <type_traits>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,7 +106,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnits = 8;        // a unit group: one n-tile of the product
 constexpr int kRowsTile = 16;    // batch rows of a tile: one m-tile
-constexpr int kMaxTiles = 4;     // batch tiles one block may own
 constexpr int kMaxGroups = 3;    // unit groups one block may own (G)
 constexpr int kNBatch = 6;       // n-tiles a warp accumulates at a time
 constexpr int kCounterStride = 32;   // one 128-byte line per group counter
@@ -168,18 +173,20 @@ __device__ __forceinline__ Coefs step_coefs(const StepInputs& in) {
 }
 
 // float32 elements of the exchange scratch: per parity of t, direction and
-// batch tile, one [16][H] partial dh from each of the H / (8 G) producers
-inline size_t exchange_elems(int batch, int hidden, int g) {
-  const size_t batch_tiles = (batch + kRowsTile - 1) / kRowsTile;
-  return 2 * 2 * batch_tiles * (hidden / (kUnits * g)) * kRowsTile * hidden;
+// batch tile of a launch's chunk of `rows`, one [16][H] partial dh from
+// each of the H / (8 G) producers
+inline size_t exchange_elems(int rows, int hidden, int g) {
+  const size_t chunk_tiles = (rows + kRowsTile - 1) / kRowsTile;
+  return 2 * 2 * chunk_tiles * (hidden / (kUnits * g)) * kRowsTile * hidden;
 }
 
-template <typename T, int G, int kTiles>   // kTiles: the most `tiles` can be
+// rows [row_lo, row_hi) of the batch are this launch's
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
                       const T* __restrict__ cs, const float* __restrict__ dhs,
                       T* dxp, float* exchange, unsigned* barrier, int n_steps,
-                      int batch, int hidden, int tiles) {
+                      int batch, int hidden, int row_lo, int row_hi) {
   constexpr int kBlockUnits = kUnits * G;
   constexpr int kCols = 4 * kBlockUnits;          // this block's gate columns
   constexpr int kTileItems = kRowsTile * kBlockUnits;
@@ -195,21 +202,19 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
   const int four_h = 4 * hidden;
   T* w_s = reinterpret_cast<T*>(smem);   // [H][kStride]: w_hh[d, j', col]
   T* a_s = w_s + static_cast<size_t>(hidden) * kStride;
-  // a_s: [tiles * 16][kStride], this block's dgates of the step
-  float* p_s = reinterpret_cast<float*>(
-      a_s + static_cast<size_t>(tiles) * kRowsTile * kStride);
+  // a_s: [16][kStride], this block's dgates of the step
+  float* p_s = reinterpret_cast<float*>(a_s + kRowsTile * kStride);
   // p_s: [producer][16][8 G], the group's partial dh for this block's units
 
   const int unit_groups = hidden / kBlockUnits;   // producers of a group
-  const int batch_tiles = (batch + kRowsTile - 1) / kRowsTile;
-  const int batch_groups = (batch_tiles + tiles - 1) / tiles;
-  const int group = blockIdx.x / unit_groups;          // (d, batch group)
+  // tiles of this launch's chunk; tile indices below count from row_lo
+  const int chunk_tiles = (row_hi - row_lo + kRowsTile - 1) / kRowsTile;
+  const int group = blockIdx.x / unit_groups;          // (d, batch tile)
   const int ug = blockIdx.x % unit_groups;
-  const int d = group / batch_groups;
-  const int tile0 = (group % batch_groups) * tiles;
-  const int b_base = tile0 * kRowsTile;
+  const int d = group / chunk_tiles;
+  const int tile = group % chunk_tiles;
+  const int b_base = row_lo + tile * kRowsTile;
   const int j0 = ug * kBlockUnits;
-  const int my_tiles = min(tiles, batch_tiles - tile0);
 
   // column q * 8 G + u of w_s is gate column q * H + j0 + u of w_hh[d]
   {
@@ -233,13 +238,13 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
   const size_t plane_rows = 2 * static_cast<size_t>(batch);   // rows a step
   // one (parity, d, tile, producer) slab of the exchange is [16][H]
   const size_t slab = static_cast<size_t>(kRowsTile) * hidden;
-  auto slab_of = [&](int parity, int tile, int producer) {
+  auto slab_of = [&](int parity, int producer) {
     return exchange
-           + (((static_cast<size_t>(parity) * 2 + d) * batch_tiles + tile)
+           + (((static_cast<size_t>(parity) * 2 + d) * chunk_tiles + tile)
                   * unit_groups + producer) * slab;
   };
 
-  // item (k, r) of this thread: row b_base + 16 k + row_in_tile, unit j0 + u
+  // item r of this thread: row b_base + item_row[r], unit j0 + item_u[r]
   int item_row[kRounds], item_u[kRounds];
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) {
@@ -247,43 +252,33 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
     item_row[r] = item < kTileItems ? item / kBlockUnits : -1;
     item_u[r] = item % kBlockUnits;
   }
-  auto item_live = [&](int k, int r) {   // may hold padding rows of a tile
-    return k < my_tiles && item_row[r] >= 0;
+  auto item_live = [&](int r) {   // may be a padding row of the tile
+    return item_row[r] >= 0;
   };
-  auto item_valid = [&](int k, int r) {
-    return item_live(k, r) && b_base + k * kRowsTile + item_row[r] < batch;
+  auto item_valid = [&](int r) {
+    return item_live(r) && b_base + item_row[r] < row_hi;
   };
 
-  StepInputs inputs[kTiles][kRounds];
-  Coefs coef[kTiles][kRounds];
-  float dh[kTiles][kRounds], dc[kTiles][kRounds];
+  StepInputs inputs[kRounds];
+  Coefs coef[kRounds];
+  float dh[kRounds], dc[kRounds];
   auto load_inputs = [&](int s) {
 #pragma unroll
-    for (int k = 0; k < kTiles; ++k)
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r)
-        if (item_valid(k, r)) {
-          const size_t row = (static_cast<size_t>(s) * 2 + d) * batch + b_base
-                             + k * kRowsTile + item_row[r];
-          inputs[k][r] = load_step(z, cs, dhs, row, plane_rows, hidden,
-                                   j0 + item_u[r], s == 0);
-        }
+    for (int r = 0; r < kRounds; ++r)
+      if (item_valid(r)) {
+        const size_t row =
+            (static_cast<size_t>(s) * 2 + d) * batch + b_base + item_row[r];
+        inputs[r] = load_step(z, cs, dhs, row, plane_rows, hidden,
+                              j0 + item_u[r], s == 0);
+      }
   };
   auto make_coefs = [&]() {
 #pragma unroll
-    for (int k = 0; k < kTiles; ++k)
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r)
-        if (item_valid(k, r)) coef[k][r] = step_coefs(inputs[k][r]);
+    for (int r = 0; r < kRounds; ++r)
+      if (item_valid(r)) coef[r] = step_coefs(inputs[r]);
   };
-  // With one tile a block there are registers to load a step's inputs a
-  // phase ahead of their use, behind the product; with more, they are
-  // loaded where they are used.
-  constexpr bool kLoadAhead = kTiles == 1;
 #pragma unroll
-  for (int k = 0; k < kTiles; ++k)
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) dh[k][r] = dc[k][r] = 0.0f;
+  for (int r = 0; r < kRounds; ++r) dh[r] = dc[r] = 0.0f;
   load_inputs(n_steps - 1);
   make_coefs();
   __syncthreads();   // w_s is complete
@@ -297,40 +292,38 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
     // ---- dgates of step t for this block's (row, unit) items: to dx_proj
     // and, as the A operand of the product, to a_s (zeros in padding rows)
 #pragma unroll
-    for (int k = 0; k < kTiles; ++k)
+    for (int r = 0; r < kRounds; ++r)
+      if (item_live(r)) {
+        T dg[4] = {from_f<T>(0.0f), from_f<T>(0.0f), from_f<T>(0.0f),
+                   from_f<T>(0.0f)};
+        if (item_valid(r)) {
+          const Coefs& c = coef[r];
+          const float dh_total = c.dhs + dh[r];
+          const float dc_t = fmaf(dh_total, c.p, dc[r]);
+          dg[0] = from_f<T>(dc_t * c.ai);
+          dg[1] = from_f<T>(dc_t * c.af);
+          dg[2] = from_f<T>(dc_t * c.ag);
+          dg[3] = from_f<T>(dh_total * c.ao);
+          dc[r] = dc_t * c.f;
+          T* dx_row =
+              dxp + (step_row + item_row[r]) * four_h + j0 + item_u[r];
 #pragma unroll
-      for (int r = 0; r < kRounds; ++r)
-        if (item_live(k, r)) {
-          T dg[4] = {from_f<T>(0.0f), from_f<T>(0.0f), from_f<T>(0.0f),
-                     from_f<T>(0.0f)};
-          if (item_valid(k, r)) {
-            const Coefs& c = coef[k][r];
-            const float dh_total = c.dhs + dh[k][r];
-            const float dc_t = fmaf(dh_total, c.p, dc[k][r]);
-            dg[0] = from_f<T>(dc_t * c.ai);
-            dg[1] = from_f<T>(dc_t * c.af);
-            dg[2] = from_f<T>(dc_t * c.ag);
-            dg[3] = from_f<T>(dh_total * c.ao);
-            dc[k][r] = dc_t * c.f;
-            T* dx_row = dxp + (step_row + k * kRowsTile + item_row[r]) * four_h
-                        + j0 + item_u[r];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) dx_row[q * hidden] = dg[q];
-          }
-          T* a_row = a_s + (k * kRowsTile + item_row[r]) * kStride + item_u[r];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) a_row[q * kBlockUnits] = dg[q];
+          for (int q = 0; q < 4; ++q) dx_row[q * hidden] = dg[q];
         }
+        T* a_row = a_s + item_row[r] * kStride + item_u[r];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a_row[q * kBlockUnits] = dg[q];
+      }
     if (t == 0) break;
     __syncthreads();
-    if (kLoadAhead) load_inputs(t - 1);
+    // the inputs of step t - 1, loaded a phase ahead of their use
+    load_inputs(t - 1);
     STAMP(0);
     // ---- this block's share of dh_{t-1}, for every unit of the direction:
     // its dgates columns times their columns of w_hh, (16 x 32 G) @
-    // (32 G x H) a tile on the tensor cores; warps take the n-tiles in turn
-    for (int k = 0; k < my_tiles; ++k) {
-      const T* a_t = a_s + k * kRowsTile * kStride;
-      float* out = slab_of(t & 1, tile0 + k, ug);
+    // (32 G x H) on the tensor cores; warps take the n-tiles in turn
+    {
+      float* out = slab_of(t & 1, ug);
       for (int n0 = warp; n0 < n_tiles; n0 += kWarps * kNBatch) {
         float acc[kNBatch][4];
 #pragma unroll
@@ -349,8 +342,8 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
         // both operands agree.
 #pragma unroll 2
         for (int k0 = 0; k0 < kCols; k0 += 16) {
-          const float4 a_r0 = load4(a_t + gid * kStride + k0 + 4 * tig);
-          const float4 a_r8 = load4(a_t + (gid + 8) * kStride + k0 + 4 * tig);
+          const float4 a_r0 = load4(a_s + gid * kStride + k0 + 4 * tig);
+          const float4 a_r8 = load4(a_s + (gid + 8) * kStride + k0 + 4 * tig);
           float4 b_v[kNBatch];
 #pragma unroll
           for (int i = 0; i < kNBatch; ++i) b_v[i] = load4(b_rows[i] + k0);
@@ -391,14 +384,13 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
     }
     STAMP(1);
     bar.arrive();
-    if (!kLoadAhead) load_inputs(t - 1);
     make_coefs();          // needs nothing of the other blocks
     STAMP(2);
     bar.wait();
     STAMP(3);
     // ---- dh_{t-1} of this block's units: the producers' partial sums for
     // them, brought into shared memory and added in producer order
-    for (int k = 0; k < my_tiles; ++k) {
+    {
       constexpr int kRowVecs = kBlockUnits / 4;          // float4 a row
       const int n_vecs = unit_groups * kRowsTile * kRowVecs;
       for (int e = threadIdx.x; e < n_vecs; e += kThreads) {
@@ -406,8 +398,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
         const int row = e / kRowVecs % kRowsTile;
         const int v = e % kRowVecs;
         cp_async16(p_s + e * 4,
-                   slab_of(t & 1, tile0 + k, producer) + row * hidden + j0
-                       + v * 4,
+                   slab_of(t & 1, producer) + row * hidden + j0 + v * 4,
                    true);
       }
       cp_async_commit();
@@ -420,12 +411,9 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
           float sum = 0.0f;
           for (int p = 0; p < unit_groups; ++p)
             sum += p_s[p * kTileItems + item];
-#pragma unroll
-          for (int kk = 0; kk < kTiles; ++kk)
-            if (kk == k) dh[kk][r] = sum;
+          dh[r] = sum;
         }
       }
-      if (k + 1 < my_tiles) __syncthreads();   // p_s is refilled
     }
     STAMP(4);
     // (the barriers of the next step separate these reads of p_s and the
@@ -434,9 +422,9 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
 }
 
 template <typename T>
-size_t chain_smem_bytes(int hidden, int g, int tiles) {
+size_t chain_smem_bytes(int hidden, int g) {
   const size_t stride = 4 * kUnits * g + kChainPad;
-  return (hidden + static_cast<size_t>(tiles) * kRowsTile) * stride * sizeof(T)
+  return (hidden + static_cast<size_t>(kRowsTile)) * stride * sizeof(T)
          + static_cast<size_t>(kRowsTile) * hidden * sizeof(float);
 }
 
@@ -685,122 +673,146 @@ lstm_dw_reduce_kernel(const float4* __restrict__ partial,
 // how one call is laid out on the card
 struct Plan {
   int groups;      // G: unit groups of 8 a chain block owns
-  int tiles;       // 16-row batch tiles a chain block owns
-  int blocks;      // chain blocks, all resident at once
+  int blocks;      // chain blocks of a launch, all resident at once
   int smem;        // dynamic shared memory of a chain block, bytes
   int k_slices;    // slices of dW_hh's reduction
+  int chunk_rows;  // batch rows of one chain launch
+  int launches;    // chain launches of the call, one after another
 };
 
 template <int N>
 using Int = std::integral_constant<int, N>;
 
-// fn(G, kTiles as integral constants) for the instance of the chain kernel
-// that runs g unit groups and `tiles` batch tiles a block: the instances
-// with one tile keep a quarter of the per-item registers
+// fn(G as an integral constant) for the chain kernel that runs g unit
+// groups a block
 template <typename Fn>
-cudaError_t for_chain(int g, int tiles, Fn fn) {
+cudaError_t for_chain(int g, Fn fn) {
   static_assert(kMaxGroups == 3, "one case per G");
-  if (tiles == 1) {
-    if (g == 1) return fn(Int<1>(), Int<1>());
-    if (g == 2) return fn(Int<2>(), Int<1>());
-    return fn(Int<3>(), Int<1>());
-  }
-  if (g == 1) return fn(Int<1>(), Int<kMaxTiles>());
-  if (g == 2) return fn(Int<2>(), Int<kMaxTiles>());
-  return fn(Int<3>(), Int<kMaxTiles>());
+  if (g == 1) return fn(Int<1>());
+  if (g == 2) return fn(Int<2>());
+  return fn(Int<3>());
 }
 
-// blocks of the chain kernel that the card holds at once
-template <typename T, int G, int kTiles>
-cudaError_t chain_capacity(size_t smem, int* blocks) {
-  int device = 0, sms = 0, optin = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+// What the card holds of each chain instance at this H: its shared memory
+// a block and the blocks resident at once (0 where a block does not fit).
+// Asked of the runtime once a (device, H) and thread, so that a plan is
+// arithmetic after the first call; this also raises each instance's
+// dynamic shared memory limit to the card's, which every launch then uses.
+struct Capacity {
+  int device, hidden, sms;
+  int smem[kMaxGroups], blocks[kMaxGroups];
+};
+
+template <typename T>
+cudaError_t capacity(int device, int hidden, Capacity* out) {
+  thread_local std::vector<Capacity> memo;
+  for (const Capacity& c : memo)
+    if (c.device == device && c.hidden == hidden) {
+      *out = c;
+      return cudaSuccess;
+    }
+  Capacity cap = {device, hidden, 0, {}, {}};
+  int optin = 0;
+  cudaDeviceGetAttribute(&cap.sms, cudaDevAttrMultiProcessorCount, device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          device);
-  *blocks = 0;
-  if (smem > static_cast<size_t>(optin)) return cudaSuccess;
-  err = cudaFuncSetAttribute(lstm_bwd_chain_kernel<T, G, kTiles>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, lstm_bwd_chain_kernel<T, G, kTiles>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
+  for (int g = 1; g <= kMaxGroups; ++g) {
+    const cudaError_t err = for_chain(g, [&](auto G) {
+      auto kernel = lstm_bwd_chain_kernel<T, decltype(G)::value>;
+      const size_t smem = chain_smem_bytes<T>(hidden, g);
+      cap.smem[g - 1] = static_cast<int>(smem);
+      cap.blocks[g - 1] = 0;
+      if (smem > static_cast<size_t>(optin)) return cudaSuccess;
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (e != cudaSuccess) return e;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+      cap.blocks[g - 1] = per_sm * cap.sms;
+      return e;
+    });
+    if (err != cudaSuccess) return err;
+  }
+  memo.push_back(cap);
+  *out = cap;
   return cudaSuccess;
 }
 
-// Among the splits whose blocks are all resident, the one with the least
-// work an SM and step: every batch tile of a block costs an exchange and a
-// product that grows with G, and two blocks on one SM take turns.
-// cudaErrorInvalidConfiguration when there is none: the batch is too large
-// for this H and dtype.
+// Among the G whose blocks of one batch tile are all resident: the fewest
+// chain launches (each is a whole serial chain of T' - 1 steps), then the
+// least work an SM and step: a block's product grows with G, and two
+// blocks on one SM take turns.  Only the last launch may be ragged.
+// cudaErrorInvalidConfiguration when there is none (H too large for a
+// block's shared memory).
 template <typename T>
 cudaError_t make_plan(int n_steps, int batch, int hidden, Plan* plan) {
-  thread_local struct { int device, type, batch, hidden; Plan plan; } memo =
-      {-1, 0, 0, 0, {}};
-  int device = 0, sms = 0;
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int type = static_cast<int>(sizeof(T));
-  if (memo.device != device || memo.type != type || memo.batch != batch
-      || memo.hidden != hidden) {
-    const int batch_tiles = (batch + kRowsTile - 1) / kRowsTile;
-    Plan best = {0, 0, 0, 0, 1};
-    int best_cost = 0;
-    for (int g = 1; g <= kMaxGroups; ++g) {
-      if (hidden % (kUnits * g) != 0) continue;
-      for (int tiles = 1; tiles <= min(kMaxTiles, batch_tiles); ++tiles) {
-        const size_t smem = chain_smem_bytes<T>(hidden, g, tiles);
-        int capacity = 0;
-        err = for_chain(g, tiles, [&](auto G, auto kTiles) {
-          return chain_capacity<T, decltype(G)::value,
-                                decltype(kTiles)::value>(smem, &capacity);
-        });
-        if (err != cudaSuccess) return err;
-        const int blocks = 2 * ((batch_tiles + tiles - 1) / tiles)
-                           * (hidden / (kUnits * g));
-        if (blocks > capacity) continue;
-        const int cost = tiles * (2 + g) * ((blocks + sms - 1) / sms);
-        if (best.groups == 0 || cost < best_cost) {
-          best = {g, tiles, blocks, static_cast<int>(smem), 1};
-          best_cost = cost;
-        }
-      }
+  Capacity cap;
+  err = capacity<T>(device, hidden, &cap);
+  if (err != cudaSuccess) return err;
+  const int batch_tiles = (batch + kRowsTile - 1) / kRowsTile;
+  Plan best = {};
+  int best_cost = 0;
+  for (int g = 1; g <= kMaxGroups; ++g) {
+    if (hidden % (kUnits * g) != 0) continue;
+    const int unit_groups = hidden / (kUnits * g);
+    const int chunk_tiles =
+        min(batch_tiles, cap.blocks[g - 1] / (2 * unit_groups));
+    if (chunk_tiles == 0) continue;
+    const int launches = (batch_tiles + chunk_tiles - 1) / chunk_tiles;
+    const int blocks = 2 * chunk_tiles * unit_groups;
+    const int cost = (2 + g) * ((blocks + cap.sms - 1) / cap.sms);
+    if (best.groups == 0 || launches < best.launches
+        || (launches == best.launches && cost < best_cost)) {
+      best = {g, blocks, cap.smem[g - 1], 1,
+              min(batch, chunk_tiles * kRowsTile), launches};
+      best_cost = cost;
     }
-    if (best.groups == 0) return cudaErrorInvalidConfiguration;
-    memo = {device, type, batch, hidden, best};
   }
-  *plan = memo.plan;
+  if (best.groups == 0) return cudaErrorInvalidConfiguration;
   // enough slices of dW's reduction for ~4 blocks an SM, 2 K-tiles or more
   // each
   const int out_tiles = 2 * ((hidden + kBM - 1) / kBM)
                         * ((4 * hidden + kBN - 1) / kBN);
   const int k_tiles = ((n_steps - 1) * batch + kBK - 1) / kBK;
-  plan->k_slices = max(1, min(min(16, k_tiles / 2),
-                              (4 * sms + out_tiles - 1) / out_tiles));
+  best.k_slices = max(1, min(min(16, k_tiles / 2),
+                             (4 * cap.sms + out_tiles - 1) / out_tiles));
+  *plan = best;
   return cudaSuccess;
 }
 
 constexpr int kPartZ = 1, kPartChain = 2, kPartDw = 4;
 
-template <typename T, int G, int kTiles>
+template <typename T, int G>
 cudaError_t launch_chain(const Plan& plan, const float* z, const T* whh,
                          const T* cs, const float* dhs, T* dxp,
                          float* exchange, unsigned* barrier, int n_steps,
                          int batch, int hidden, cudaStream_t stream) {
-  int tiles = plan.tiles;
-  void* args[] = {&z, &whh, &cs, &dhs, &dxp, &exchange, &barrier, &n_steps,
-                  &batch, &hidden, &tiles};
-  // cooperative: the launch fails (cudaErrorCooperativeLaunchTooLarge)
-  // instead of deadlocking at a barrier when the blocks cannot all be
-  // resident at once
-  return cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(lstm_bwd_chain_kernel<T, G, kTiles>),
-      dim3(plan.blocks), dim3(kThreads), args, plan.smem, stream);
+  const int unit_groups = hidden / (kUnits * G);
+  const int chunk_tiles = plan.chunk_rows / kRowsTile;
+  for (int i = 0; i < plan.launches; ++i) {
+    int row_lo = i * plan.chunk_rows;
+    int row_hi = min(batch, row_lo + plan.chunk_rows);
+    const int tiles_i = (row_hi - row_lo + kRowsTile - 1) / kRowsTile;
+    const int blocks = 2 * tiles_i * unit_groups;
+    // each launch's groups count on counters of their own; the exchange is
+    // reused, since the launches run one after another on the stream
+    unsigned* counters = barrier + static_cast<size_t>(i) * 2 * chunk_tiles
+                                       * kCounterStride;
+    void* args[] = {&z, &whh, &cs, &dhs, &dxp, &exchange, &counters,
+                    &n_steps, &batch, &hidden, &row_lo, &row_hi};
+    // cooperative: the launch fails (cudaErrorCooperativeLaunchTooLarge)
+    // instead of deadlocking at a barrier when the blocks cannot all be
+    // resident at once
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(lstm_bwd_chain_kernel<T, G>), dim3(blocks),
+        dim3(kThreads), args, plan.smem, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -832,10 +844,10 @@ cudaError_t launch(const void* xp_v, const void* whh_v, const void* hs_v,
     if (err != cudaSuccess) return err;
   }
   if (parts & kPartChain) {
-    err = for_chain(plan.groups, plan.tiles, [&](auto G, auto kTiles) {
-      return launch_chain<T, decltype(G)::value, decltype(kTiles)::value>(
-          plan, z, whh, cs, dhs, dxp, exchange, barrier, n_steps, batch,
-          hidden, stream);
+    err = for_chain(plan.groups, [&](auto G) {
+      return launch_chain<T, decltype(G)::value>(plan, z, whh, cs, dhs, dxp,
+                                                 exchange, barrier, n_steps,
+                                                 batch, hidden, stream);
     });
     if (err != cudaSuccess) return err;
   }
@@ -871,12 +883,12 @@ extern "C" {
 // the unit group: the wrapper checks H % this == 0
 int mdd_lstm_bwd_units_per_block() { return kUnits; }
 
-// How a call of these shapes is laid out: out[0 .. 6) = unit groups a
-// chain block owns, batch tiles it owns, chain blocks, their shared memory
-// in bytes, slices of dW_hh's reduction and float32 elements of the
-// chain's exchange (the wrapper sizes the scratch by the last two).
-// cudaErrorInvalidConfiguration (9) when the batch is too
-// large for every block to be resident at this H and dtype.
+// How a call of these shapes is laid out: out[0 .. 7) = unit groups a
+// chain block owns, chain blocks of a launch, their shared memory in
+// bytes, slices of dW_hh's reduction, float32 elements of the chain's
+// exchange (the wrapper sizes the scratch by these two), batch rows of a
+// chain launch and chain launches.
+// cudaErrorInvalidConfiguration (9) when H is too large for a block.
 int mdd_lstm_bwd_plan(int n_steps, int batch, int hidden, int dtype,
                       int* out) {
   if (!shapes_ok(n_steps, batch, hidden) || (dtype != 0 && dtype != 1))
@@ -887,19 +899,21 @@ int mdd_lstm_bwd_plan(int n_steps, int batch, int hidden, int dtype,
                  : make_plan<__nv_bfloat16>(n_steps, batch, hidden, &plan);
   if (err != cudaSuccess) return err;
   out[0] = plan.groups;
-  out[1] = plan.tiles;
-  out[2] = plan.blocks;
-  out[3] = plan.smem;
-  out[4] = plan.k_slices;
-  out[5] = static_cast<int>(exchange_elems(batch, hidden, plan.groups));
+  out[1] = plan.blocks;
+  out[2] = plan.smem;
+  out[3] = plan.k_slices;
+  out[4] = static_cast<int>(exchange_elems(plan.chunk_rows, hidden,
+                                           plan.groups));
+  out[5] = plan.chunk_rows;
+  out[6] = plan.launches;
   return cudaSuccess;
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  Scratch, none of it initialised
 // unless said: z (T, 2, B, 4H) float32; dw_partial (k_slices, 2, H, 4H)
 // float32 and exchange, float32, sized by mdd_lstm_bwd_plan; barrier,
-// ZEROED, 32 counters
-// for each of the 2 * ceil(B / 16) groups there can be.  parts: 1 = the
+// ZEROED, 32 counters for each of the 2 * ceil(B / 16) groups there can be
+// (the chain's launches take disjoint runs of them).  parts: 1 = the
 // pre-activation product, 2 = the chain, 4 = dW_hh (product and reduce);
 // 7 is the backward, the single parts exist to be timed (each needs what
 // the earlier ones left in z and dx_proj).  Returns a cudaError_t

@@ -255,8 +255,11 @@ class ConvSubsampler(nn.Module):
         for i, (s, p) in enumerate(zip(self.cfg.conv_strides,
                                        self.cfg.conv_padding)):
             conv = getattr(self, f"conv{i}")
-            x = F.conv2d(x, conv.kernel.to(dtype), conv.bias.to(dtype),
-                         stride=tuple(s), padding=tuple(p))
+            # the bias is added after the product is rounded to `dtype`, as
+            # flax's Conv adds it: in bfloat16 a fused bias rounds once
+            # where flax rounds twice
+            x = F.conv2d(x, conv.kernel.to(dtype), None, stride=tuple(s),
+                         padding=tuple(p)) + conv.bias.to(dtype).view(-1, 1, 1)
             x = F.relu(getattr(self, f"bn{i}")(
                 x, dtype, axis=1, train=train, sample_mask=sample_mask))
             x = dropout(x, self.cfg.dropout, train, generator,

@@ -134,9 +134,20 @@ class KernelBinding:
 
     def _launch(self, device, *args) -> None:
         lib = self.library()
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            err = getattr(lib, self.entry)(*args, stream)
+        # The entry point launches on the runtime's current device and on
+        # the current stream of `device`.  On an H100 host the device
+        # context costs 6-9 us a call and torch.cuda.current_stream 8 us
+        # (python -m mdd_tpu_torch.ops.dropout_time --host), so the context
+        # is entered only when `device` is not current, and the stream is
+        # read as its raw handle (~0.2 us).  A device without an index
+        # (torch.device("cuda")) is the current one.
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index != current:
+            with torch.cuda.device(index):
+                return self._launch(torch.device("cuda", index), *args)
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        err = getattr(lib, self.entry)(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: "
                                + lib.mdd_cuda_error_string(err).decode())

@@ -37,6 +37,31 @@ _BUMP = (0x9E3779B9, 0xBB67AE85)     # key increments per round
 _ROUNDS = 10
 SEED_HIGH = 2 ** 63 - 1              # seeds are drawn from [0, SEED_HIGH)
 
+#: the dropout sites of one train step at B=64, T=220 model frames (T'=110),
+#: where chip_smoke.py and ops/dropout_time.py time the kernel
+SITES = {"conv0": (64, 32, 220, 122), "conv1": (64, 32, 110, 61),
+         "bilstm": (110, 64, 768)}
+#: H100 SXM (NVIDIA's data sheet): memory rate, and the integer rate: the
+#: 67 TFLOP/s float32 figure counts an FMA as 2 operations at 128 a clock
+#: and SM; the 32-bit integer pipes do 64 a clock and SM (CUDA C
+#: Programming Guide, compute capability 9.0), a quarter of that
+PEAK_BYTES_S = 3.35e12
+PEAK_INT_OPS_S = 67e12 / 4
+#: integer operations an element: per group of 4, ten Philox rounds of two
+#: 32x32 -> 64-bit multiplies (one IMAD.WIDE.U32 each; the first round
+#: has one, its other operand being 0) and two 3-input xors (LOP3), 39 in
+#: all; per element the compare with the threshold and the select
+OPS_PER_ELEMENT = 39 / 4 + 2
+
+
+def bound_ms(n: int, dtype: torch.dtype) -> tuple:
+    """(least ms, "bytes" or "operations") for dropout over n elements:
+    x read once, out written once; OPS_PER_ELEMENT integer operations."""
+    by_bytes = 2 * n * torch.finfo(dtype).bits / 8 / PEAK_BYTES_S * 1e3
+    by_ops = n * OPS_PER_ELEMENT / PEAK_INT_OPS_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
 
 def keep_threshold(rate: float) -> int:
     """P(keep) = threshold / 2^32 over uniform 32-bit words."""

@@ -189,9 +189,9 @@ class LstmFwdKernel(_LstmBinding):
 
 class LstmBwdKernel(_LstmBinding):
     """`mdd_lstm_bwd` of csrc/lstm_bwd.cu: (x_proj, w_hh, hs, cs, dhs) ->
-    (dx_proj, dW_hh float32).  Inside, four launches: the gate
-    pre-activations of every step as one product, the recurrence, and the
-    dW_hh product with its reduce; one count a backward."""
+    (dx_proj, dW_hh float32).  Inside: the gate pre-activations of every
+    step as one product, the recurrence (one launch, or one a chunk of the
+    batch), and the dW_hh product with its reduce; one count a backward."""
 
     source, entry, n_pointers = "lstm_bwd.cu", "mdd_lstm_bwd", 11
     #: `parts` bits of the entry point; ALL is the backward
@@ -203,19 +203,23 @@ class LstmBwdKernel(_LstmBinding):
 
     def plan(self, t: int, b: int, h: int, dtype: torch.dtype) -> dict:
         """How the kernels lay a call of these shapes out on the current
-        card; raises when the batch is too large for the recurrence's
-        blocks to be resident together at this H and dtype."""
+        card (a recurrence block owns one 16-row batch tile): unit groups
+        of 8 a recurrence block owns, blocks and shared bytes of a
+        recurrence launch, slices of dW_hh's reduction, float32 elements of
+        the exchange, batch rows of a recurrence launch and recurrence
+        launches a call (a batch too large for resident blocks runs as
+        several)."""
         fn = self.library().mdd_lstm_bwd_plan
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 7)()
         err = fn(t, b, h, _DTYPE_CODES[dtype], out)
         if err != 0:
             raise ValueError(
-                f"lstm_bwd takes no batch of {b} at H={h} in {dtype}: "
+                f"lstm_bwd has no layout for B={b}, H={h} in {dtype}: "
                 + self.library().mdd_cuda_error_string(err).decode())
-        return dict(zip(("unit_groups", "batch_tiles", "blocks", "smem_bytes",
-                         "k_slices", "exchange_elems"), out))
+        return dict(zip(("unit_groups", "blocks", "smem_bytes", "k_slices",
+                         "exchange_elems", "chunk_rows", "launches"), out))
 
     def _check(self, x_proj, w_hh, hs, cs, dhs):
         t, b, h = _check_lstm_inputs(x_proj, w_hh, self.units_per_block)

@@ -61,8 +61,9 @@ def _runner(name: str, kernel, batch: int, steps: int, hidden: int,
     return lambda: kernel(x_proj, w_hh, hs, cs, dhs), max(steps - 1, 1)
 
 
-def _event_ms(fn, iters: int) -> float:
-    for _ in range(2):
+def event_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of a call over `iters` back-to-back calls, by CUDA events."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -99,7 +100,7 @@ def time_kernel(name: str, kernel, batch: int, steps: int, hidden: int,
     """The normal build's time by CUDA events."""
     with torch.no_grad():
         fn, chain = _runner(name, kernel, batch, steps, hidden, dtype)
-        ms = _event_ms(fn, iters)
+        ms = event_ms(fn, iters)
     plan = (kernel.plan(batch, hidden, dtype) if name == "fwd"
             else kernel.plan(steps, batch, hidden, dtype))
     print(f"[stamps] lstm_{name} ({Path(kernel.source).name}) "
@@ -118,8 +119,8 @@ def stamp_kernel(name: str, source: str | None, batch: int, steps: int,
         lib = kernel.library()
         names = _stamp_fn(lib, name, "stamp_names")().decode().split(",")
         _read_stamps(lib, name)                    # zero the counters
-        ms = _event_ms(fn, iters)
-    # _event_ms ran 2 warm-up calls beside the timed ones
+        ms = event_ms(fn, iters)
+    # event_ms ran 2 warm-up calls beside the timed ones
     cycles = _read_stamps(lib, name)[:len(names)]
     total = sum(cycles)
     per_step = (iters + 2) * chain

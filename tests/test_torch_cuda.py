@@ -116,8 +116,8 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, tol, t, b, h):
     sums run in another order and its products are three TF32 passes,
     bfloat16 rounds dgates (1-ulp flips).  The shapes cover the partition
     over (direction, 16-row batch tile, group of 8 units): batches under a
-    tile, between tiles and over several tiles a block, no recurrent step
-    and one, H a multiple of 8 but not of 64."""
+    tile, between tiles and over the most tiles one launch holds, no
+    recurrent step and one, H a multiple of 8 but not of 64."""
     x_proj, w_hh = _inputs(t, b, h, dtype)
     g = torch.Generator().manual_seed(1)
     dhs = torch.randn((t, 2, b, h), generator=g).cuda()
@@ -143,24 +143,56 @@ def test_backward_kernel_is_the_same_from_run_to_run(cuda):
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b", [512, 300])
 def test_backward_wrapper_refuses_a_batch_whose_blocks_cannot_be_resident(
-        cuda):
-    """The recurrence is one cooperative launch: at H=384 in float32 a
-    block holds the w_hh columns of at most 24 units and 64 batch rows, so
-    a batch of 512 has no layout in which every block is resident; the
-    wrapper says so and launches nothing."""
-    x_proj, w_hh = _inputs(2, 512, 384, torch.float32)
-    dhs = torch.zeros((2, 2, 512, 384), device="cuda")
-    hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+        cuda, dtype, tol, b):
+    """The name dates from when the recurrence was one cooperative launch
+    and refused a batch whose blocks could not all be resident (B > 256 at
+    H=384 in float32).  Now such a batch runs as several launches over
+    chunks of its rows, like the forward's: B=512 and B=300 (a ragged last
+    chunk) agree with the plain version (tolerances as in
+    test_backward_kernel_matches_plain_version), give the same bits on two
+    runs, count one launch a backward, and every launch's blocks fit the
+    card."""
+    t, h = 6, 384
+    x_proj, w_hh = _inputs(t, b, h, dtype)
+    dhs = torch.randn((t, 2, b, h), generator=torch.Generator().manual_seed(1)
+                      ).cuda()
+    hs, cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
     before = lstm_cuda.lstm_bwd_kernel.launches
-    with pytest.raises(ValueError, match="no batch of 512"):
-        lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
-    assert lstm_cuda.lstm_bwd_kernel.launches == before
-    plan = lstm_cuda.lstm_bwd_kernel.plan(80, 64, 384, torch.float32)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    assert 0 < plan["blocks"] <= 2 * sms
-    assert plan["blocks"] == 2 * -(-4 // plan["batch_tiles"]) * (
-        384 // (8 * plan["unit_groups"]))
+    first = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    again = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_bwd_kernel.launches == before + 2
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    ref_dxp, ref_dw = lstm_cuda.lstm_seq_bwd_reference(x_proj, w_hh, hs, cs,
+                                                       dhs)
+    for got, want in ((first[0].float(), ref_dxp.float()), (first[1], ref_dw)):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    plan = lstm_cuda.lstm_bwd_kernel.plan(t, b, h, dtype)
+    props = torch.cuda.get_device_properties(0)
+    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    per_sm = smem_sm // (plan["smem_bytes"] + 1024)
+    assert 0 < plan["blocks"] <= props.multi_processor_count * per_sm
+    chunk_tiles = -(-plan["chunk_rows"] // 16)
+    assert plan["blocks"] == 2 * chunk_tiles * (h // (8 * plan["unit_groups"]))
+    assert plan["launches"] == -(-b // plan["chunk_rows"])
+    # a block owns one 16-row tile, and no H100 holds the blocks of 300 rows
+    # (2 x 19 tiles x H / 8 G unit groups) at the shared memory each takes
+    assert plan["launches"] > 1
+
+
+def test_launch_through_a_device_without_an_index(cuda):
+    """torch.device("cuda") names the current device: the binding launches
+    there (the mma.sync-rate yardstick passes such a device)."""
+    from mdd_tpu_torch.ops.mma_rate import CASES, MmaRate
+
+    rate = MmaRate()
+    _, mode, ops = CASES[0]
+    tflops = rate.tflops(mode, ops, 1, 1)
+    assert rate.launches == 1 and 0 < tflops < 1e4
 
 
 def test_loss_backward_through_bilstm_cuda_launches_the_kernel(cuda):
@@ -216,6 +248,48 @@ def test_dropout_kernel_on_unaligned_storage(cuda):
         x[1:].clone(), seed, 0.2))
     assert torch.equal(out, dropout_cuda.fused_dropout_apply(
         x[1:].clone(), seed, 0.2))
+
+
+# element counts at the edges of the kernel's geometry: a 16-byte access is
+# 4 float32 or 8 bfloat16 elements and a thread has 4 of them in flight, so
+# sizes around one access (3-9, 15-17), around one thread's span (31-33),
+# around a block's span of 256 threads (4095-4097, 8191-8193), and past one
+# wave of resident threads walking the tensor (9,000,001: more than 132 SMs
+# x 2048 threads x 32 bfloat16 elements)
+EDGE_SIZES = [1, 3, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 4095, 4096, 4097,
+              8191, 8192, 8193, 9_000_001]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_dropout_kernel_at_the_edges_of_its_geometry(cuda, dtype, n):
+    """Bit for bit the plain version at every edge of the geometry."""
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=g).to("cuda", dtype)
+    seed = torch.tensor([0x0123_4567_89AB_CDEF], device="cuda")
+    out = dropout_cuda.fused_dropout_apply(x, seed, 0.3)
+    ref = dropout_cuda.fused_dropout_reference(x, seed, 0.3)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 8])
+def test_dropout_kernel_on_storage_that_breaks_16_byte_alignment(cuda, dtype,
+                                                                 offset):
+    """A contiguous slice whose first element lies `offset` elements into
+    its allocation: 16-byte aligned only at offset 4 in float32 and 8 in
+    bfloat16; the others take the scalar path.  The same bits as the plain
+    version on the slice, and as the kernel on an aligned copy of it."""
+    x = torch.randn(70_000 + offset, device="cuda").to(dtype)
+    seed = torch.tensor([99], device="cuda")
+    view = x[offset:]
+    out = dropout_cuda.fused_dropout_apply(view, seed, 0.2)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), dropout_cuda.fused_dropout_reference(
+        view, seed, 0.2).view(bits))
+    assert torch.equal(out.view(bits), dropout_cuda.fused_dropout_apply(
+        view.clone(), seed, 0.2).view(bits))
 
 
 def test_dropout_wrapper_refuses_what_the_kernel_does_not_take(cuda):
