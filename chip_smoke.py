@@ -77,7 +77,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             bench.py's cell, B=512 x 160 input frames (T'=80, 48 canonical
             phones) in bfloat16: loss finite, one lstm_bwd count a layer
             (its recurrence in several launches), the step time.
-14. evaluate  `train-lm` on the training labels, then `evaluate` (beam
+14. train-cached  the training path on the device-resident corpus: a
+            hard-profile corpus (512 / 64 / 64 utterances of 16-40 phones,
+            the recovered 41-unit inventory) from `python -m
+            mdd_tpu_torch.tools.synthetic_corpus`, then `train` in-process
+            with device_cache: true (the flagship recipe at B=64, the hard
+            recipe's quanta) for 2 epochs and `--resume` for a third:
+            losses finite and falling, the launch counters covering every
+            layer of every step, the resumed epoch's batches those of a
+            fresh loader at set_epoch(2), one CachedBatch gathered and
+            masked on the card equal bit for bit to
+            SpeechDataset.load_item's items padded to its bucket; then the
+            cached and the streaming step median (next batch, copy and
+            step), in turns, and the host -> device bytes a step of each.
+15. evaluate  `train-lm` on the training labels, then `evaluate` (beam
             width 10 + that LM at alpha 0.5, device front end, the dev
             split as test split) on the `best` of phase 12 with
             --dump-dir, `evaluate --lm-alpha 0`, `evaluate --decode-type
@@ -88,7 +101,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             batch of that model's log-probs the
             device beam against the host beam (decode/beam.py), at least
             95% of the sequences identical.
-15. profile-evaluate  evaluate_model over the 512 training utterances, beam
+16. evaluate-cached  `evaluate --cached` and `evaluate` on the hard
+            test split with train-cached's `best` (beam 10 + the corpus
+            LM at alpha 0.5): at batch size 1, where both loaders pad an
+            utterance alike, reports and dump lines equal; at B=64, where
+            the cache groups utterances by bucket, every utterance padded
+            alike decodes alike (the model's outputs depend on the
+            padding); lstm_fwd launched 4 times a forward.
+17. profile-evaluate  evaluate_model over the 512 training utterances, beam
             and greedy: utterances per second, and torch.profiler's device
             busy share over one beam pass; the beam alone at B=64, T'=110,
             K=10, C=43 (ms a batch and a frame); fused_dropout at the 3
@@ -151,6 +171,8 @@ BEAM_MATCH = 0.95  # device beam vs host beam, share of identical sequences
 # H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the 41-unit inventory that regenerates mdd_tpu's hard-profile test split
+HARD_UNITS = ROOT / "results" / "synthetic_full_hard_torch" / "units"
 UNITS = ["sil", "err", "aa", "ae", "ah", "ao", "aw", "ay", "b", "ch", "d",
          "dh", "eh", "er", "ey", "f", "g", "hh", "ih", "iy", "jh", "k", "l",
          "m", "n", "ng", "ow", "oy", "p", "r", "s", "sh", "t", "th", "uh",
@@ -562,9 +584,10 @@ def write_corpus(split: str, n: int, seed: int) -> tuple:
 
 
 def write_train_yaml(train, dev, epochs: int,
-                     compute_dtype: str = "float32") -> str:
+                     compute_dtype: str = "float32", **overrides) -> str:
     """The flagship recipe (conf/ctc_config.yaml's, in float32 unless
-    said) on the streaming loader, over the seeded corpus."""
+    said) on the streaming loader, over the seeded corpus; `overrides`
+    replace fields (another experiment, corpus or loader)."""
     fields = {
         "exp_name": "smoke_train", "checkpoint_dir": str(WORK / "ckpt"),
         "seed": 1234, "vocab_file": str(WORK / "units"),
@@ -583,7 +606,8 @@ def write_train_yaml(train, dev, epochs: int,
         "weight_decay": 0.0005, "verbose_step": 1, "max_adjust_times": 8,
         "plateau_patience": 10, "augment_mode": 2, "mutation_prob": 0.1,
         "num_workers": 4}
-    path = WORK / f"train{epochs}_{compute_dtype}.yaml"
+    fields.update(overrides)
+    path = WORK / f"{fields['exp_name']}{epochs}_{compute_dtype}.yaml"
     path.write_text("".join(f"{k}: {json.dumps(v)}\n"
                             for k, v in fields.items()))
     return str(path)
@@ -1192,14 +1216,15 @@ def bench_cell_step(torch, model_cfg, card: str) -> None:
                              f"{model_cfg.rnn_layers} layers")
 
 
-def write_eval_yaml(conf: str, name: str, split: tuple, lm: str) -> str:
-    """The train YAML with the `smoke_fused` experiment, `split` as test
-    split, and beam + LM decoding."""
+def write_eval_yaml(conf: str, name: str, split: tuple, lm: str,
+                    exp_name: str = "smoke_fused", **overrides) -> str:
+    """The train YAML with the `exp_name` experiment, `split` as test
+    split, and beam + LM decoding; `overrides` replace fields."""
     fields = {
-        "exp_name": "smoke_fused", "test_scp_path": split[0],
+        "exp_name": exp_name, "test_scp_path": split[0],
         "test_lab_path": split[1], "test_trans_path": split[2],
         "decode_type": "Beam", "beam_width": 10, "lm_alpha": 0.5,
-        "lm_path": lm}
+        "lm_path": lm, **overrides}
     lines = [l for l in Path(conf).read_text().splitlines()
              if l.split(":")[0] not in fields]
     path = WORK / f"{name}.yaml"
@@ -1416,6 +1441,278 @@ def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> None:
 
 
 
+def write_hard_corpus() -> dict:
+    """TRAIN_UTTS / DEV_UTTS / DEV_UTTS utterances of the hard profile
+    (16-40 phones, the recovered 41-unit inventory of mdd_tpu's quality
+    runs) through the port's corpus tool; -> {split: (scp, lab, trans)}."""
+    from mdd_tpu_torch.tools import synthetic_corpus
+
+    root = WORK / "hard"
+    with contextlib.redirect_stdout(io.StringIO()):
+        synthetic_corpus.cli([str(root), str(TRAIN_UTTS), str(DEV_UTTS),
+                              str(DEV_UTTS), "--profile", "hard",
+                              "--min-phones", "16", "--max-phones", "40",
+                              "--units", str(HARD_UNITS)])
+    return {split: tuple(str(root / f"{split}{x}") for x in (
+        ".scp", "_phn_text", "_transcript_phn_text"))
+        for split in ("train", "dev", "test")}
+
+
+def wire_bytes(batch) -> int:
+    """Host -> device bytes of one step's batch: every host array the step
+    moves (the CachedBatch's index and label arrays, or the streaming
+    batch's features and labels) plus the validity mask."""
+    import numpy as np
+
+    if hasattr(batch, "idx"):
+        arrays = (batch.idx, batch.lengths, batch.aug, batch.targets,
+                  batch.target_sizes, batch.trans, batch.trans_sizes,
+                  batch.valid)
+        return sum(a.nbytes for a in arrays)
+    inputs = batch.inputs
+    return (inputs.numel() * inputs.element_size() + sum(
+        a.nbytes for a in (batch.input_fracs, batch.targets,
+                           batch.target_sizes, batch.trans,
+                           batch.trans_sizes)) + batch.size)
+
+
+def phase_train_cached(torch, card: str) -> dict:
+    """The training path on the device-resident corpus: a hard-profile
+    corpus from the port's tool, `train` with device_cache: true for 2
+    epochs and `--resume` for a third, in-process; one CachedBatch against
+    SpeechDataset.load_item bit for bit; the resumed epoch's batches
+    against a fresh loader's at set_epoch(2); then cached and streaming
+    step medians in turns.  -> launch counts and the YAML."""
+    import numpy as np
+
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.dataset import pad_batch_to
+    from mdd_tpu_torch.data.device_cache import CachedLoader
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    corpus = write_hard_corpus()
+    gen_s = time.perf_counter() - t0
+    confs = [write_train_yaml(
+        corpus["train"], corpus["dev"], e, exp_name="smoke_cached",
+        vocab_file=str(HARD_UNITS), device_cache=True, time_quantum=128,
+        label_quantum=32) for e in (2, 3)]
+    cfg = load_config(confs[1])
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    fresh = {train: cli._build_loader(cfg, vocab, *corpus[name], train=train,
+                                      device="cuda")
+             for name, train in (("train", True), ("dev", False))}
+    steps_epoch, dev_epoch = len(fresh[True]), len(fresh[False])
+
+    # the batches the train loader made in each epoch, as run
+    made, make_batch = {}, CachedLoader._make_batch
+
+    def record(self, bucket, chunk, epoch):
+        batch = make_batch(self, bucket, chunk, epoch)
+        if self.shuffle:
+            made.setdefault(epoch, []).append(batch)
+        return batch
+
+    CachedLoader._make_batch = record
+    lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = run_cli(["train", "--conf", confs[0], "--device", "cuda"])
+        out += run_cli(["train", "--conf", confs[1], "--device", "cuda",
+                        "--resume"])
+    finally:
+        CachedLoader._make_batch = make_batch
+    wall = time.perf_counter() - t0
+    fwd, bwd = lstm_fwd_kernel.launches, lstm_bwd_kernel.launches
+    for line in out.splitlines():
+        if "done" in line or "resumed" in line or "best dev" in line:
+            log(f"[train-cached]   {line}")
+    steps = 3 * steps_epoch
+    forwards = steps + 3 * dev_epoch
+    first = float(re.search(r"Epoch = 1, step = 1, total_loss = (\S+?),",
+                            out).group(1))
+    epochs = [float(v) for v in
+              re.findall(r"Train done, total_loss: (\S+?),", out)]
+    cache = fresh[True].cache
+    log(f"[train-cached] hard corpus {TRAIN_UTTS}/{DEV_UTTS}/{DEV_UTTS} in "
+        f"{gen_s:.1f} s; cache {cache.bytes / 2**20:.1f} MiB in buckets "
+        f"{sorted(cache.buckets)} raw frames; 3 epochs ({steps_epoch} steps "
+        f"each) at B={BATCH} in {wall:.1f} s, set-up included; first step "
+        f"loss {first:.4f}, epoch losses {epochs}; lstm_fwd launches {fwd} "
+        f"over {forwards} forwards, lstm_bwd {bwd} over {steps} steps")
+    if len(epochs) != 3 or not all(math.isfinite(v) for v in
+                                   epochs + [first]):
+        raise AssertionError(f"losses missing or not finite: {epochs}")
+    if not (epochs[-1] < epochs[0] < first):
+        raise AssertionError(f"the loss did not fall: {first}, {epochs}")
+    if "resumed from epoch 2" not in out:
+        raise AssertionError("the third epoch did not resume from epoch 2")
+    if bwd != 4 * steps or fwd < 4 * forwards:
+        raise AssertionError(f"{fwd} forward / {bwd} backward launches for "
+                             f"{forwards} forwards / {steps} train steps: a "
+                             "layer bypassed the kernels")
+
+    # the resumed epoch's batches = a fresh loader's at set_epoch(2)
+    loader = fresh[True]
+    loader.set_epoch(2)
+    want = list(loader)
+    got = made.get(2, [])
+    if len(got) != len(want) or not all(
+            a.bucket == b.bucket and a.utt_ids == b.utt_ids and all(
+                np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+                    "idx", "lengths", "aug", "targets", "trans", "valid"))
+            for a, b in zip(got, want)):
+        raise AssertionError("the resumed epoch's batches are not those of "
+                             "a fresh loader at set_epoch(2)")
+
+    # one CachedBatch, gathered and masked on the card, bit for bit
+    trainer = cli.build_trainer(cfg, vocab, "cuda")
+    trainer.restore(cfg.checkpoint_dir, cfg.exp_name, "latest")
+    batch = want[0]
+    inputs = trainer.cached_arrays(cache, batch)[0].cpu()
+    ds = loader.ds
+    index = {it[0]: i for i, it in enumerate(ds.items)}
+    for k in np.flatnonzero(batch.valid):
+        i = index[batch.utt_ids[k]]
+        feat, _, trans, _ = ds.load_item(
+            i, np.random.default_rng((loader.seed + 2, i)))
+        host = torch.zeros((batch.bucket, feat.shape[1]), dtype=inputs.dtype)
+        host[:feat.shape[0]] = torch.from_numpy(feat)
+        if not (torch.equal(inputs[k].view(torch.int16),
+                            host.view(torch.int16))
+                and list(batch.trans[k][:batch.trans_sizes[k]]) == trans):
+            raise AssertionError(f"cached item {batch.utt_ids[k]} differs "
+                                 "from SpeechDataset.load_item")
+    log(f"[train-cached] the resumed epoch's {len(got)} batches equal a "
+        f"fresh loader's at set_epoch(2); {int(batch.valid.sum())} items of "
+        f"a {inputs.dtype} CachedBatch (bucket {batch.bucket}) equal "
+        "SpeechDataset.load_item bit for bit")
+
+    # step medians, cached and streaming in turns, a turn an epoch
+    stream_cfg = dataclasses.replace(cfg, device_cache=False)
+    loaders = {"cached": loader, "streaming": cli._build_loader(
+        stream_cfg, vocab, *corpus["train"], train=True)}
+    acc = torch.zeros(4, device="cuda")
+    medians = {"cached": [], "streaming": []}
+    sent = {}
+    for name in ("cached", "streaming", "streaming", "cached"):
+        secs, sizes, it = [], [], iter(loaders[name])
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            if name == "cached":
+                arrays = trainer.cached_arrays(cache, batch)
+            else:
+                batch, valid = pad_batch_to(batch, BATCH)
+                arrays = trainer.batch_arrays(batch, valid)
+            acc = trainer.train_step(arrays, acc)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            sizes.append(wire_bytes(batch))
+        medians[name].append(statistics.median(secs) * 1e3)
+        sent[name] = sizes
+    log(f"[train-cached] step time at B={BATCH} on the hard corpus (the "
+        f"next batch, its copy and the step, to a synchronize), median of an "
+        f"epoch, in turns: cached {medians['cached'][0]:.2f} / "
+        f"{medians['cached'][1]:.2f} ms, streaming "
+        f"{medians['streaming'][0]:.2f} / {medians['streaming'][1]:.2f} ms; "
+        f"host -> device bytes a step: cached {sent['cached'][0]:,} (mean "
+        f"{statistics.mean(sent['cached']):,.0f}), streaming "
+        f"{sent['streaming'][0]:,} (mean "
+        f"{statistics.mean(sent['streaming']):,.0f}) ({card})")
+    return {"lstm_fwd": fwd, "lstm_bwd": bwd, "conf": confs[1],
+            "corpus": corpus}
+
+
+def padded_widths(loader) -> dict:
+    """utt -> (feature width, canonical-transcript width) of its batch."""
+    out = {}
+    for b in loader:
+        width = b.bucket if hasattr(b, "bucket") else b.inputs.shape[1]
+        for utt in b.utt_ids:
+            out.setdefault(utt, (width, b.trans.shape[1]))
+    return out
+
+
+def phase_evaluate_cached(torch, cached: dict, card: str) -> int:
+    """`evaluate --cached` against the streaming `evaluate` on the hard
+    test split with train-cached's `best` (beam 10 + the corpus LM at
+    alpha 0.5): at batch size 1, where both pad each utterance alike,
+    report and dump lines equal; at B=64 the utterances padded alike
+    decode alike.  -> lstm_fwd launches of the cached runs."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
+    from mdd_tpu_torch.utils.config import load_config
+
+    corpus = cached["corpus"]
+    lm = str(WORK / "hard_lm.arpa")
+    run_cli(["train-lm", "--phn-text", corpus["train"][1], "--out", lm])
+    launches, results = 0, {}
+    for b in (1, BATCH):
+        conf = write_eval_yaml(cached["conf"], f"eval_cached_b{b}",
+                               corpus["test"], lm, exp_name="smoke_cached",
+                               batch_size=b)
+        for flags in ([], ["--cached"]):
+            dump = WORK / f"dump_cached_b{b}_{len(flags)}"
+            lstm_fwd_kernel.launches = 0
+            t0 = time.perf_counter()
+            text = run_cli(["evaluate", "--conf", conf, "--device", "cuda",
+                            "--dump-dir", str(dump)] + flags)
+            wall = time.perf_counter() - t0
+            if flags:
+                launches += lstm_fwd_kernel.launches
+            report = parse_report(text)
+            lines = {f.name: dict(l.split(" ", 1) for l in
+                                  f.read_text().splitlines())
+                     for f in sorted(dump.iterdir())}
+            results[b, bool(flags)] = report, lines
+            log(f"[evaluate-cached] B={b} {'cached' if flags else 'streaming'}"
+                f": PER {report['per']:.4f}, TA {report['TA']} FR "
+                f"{report['FR']} FA {report['FA']} TR {report['TR']}, F1 "
+                f"{report['f1']:.2f}; {report['utts']} utterances in "
+                f"{wall:.2f} s, set-up included ({card})")
+    (r_s, l_s), (r_c, l_c) = results[1, False], results[1, True]
+    if r_s != r_c or l_s != l_c:
+        raise AssertionError(f"evaluate --cached at B=1 {r_c} differs from "
+                             f"the streaming evaluate {r_s}")
+    cfg = load_config(conf)                  # B=64's
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    widths = {}
+    for cache_on in (False, True):
+        cfg.device_cache = cache_on
+        loader = cli._build_loader(cfg, vocab, *corpus["test"], train=False,
+                                   device="cuda")
+        widths[cache_on] = padded_widths(loader)
+    forwards = DEV_UTTS + len(loader)
+    alike = [u for u in widths[False] if widths[False][u] == widths[True][u]]
+    (r_s, l_s), (r_c, l_c) = results[BATCH, False], results[BATCH, True]
+    differ = [u for u in alike if l_s["decode_seq.log"][u]
+              != l_c["decode_seq.log"][u]]
+    moved = sum(l_s["decode_seq.log"][u] != l_c["decode_seq.log"][u]
+                for u in l_s["decode_seq.log"])
+    log(f"[evaluate-cached] B=1: cached report and dumps equal the streaming "
+        f"ones; B={BATCH}: {len(alike)} of {len(widths[False])} utterances "
+        f"padded alike, {len(differ)} of them decoded otherwise; "
+        f"{moved} decodes moved in all, PER {r_s['per']:.4f} streaming vs "
+        f"{r_c['per']:.4f} cached; lstm_fwd launches {launches} over the "
+        f"cached runs' {forwards} forwards")
+    if differ or (r_s["tokens"], r_s["total"]) != (r_c["tokens"],
+                                                    r_c["total"]):
+        raise AssertionError(f"utterances padded alike decode otherwise: "
+                             f"{differ}")
+    if launches != 4 * forwards:
+        raise AssertionError(f"{launches} lstm_fwd launches in the cached "
+                             f"evaluations' {forwards} forwards: a layer "
+                             "bypassed the kernel")
+    return launches
+
+
 def phase_timing_dropout(torch, card: str) -> dict:
     """fused_dropout at the 3 sites of a train step, float32 and bfloat16
     (ops/dropout_time.py): a call (CUDA events over back-to-back calls,
@@ -1500,7 +1797,9 @@ def main() -> int:
     dropout_err = phase_kernel_dropout(torch)
     fused = phase_train_fused(torch, conf, card)
     bf16 = phase_train_bf16(torch, train, dev, card)
+    cached = phase_train_cached(torch, card)
     eval_fwd, _ = phase_evaluate(torch, conf, train, dev, card)
+    eval_cached_fwd = phase_evaluate_cached(torch, cached, card)
     phase_profile_evaluate(torch, conf, train, card)
     dropout_timing = phase_timing_dropout(torch, card)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1513,11 +1812,14 @@ def main() -> int:
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
         "launches": (launches + train_fwd + fused["lstm_fwd"]
-                     + bf16["lstm_fwd"] + eval_fwd),
+                     + bf16["lstm_fwd"] + cached["lstm_fwd"] + eval_fwd
+                     + eval_cached_fwd),
         "launches_by_path": {"serve": launches, "train": train_fwd,
                              "train-fused": fused["lstm_fwd"],
                              "train-bf16": bf16["lstm_fwd"],
-                             "evaluate": eval_fwd},
+                             "train-cached": cached["lstm_fwd"],
+                             "evaluate": eval_fwd,
+                             "evaluate-cached": eval_cached_fwd},
         "max_abs_err": max(worst["float32"],
                            *(timing[b]["timing_err"] for b in timing)),
         "shape": f"T'=80 B=16 H={H} float32",
@@ -1528,10 +1830,12 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
-        "launches": train_bwd + fused["lstm_bwd"] + bf16["lstm_bwd"],
+        "launches": (train_bwd + fused["lstm_bwd"] + bf16["lstm_bwd"]
+                     + cached["lstm_bwd"]),
         "launches_by_path": {"train": train_bwd,
                              "train-fused": fused["lstm_bwd"],
-                             "train-bf16": bf16["lstm_bwd"]},
+                             "train-bf16": bf16["lstm_bwd"],
+                             "train-cached": cached["lstm_bwd"]},
         "max_abs_err": worst_bwd["float32_abs"],
         "shape": f"T'=80 B={BATCH} H={H} float32",
         **timing_bwd[BATCH],

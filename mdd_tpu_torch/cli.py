@@ -3,19 +3,21 @@
   python -m mdd_tpu_torch train --conf YAML [--resume] [--device cuda|cpu]
   python -m mdd_tpu_torch evaluate --conf YAML [--checkpoint DIR]
                                 [--dump-dir DIR] [--decode-type Greedy|Beam]
-                                [--lm-alpha A] [--device cuda|cpu]
+                                [--lm-alpha A] [--cached] [--device cuda|cpu]
   python -m mdd_tpu_torch mdd-result --ref F --human F --hyp F
                                 [--detail-dir DIR]
   python -m mdd_tpu_torch train-lm --phn-text F --out ARPA
   python -m mdd_tpu_torch serve --conf YAML --cmvn F [--checkpoint DIR]
                                 [--device cuda|cpu] [--decode-type Greedy|Beam]
 
-`train` runs the recipe of the YAML on the streaming loader and writes
-`best` and the resumable `latest` under `<checkpoint_dir>/<exp_name>/`.
-`evaluate` decodes the YAML's test split with `best` (greedy, or the
-batched beam with the bigram LM of `lm_path` weighted by `lm_alpha`),
-prints PER and the TA/FR/FA/TR report and, with `--dump-dir`, writes the
-decode_seq / human_seq / transcribe files that `mdd-result` scores.
+`train` runs the recipe of the YAML, on the device-resident corpus where
+it says `device_cache: true` (train and dev split) and on the streaming
+loader otherwise, and writes `best` and the resumable `latest` under
+`<checkpoint_dir>/<exp_name>/`.  `evaluate` decodes the YAML's test split
+with `best` (greedy, or the batched beam with the bigram LM of `lm_path`
+weighted by `lm_alpha`), prints PER and the TA/FR/FA/TR report and, with
+`--dump-dir`, writes the decode_seq / human_seq / transcribe files that
+`mdd-result` scores; `--cached` puts the test split on the device first.
 `train-lm` trains that bigram LM from a phone transcript file.
 `serve` answers line-delimited JSON requests on stdin (see serve.py).
 The checkpoint is the port's format (train/checkpoint.py): by default
@@ -30,8 +32,11 @@ import sys
 from typing import List, Optional
 
 
-def _build_loader(cfg, vocab, scp, lab, trans, train: bool):
-    """The streaming loader of mdd_tpu's `_build_loader` (one process)."""
+def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
+                  device: str = "cuda"):
+    """mdd_tpu's `_build_loader` in one process: the device-resident corpus
+    on `device` where the config says `device_cache`, else the streaming
+    loader."""
     from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
     from mdd_tpu_torch.data.prefetch import ThreadedLoader
 
@@ -42,6 +47,17 @@ def _build_loader(cfg, vocab, scp, lab, trans, train: bool):
         train=train, augment_mode=cfg.augment_mode,
         mutation_prob=cfg.mutation_prob,
         device_frontend=cfg.device_frontend)
+    if cfg.device_frontend and cfg.device_cache:
+        from mdd_tpu_torch.data.device_cache import (CachedLoader,
+                                                     DeviceFeatureCache)
+
+        # the streaming branch's wire dtype (unset: float32), so both
+        # paths give one config the same features
+        cache = DeviceFeatureCache(ds, device, time_quantum=cfg.time_quantum,
+                                   wire_dtype=cfg.wire_dtype or "float32")
+        return CachedLoader(cache, cfg.batch_size,
+                            shuffle=train and cfg.shuffle_train,
+                            seed=cfg.seed, label_quantum=cfg.label_quantum)
     loader = BucketedLoader(
         ds, cfg.batch_size, shuffle=train and cfg.shuffle_train,
         seed=cfg.seed, num_workers=cfg.num_workers,
@@ -83,10 +99,10 @@ def cmd_train(args) -> int:
     trainer = build_trainer(cfg, vocab, args.device)
     train_loader = _build_loader(cfg, vocab, cfg.train_scp_path,
                                  cfg.train_lab_path, cfg.train_trans_path,
-                                 train=True)
+                                 train=True, device=args.device)
     dev_loader = _build_loader(cfg, vocab, cfg.valid_scp_path,
                                cfg.valid_lab_path, cfg.valid_trans_path,
-                               train=False)
+                               train=False, device=args.device)
     summary = trainer.fit(train_loader, dev_loader,
                           num_epochs=cfg.num_epoches,
                           print_every=cfg.verbose_step,
@@ -122,14 +138,19 @@ def cmd_evaluate(args) -> int:
     from mdd_tpu_torch.evals.evaluate import EvalSession, evaluate_model
     from mdd_tpu_torch.utils.config import load_config
 
-    for flag in ("cached", "distributed"):
-        if getattr(args, flag):
-            raise SystemExit(
-                f"evaluate --{flag} is not ported yet: the device-resident "
-                "corpus and multi-process evaluation come with the port's "
-                "scale-out slice (ROADMAP.md); run without it on the "
-                "streaming loader")
+    if args.distributed:
+        raise SystemExit(
+            "evaluate --distributed is not ported yet: multi-process "
+            "evaluation comes with the port's scale-out slice (ROADMAP.md); "
+            "run without it")
     cfg = load_config(args.conf)
+    # `--cached` is opt-in, not inferred from the YAML's device_cache: a
+    # one-shot evaluation pays the upload before the first batch, where
+    # the streaming loader overlaps reading and decoding
+    if args.cached and not cfg.device_frontend:
+        raise SystemExit("evaluate --cached requires device_frontend: true "
+                         "in the config")
+    cfg.device_cache = args.cached
     if args.decode_type:
         cfg.decode_type = args.decode_type
     if args.lm_alpha is not None:
@@ -146,7 +167,10 @@ def cmd_evaluate(args) -> int:
         left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
         n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
     loader = _build_loader(cfg, vocab, cfg.test_scp_path, cfg.test_lab_path,
-                           cfg.test_trans_path, train=False)
+                           cfg.test_trans_path, train=False,
+                           device=args.device)
+    if args.cached:
+        session.attach_cache(loader.cache)
     evaluate_model(session, loader, dump_dir=args.dump_dir)
     return 0
 
@@ -229,7 +253,9 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     q.add_argument("--cached", action="store_true",
-                   help="not ported yet (scale-out slice): refused")
+                   help="put the test split's features on the device "
+                        "first and form each batch there (needs "
+                        "device_frontend)")
     q.add_argument("--distributed", action="store_true",
                    help="not ported yet (scale-out slice): refused")
     q.set_defaults(fn=cmd_evaluate)

@@ -10,10 +10,12 @@ decode_seq/human_seq/transcribe dump files the Kaldi scoring path
 (result/mdd_result.sh) consumes.
 
 The pure accounting lives in ``score_mdd`` so it can be tested directly.
+With ``EvalSession.attach_cache`` the session decodes the CachedBatches of
+a device-resident test split (data/device_cache.py), each gathered where
+the corpus lies.
 
 Not ported from mdd_tpu's module, each waiting for the port's scale-out
 slice: the device mesh and the padding of a batch up to it, the
-device-resident corpus (`attach_cache` and the cached forward), the
 cross-process sum `all_reduce_report`, the per-rank dump directories and
 the loader's `score_mask`.
 """
@@ -39,6 +41,7 @@ from mdd_tpu_torch.align.mdd import (
     mdd_accumulate_subset,
 )
 from mdd_tpu_torch.data.dataset import Batch, pad_batch_to
+from mdd_tpu_torch.data.device_cache import CachedBatch
 from mdd_tpu_torch.data.prefetch import ThreadedLoader
 from mdd_tpu_torch.data.vocab import Vocab
 from mdd_tpu_torch.decode.greedy import best_path, collapse_ctc
@@ -214,6 +217,7 @@ class EvalSession:
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         self.forwards = 0
+        self.cache = None
         # decode_type semantics follow the reference: anything that is not
         # 'greedy'/'Greedy' selects the beam decoder, including the
         # committed config value "Nono" (test_ctc_nosil.py:135-138).
@@ -234,13 +238,30 @@ class EvalSession:
                     vocab.index2word, beam_width=beam_width, lm=lm,
                     lm_alpha=lm_alpha, device=self.device)
 
-    def stage_batch(self, batch: Batch):
-        """Move the batch's model inputs to the device.
+    def attach_cache(self, cache) -> None:
+        """Decode CachedBatches of `cache` (a DeviceFeatureCache on this
+        session's device): a pass then moves index vectors and labels to
+        the device, not features, and decodes what the streaming path
+        decodes for the same utterances."""
+        if not self.device_frontend:
+            raise ValueError("cached evaluation decodes raw features; build "
+                             "the EvalSession with device_frontend=True")
+        self.cache = cache
+
+    def stage_batch(self, batch):
+        """Move the batch's model inputs to the device; a CachedBatch's
+        features are gathered from the attached cache there.
 
         Split out of decode_batch so a staging thread can prepare batch
         N+1 while batch N decodes.  Returns (batch, device tensors) for
         decode_staged."""
         put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
+        if isinstance(batch, CachedBatch):
+            if self.cache is None:
+                raise ValueError("a CachedBatch needs attach_cache(cache)")
+            return batch, (*self.cache.gather(batch),
+                           put(batch.trans).long(),
+                           put(batch.trans_sizes).long())
         inputs = put(batch.inputs)
         if not self.device_frontend:
             inputs = inputs.float()
@@ -266,8 +287,9 @@ class EvalSession:
             frames = (fracs * out_len).to(torch.int32)
         return log_probs, frames.cpu().numpy().astype(np.int32)
 
-    def decode_batch(self, batch: Batch) -> Tuple[List[List[str]], np.ndarray]:
-        """-> (decoded phone lists, output frame counts)."""
+    def decode_batch(self, batch) -> Tuple[List[List[str]], np.ndarray]:
+        """-> (decoded phone lists, output frame counts).  Takes a Batch,
+        or a CachedBatch after attach_cache."""
         return self.decode_staged(self.stage_batch(batch))
 
     def decode_staged(self, staged) -> Tuple[List[List[str]], np.ndarray]:
@@ -378,6 +400,10 @@ def evaluate_model(
     batch_size = getattr(loader, "batch_size", None)
 
     def padded(batch):
+        if isinstance(batch, CachedBatch):
+            # the CachedLoader pads to one shape a bucket and marks its
+            # padding rows itself
+            return batch, batch.valid
         valid = np.ones(batch.size, bool)
         if batch_size and batch.size < batch_size:
             # pad the ragged tail up the pow-2 ladder (not to the full

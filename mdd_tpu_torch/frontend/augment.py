@@ -1,12 +1,15 @@
-"""Training-time augmentation on the host: SpecAugment and canonical-
-transcript mutation (counterpart of the numpy half of
-mdd_tpu/frontend/augment.py).
+"""Training-time augmentation: SpecAugment and canonical-transcript
+mutation (counterpart of mdd_tpu/frontend/augment.py, less its jax.random
+SpecAugment, which no path of the port uses).
 
 Mirrors the reference pipeline (utils/tools.py:229-255 spec_augment with
 freq-para 2 / time-para 5, and :290-359 data_enhancement with four mutation
 modes applied per-phone to the canonical transcript while training).  Host
 NumPy with an explicit Generator: the same Generator gives the same draws
 in the same order as mdd_tpu, so augmented batches are equal bit for bit.
+The device-resident corpus draws the mask geometry on the host
+(``sample_spec_augment_params``) and applies it to the gathered batch on
+the device (``apply_spec_augment_masks``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from mdd_tpu_torch.data.vocab import Vocab
 
@@ -118,6 +122,26 @@ def spec_augment(
         t0 = params[2 * (freq_mask_num + j) + 1]
         out[t0:t0 + w, :] = 0
     return out
+
+
+def apply_spec_augment_masks(feats: torch.Tensor,
+                             params: torch.Tensor) -> torch.Tensor:
+    """Apply host-drawn SpecAugment geometry to a batch where it lies (the
+    device-resident corpus's path).
+
+    feats: (B, T, D); params: (B, 4) integer rows [f, f0, w, t0] from
+    ``sample_spec_augment_params`` (one frequency and one time mask, the
+    reference pipeline's default).  Zeroes feats[:, :, f0:f0+f] and
+    feats[:, t0:t0+w, :] of each item, the entries ``spec_augment`` zeroes
+    on the host, with the same +0.0; an all-zero row is a no-op.
+    """
+    _, t, d = feats.shape
+    f, f0, w, t0 = (params[:, k, None] for k in range(4))
+    col = torch.arange(d, device=feats.device)[None]
+    row = torch.arange(t, device=feats.device)[None]
+    fmask = (col >= f0) & (col < f0 + f)
+    tmask = (row >= t0) & (row < t0 + w)
+    return feats.masked_fill(fmask[:, None, :] | tmask[:, :, None], 0)
 
 
 def mutate_transcript(

@@ -2,16 +2,17 @@
 
 Binary float/double matrices ("BFM "/"BDM ", as `copy-feats
 --compress=false` writes them) and vectors, scp indirection
-(`utt path:offset`), and the writer the training corpus tools use.  Pure
-Python + NumPy; the native mmap reader and the header-only length scan
-(`matrix_rows`, for mdd_tpu's multi-process global schedule) wait for the
-port's scale-out slice.
+(`utt path:offset`), the bulk reader of the device-resident corpus, and
+the writer the training corpus tools use.  Pure Python + NumPy; the native
+mmap reader waits for the port's front-end slice, and the header-only
+length scan (`matrix_rows`, for mdd_tpu's multi-process global schedule)
+for its scale-out slice.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -98,6 +99,48 @@ def read_ark(path: str) -> Iterator[Tuple[str, np.ndarray]]:
             if f.read(2) != b"\x00B":
                 raise ValueError("only binary arks are supported")
             yield utt, _read_binary_matrix(f)
+
+
+def _iter_ark_with_offsets(path: str) -> Iterator[Tuple[str, int, np.ndarray]]:
+    """Like read_ark, also yielding each entry's '\\0B' marker offset (the
+    offset scp entries point at)."""
+    with open(path, "rb") as f:
+        while True:
+            utt = _read_token(f)
+            if not utt:
+                return
+            offset = f.tell()
+            if f.read(2) != b"\x00B":
+                raise ValueError("only binary arks are supported")
+            yield utt, offset, _read_binary_matrix(f)
+
+
+def bulk_load(rxspecifiers: Iterable[str]) -> List[np.ndarray]:
+    """Load many scp entries, reading each ark file once, in one sequential
+    pass, instead of one open and seek an entry; -> matrices in the input
+    order.  An offset the pass did not meet (a stale scp) falls back to
+    load_mat, which raises if the entry is truly unreadable; a bare ark
+    path stands for its first matrix, as in load_mat."""
+    order = [_split_rx(rx) for rx in rxspecifiers]
+    groups: Dict[str, List[Tuple[int, Optional[int]]]] = {}
+    for k, (path, off) in enumerate(order):
+        groups.setdefault(path, []).append((k, off))
+    out: List[Optional[np.ndarray]] = [None] * len(order)
+    for path, entries in groups.items():
+        by_off: Dict[int, np.ndarray] = {}
+        first = None
+        for _, off, mat in _iter_ark_with_offsets(path):
+            if first is None:
+                first = mat
+            by_off[off] = mat
+        for k, off in entries:
+            if off is None:
+                out[k] = first
+            else:
+                mat = by_off.get(off)
+                out[k] = mat if mat is not None else load_mat(
+                    f"{path}:{off}")
+    return out
 
 
 class ArkScpWriter:

@@ -8,11 +8,13 @@ checkpoints.  A step is forward (the acoustic recurrence on the
 hand-written LSTM kernels when the config asks for them), CTC loss,
 backward, Adam update and the WER counts, all on the device; the metrics
 accumulate in a device tensor that the host reads at print boundaries
-only.
+only.  A batch of the device-resident corpus (data/device_cache.py) is
+gathered from the corpus tensor and masked on the device before the same
+step.
 
 Not ported from mdd_tpu's Trainer: the device mesh (the port's scale-out
-slice), the cached-corpus steps (`device_cache`, same slice), asynchronous
-saves and `add_weight_noise` (no shipped recipe uses them).
+slice), asynchronous saves and `add_weight_noise` (no shipped recipe uses
+them).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import numpy as np
 import torch
 
 from mdd_tpu_torch.data.dataset import Batch, pad_batch_to
+from mdd_tpu_torch.data.device_cache import CachedBatch
+from mdd_tpu_torch.frontend.augment import apply_spec_augment_masks
 from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
 from mdd_tpu_torch.ops.ctc_loss import ctc_loss
@@ -161,6 +165,20 @@ class Trainer:
                 put(batch.trans).long(), put(batch.trans_sizes).long(),
                 put(np.asarray(valid, bool)))
 
+    def cached_arrays(self, cache, batch: CachedBatch):
+        """The arrays of `batch_arrays` for a batch of the device-resident
+        corpus `cache`: its rows gathered there, then SpecAugment's masks,
+        then fracs = lengths / T_bucket (mdd_tpu's `_make_cached_step`)."""
+        if not self.device_frontend:
+            raise ValueError("the device cache holds raw features; build "
+                             "the Trainer with device_frontend=True")
+        put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
+        inputs, fracs = cache.gather(batch)
+        return (apply_spec_augment_masks(inputs, put(batch.aug)), fracs,
+                put(batch.targets).long(), put(batch.target_sizes).long(),
+                put(batch.trans).long(), put(batch.trans_sizes).long(),
+                put(batch.valid))
+
     @staticmethod
     def _fetch(acc: torch.Tensor):
         loss_sum, errs, tokens, n_b = (float(v) for v in acc.cpu())
@@ -178,14 +196,19 @@ class Trainer:
 
         Ragged tails are padded to the loader's batch size, so every step
         runs at one batch size; the metrics are read from the device once
-        per print_every steps and once at the end."""
+        per print_every steps and once at the end.  CachedBatches (of a
+        CachedLoader, which pads them itself) are gathered from the
+        loader's device-resident corpus."""
         full_b = getattr(loader, "batch_size", None)
+        cache = getattr(loader, "cache", None)
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         for i, batch in enumerate(loader):
-            target_b = (full_b if full_b and batch.size <= full_b
-                        else batch.size)
-            padded, valid = pad_batch_to(batch, target_b)
-            arrays = self.batch_arrays(padded, valid)
+            if isinstance(batch, CachedBatch):
+                arrays = self.cached_arrays(cache, batch)
+            else:
+                target_b = (full_b if full_b and batch.size <= full_b
+                            else batch.size)
+                arrays = self.batch_arrays(*pad_batch_to(batch, target_b))
             if train:
                 acc = self.train_step(arrays, acc)
             else:

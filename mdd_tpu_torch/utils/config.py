@@ -96,7 +96,7 @@ class Config:
     label_quantum: int = 16     # pad label axes to a multiple of this
     device_frontend: bool = False
     wire_dtype: str = ""        # "" = float32; "bfloat16"
-    device_cache: bool = False      # refused by `train` until scale-out
+    device_cache: bool = False      # corpus on the device (data/device_cache)
     global_schedule: bool = False   # refused by `train` until scale-out
 
     # decoding
@@ -158,18 +158,11 @@ def load_config(path: str) -> Config:
 
 def check_train_config(cfg: Config) -> None:
     """Refuse what the port cannot train yet, instead of training
-    something else: the HBM-resident corpus (`device_cache`) and the global
-    batch schedule form other batches than the streaming loader, and come
-    with the scale-out slice (ROADMAP.md)."""
+    something else: the global batch schedule forms other batches than the
+    one-process loaders, and comes with the scale-out slice (ROADMAP.md)."""
     if cfg.global_schedule:
         raise ValueError(
             "global_schedule: true is not ported yet: mdd_tpu's multi-process "
             "batch schedule comes with the port's scale-out slice "
             "(ROADMAP.md); set global_schedule: false to train on the "
             "streaming loader")
-    if cfg.device_cache:
-        raise ValueError(
-            "device_cache: true is not ported yet: the device-resident "
-            "corpus (mdd_tpu/data/device_cache.py) comes with the port's "
-            "scale-out slice (ROADMAP.md); set device_cache: false to train "
-            "on the streaming loader")

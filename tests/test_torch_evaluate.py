@@ -10,6 +10,7 @@ import dataclasses
 import json
 import re
 import threading
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -234,8 +235,19 @@ def test_evaluate_and_mdd_result_subcommands(world, conf, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--cached", "--distributed"])
-def test_scale_out_flags_are_refused(conf, flag):
-    with pytest.raises(SystemExit, match="scale-out"):
+def test_scale_out_flags_are_refused(conf, flag, tmp_path):
+    """--distributed waits for the scale-out slice; --cached is ported
+    (tests/test_torch_device_cache.py) and refused without the device
+    front end, whose raw features the cache holds."""
+    if flag == "--cached":
+        host = tmp_path / "host.yaml"
+        host.write_text(Path(conf).read_text().replace(
+            "device_frontend: true", "device_frontend: false").replace(
+            'wire_dtype: "bfloat16"', 'wire_dtype: ""'))
+        conf, match = str(host), "requires device_frontend"
+    else:
+        match = "scale-out"
+    with pytest.raises(SystemExit, match=match):
         cli.main(["evaluate", "--conf", conf, "--device", "cpu", flag])
 
 

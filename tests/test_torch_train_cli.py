@@ -1,7 +1,7 @@
 """`python -m mdd_tpu_torch train` on the CPU at a tiny width: one epoch
 writes `best` and the resumable `latest` (with the optimizer state),
 `--resume` continues at epoch 2, `best` loads into the port's serving
-engine, and a config the port cannot train yet is refused."""
+engine, and a config the port cannot train is refused."""
 
 import json
 import subprocess
@@ -108,8 +108,12 @@ def test_best_loads_into_the_serving_engine(run):
 
 
 def test_device_cache_is_refused(tmp_path):
-    conf = _yaml(tmp_path, 1, device_cache=True)
-    with pytest.raises(ValueError, match="scale-out"):
+    """Without the device front end: the cache holds raw features (the
+    port trains on `device_cache` since it ported the cache,
+    tests/test_torch_device_cache.py)."""
+    conf = _yaml(tmp_path, 1, device_cache=True, device_frontend=False,
+                 wire_dtype="")
+    with pytest.raises(ValueError, match="requires device_frontend"):
         cli.main(["train", "--conf", conf, "--device", "cpu"])
     assert not (tmp_path / "ckpt").exists()
 
