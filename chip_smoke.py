@@ -23,18 +23,34 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             forward with the kernel, one with the plain LSTM, log-probs
             compared.
 5. serve    the serving path a user runs: seeded 16 kHz wavs, their CMVN
-            stats, a 41-unit inventory, a YAML config and a port checkpoint
-            on disk, then `python -m mdd_tpu_torch serve` in-process on JSON
-            request lines, and the engine it builds on groups that batch 1,
-            4 and 16 requests.  Every response must be ok; the kernel's
-            launch counter, zeroed just before, must cover all 4 acoustic
-            layers of every forward.
-6. profile  torch.profiler over batch-1 requests: device busy share and
+            stats, a 41-unit inventory, the dictionary files of phase 6, a
+            YAML config and a port checkpoint on disk, then `python -m
+            mdd_tpu_torch serve` in-process on JSON request lines that carry
+            their canonical phones, and the engine it builds on groups that
+            batch 1, 4 and 16 requests.  Every response must be ok; the
+            kernel's launch counter, zeroed just before, must cover all 4
+            acoustic layers of every forward.
+6. lexicon  the lexicon and the product entry points on phase 5's files:
+            CMUdict, IPA, phonics and ECDICT files of 8 prompt words typed
+            in (a ninth word is in no dictionary), then `python -m
+            mdd_tpu_torch infer` in-process over N.wav + N.txt pairs three
+            ways (--decode-dump; --phonetic-format ipa --forgiving 1;
+            --textgrid-path): one report per pair whose canonical row is
+            the port's lexicon's phones (or the TextGrid's), the RTF lines,
+            one dump line per pair; `serve --warmup --max-batch 4` on
+            word-only requests (one with a canonical override): every
+            response ok with its IPA, translation and phonics, no group past
+            4; lstm_fwd launches, zeroed before each, covering 4 layers of
+            every forward.  Then, not gating: p50 batch-1 latency of
+            word-only against canonical-carrying requests in turns, the
+            lexicon's host time a word, and the first lookup's load of a
+            seeded dictionary pair of CMUdict 0.7b's size (135,000 entries).
+7. profile  torch.profiler over batch-1 requests: device busy share and
             the kernels that take the device time.
-7. model-grad  the full-width model, one Trainer step at B=8 (dropout 0)
+8. model-grad  the full-width model, one Trainer step at B=8 (dropout 0)
             with the kernels and one with the plain LSTM: loss, every
             parameter's gradient and the updated BN statistics compared.
-8. train    the training path a user runs: a seeded corpus (512 train, 64
+9. train    the training path a user runs: a seeded corpus (512 train, 64
             dev utterances of 16-40 phones of the 41-unit inventory, 81-dim
             band-template features) written with the port's ArkScpWriter, a
             YAML of the flagship recipe, then `python -m mdd_tpu_torch train`
@@ -42,9 +58,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             finite and falling, `best` and `latest` on disk, the launch
             counters (zeroed just before) covering every layer of every
             step; then the step time at B=64.
-9. profile-train  torch.profiler over 3 train steps: device busy share and
+10. profile-train  torch.profiler over 3 train steps: device busy share and
             the ops that take the device time.
-10. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
+11. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
             (and its plan), its plain version, its bound, the port's layer
             and one torch.nn.LSTM call (a whole layer, the yardstick); the
             backward at B=16, 64, 256 and 512, T'=80, its plain version,
@@ -52,7 +68,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             recurrence, the dW_hh product: ms and effective TFLOP/s), and
             the backward of one torch.nn.LSTM (forward+backward minus
             forward) as the yardstick only.
-11. kernel-dropout  fused_dropout against its plain version, bit for bit,
+12. kernel-dropout  fused_dropout against its plain version, bit for bit,
             float32 and bfloat16, rates 0.1 / 0.2 / 0.5, at the 3 site
             shapes of a B=64, T=220 (T'=110) step (conv0 64x32x220x122,
             conv1 64x32x110x61, BiLSTM 110x64x768) and at sizes that are
@@ -61,7 +77,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             16-byte alignment; kept share within 4 sigma of keep; the
             autograd gradient = mask / keep * dy with the forward's mask;
             two seeds, two masks.
-12. train-fused  the flagship model with use_fused_dropout=True through
+13. train-fused  the flagship model with use_fused_dropout=True through
             cli._build_loader, cli.build_trainer and Trainer.fit for 3
             epochs of the corpus (seconds; after one epoch the posteriors
             are too flat to score a beam with an LM against greedy): loss
@@ -69,15 +85,15 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             forward and backward), `best` on disk with use_fused_dropout
             in its meta; then the step time and the device time of a step
             with fused and with plain dropout, in turns.
-13. train-bf16  the flagship recipe with compute_dtype bfloat16 (the
+14. train-bf16  the flagship recipe with compute_dtype bfloat16 (the
             shipped recipes' dtype) and use_fused_dropout=True, through the
-            entry points of phase 12 for one epoch: losses finite and
+            entry points of phase 13 for one epoch: losses finite and
             falling, every layer of every step on the kernels, the step
             median; then one Trainer step of the full-width model at
             bench.py's cell, B=512 x 160 input frames (T'=80, 48 canonical
             phones) in bfloat16: loss finite, one lstm_bwd count a layer
             (its recurrence in several launches), the step time.
-14. train-cached  the training path on the device-resident corpus: a
+15. train-cached  the training path on the device-resident corpus: a
             hard-profile corpus (512 / 64 / 64 utterances of 16-40 phones,
             the recovered 41-unit inventory) from `python -m
             mdd_tpu_torch.tools.synthetic_corpus`, then `train` in-process
@@ -90,9 +106,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             SpeechDataset.load_item's items padded to its bucket; then the
             cached and the streaming step median (next batch, copy and
             step), in turns, and the host -> device bytes a step of each.
-15. evaluate  `train-lm` on the training labels, then `evaluate` (beam
+16. evaluate  `train-lm` on the training labels, then `evaluate` (beam
             width 10 + that LM at alpha 0.5, device front end, the dev
-            split as test split) on the `best` of phase 12 with
+            split as test split) on the `best` of phase 13 with
             --dump-dir, `evaluate --lm-alpha 0`, `evaluate --decode-type
             Greedy`, and `mdd-result` on the beam + LM dumps, all
             in-process: the reports parse, the canonical total equals the
@@ -101,14 +117,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             batch of that model's log-probs the
             device beam against the host beam (decode/beam.py), at least
             95% of the sequences identical.
-16. evaluate-cached  `evaluate --cached` and `evaluate` on the hard
+17. evaluate-cached  `evaluate --cached` and `evaluate` on the hard
             test split with train-cached's `best` (beam 10 + the corpus
             LM at alpha 0.5): at batch size 1, where both loaders pad an
             utterance alike, reports and dump lines equal; at B=64, where
             the cache groups utterances by bucket, every utterance padded
             alike decodes alike (the model's outputs depend on the
             padding); lstm_fwd launched 4 times a forward.
-17. profile-evaluate  evaluate_model over the 512 training utterances, beam
+18. profile-evaluate  evaluate_model over the 512 training utterances, beam
             and greedy: utterances per second, and torch.profiler's device
             busy share over one beam pass; the beam alone at B=64, T'=110,
             K=10, C=43 (ms a batch and a frame); fused_dropout at the 3
@@ -135,6 +151,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -419,10 +436,13 @@ def write_serving_files(cfg, meta, state) -> dict:
         "n_skip_frame: 2\nn_downsample: 2\n")
     canon = [[UNITS[k] for k in rng.integers(2, len(UNITS), rng.integers(3, 9))]
              for _ in paths]
-    return {"paths": paths, "canonical": canon,
+    dict_dir, ecdict = write_lexicon()
+    return {"paths": paths, "canonical": canon, "dict_dir": dict_dir,
+            "ecdict": ecdict,
             "args": ["serve", "--conf", str(WORK / "serve.yaml"),
                      "--checkpoint", str(WORK / "ckpt"),
-                     "--cmvn", str(WORK / "cmvn.txt"), "--device", "cuda"]}
+                     "--cmvn", str(WORK / "cmvn.txt"), "--dict-dir", dict_dir,
+                     "--ecdict-csv", ecdict, "--device", "cuda"]}
 
 
 def request(files, i, rid=None) -> str:
@@ -443,7 +463,8 @@ def check_ok(resps, n) -> None:
 
 
 def phase_serve(files, card: str):
-    """The main path; returns (the kernel launches it made, the engine)."""
+    """The main path, on requests that carry their canonical phones;
+    returns (the kernel launches it made, the engine)."""
     from mdd_tpu_torch import cli
     from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
     from mdd_tpu_torch.serve import handle_requests
@@ -498,6 +519,302 @@ def phase_serve(files, card: str):
         raise AssertionError(f"{launches} kernel launches for {forwards} "
                              "forwards: a layer bypassed the kernel")
     return launches, engine
+
+
+# phase lexicon: the CMUdict lines (public domain) of the prompt words, their
+# IPA entries, letter-group phonics and ECDICT rows, typed in; "zorblat" is in
+# no dictionary (the rule fallback)
+LEX_WORDS = ["about", "gather", "vocabulary", "magazine", "through", "accept",
+             "talked", "bananas", "zorblat"]
+LEX_CMUDICT = """\
+about AH0 B AW1 T
+accept AE0 K S EH1 P T
+accept(2) AH0 K S EH1 P T
+bananas B AH0 N AE1 N AH0 Z
+gather G AE1 DH ER0
+magazine M AE1 G AH0 Z IY2 N
+magazine(2) M AE2 G AH0 Z IY1 N
+talked T AO1 K T
+through TH R UW1
+vocabulary V OW0 K AE1 B Y AH0 L EH2 R IY0
+"""
+LEX_IPA = """\
+ABOUT\təˈbaʊt
+ACCEPT\tækˈsɛpt, əkˈsɛpt
+BANANAS\tbəˈnænəz
+GATHER\tˈɡæðɚ
+MAGAZINE\tˈmæɡəˌzin, ˌmæɡəˈzin
+TALKED\tˈtɔkt
+THROUGH\tˈθru
+VOCABULARY\tvoʊˈkæbjəˌlɛri
+"""
+LEX_PHONICS = """\
+about\t1\tə.ˈbaʊt\ta-ə,b-b,ou-aʊ,t-t
+gather\t2\tˈgæ.ðər\tg-g,a-æ,th-ð,er-ər
+through\t3\tθru\tth-θ,r-r,ough-u
+talked\t4\ttɔkt\tt-t,al-ɔ,k-k,ed-t
+"""
+LEX_ECDICT = """\
+word,phonetic,definition,translation
+about,ə'baut,adv. around,adv. 大约\\nprep. 关于
+gather,'gæðə,v. collect,v. 聚集；收集
+vocabulary,və'kæbjuləri,n. words,n. 词汇；单词表
+magazine,mægə'zi:n,n. periodical,n. 杂志
+through,θru:,prep. via,prep. 通过
+"""
+CMUDICT_ENTRIES = 135_000   # CMUdict 0.7b's size, for the cold-start load
+
+
+def write_lexicon() -> tuple:
+    """The dictionary files under WORK/dict -> (dict dir, ECDICT csv)."""
+    d = WORK / "dict"
+    d.mkdir()
+    for name, text in (("cmudict.dict", LEX_CMUDICT),
+                       ("cmudict-0.7b-ipa.txt", LEX_IPA),
+                       ("phonics_engine.csv", LEX_PHONICS),
+                       ("ecdict.csv", LEX_ECDICT)):
+        (d / name).write_text(text, encoding="utf-8")
+    return str(d), str(d / "ecdict.csv")
+
+
+def write_big_lexicon(n: int) -> tuple:
+    """A seeded dictionary pair of n entries in CMUdict's two formats ->
+    (its dir, one of its words)."""
+    import numpy as np
+
+    from mdd_tpu_torch.lexicon.dictionary import (CMU_CONSONANTS, CMU_VOWELS,
+                                                  phones39_to_ipa)
+
+    rng = np.random.default_rng(SEED)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    inventory = ([v + "1" for v in CMU_VOWELS if v not in ("AH0", "ER0")]
+                 + ["AH0", "ER0"] + CMU_CONSONANTS)
+    plain, ipa = [], []
+    for i in range(n):
+        word = "".join(letters[rng.integers(0, 26, rng.integers(3, 12))])
+        word = f"{word}{i}"   # unique
+        phones = [inventory[k] for k in
+                  rng.integers(0, len(inventory), rng.integers(2, 10))]
+        plain.append(f"{word} {' '.join(phones)}\n")
+        ipa.append(f"{word.upper()}\t{''.join(phones39_to_ipa(phones))}\n")
+    d = WORK / "dict_big"
+    d.mkdir()
+    (d / "cmudict.dict").write_text("".join(plain), encoding="utf-8")
+    (d / "cmudict-0.7b-ipa.txt").write_text("".join(ipa), encoding="utf-8")
+    return str(d), plain[n // 2].split(" ")[0]
+
+
+def report_rows(text: str) -> list:
+    """diagnose_dir's printed reports -> [(utt id, canonical phones)]: each
+    report starts with "id     : N"; its canonical row less the 'I' slots
+    of insertions."""
+    out = []
+    for block in text.split("id     : ")[1:]:
+        lines = block.splitlines()
+        row = next(l for l in lines if l.startswith("canonical : "))
+        out.append((lines[0].strip(),
+                    [p for p in row.split()[2:] if p != "I"]))
+    return out
+
+
+def phase_lexicon(torch, files, card: str) -> dict:
+    """`infer` over N.wav + N.txt pairs three ways and `serve` with
+    word-only requests, the canonical phones, IPA, translation and phonics
+    from the port's lexicon; -> lstm_fwd launches by path."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.infer import read_phonemes_from_textgrid
+    from mdd_tpu_torch.lexicon.dictionary import CMU_TO_IPA_WIKI, Phonetic
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
+    from mdd_tpu_torch.serve import handle_requests
+
+    dict_dir, ecdict = files["dict_dir"], files["ecdict"]
+    lexicon = Phonetic(dict_dir, ecdict)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        canon = {w: lexicon.canonical_model_phones(w) for w in LEX_WORDS}
+    pairs = WORK / "pairs"
+    tgs = WORK / "textgrids"
+    pairs.mkdir()
+    tgs.mkdir()
+    n_files = len(files["paths"])
+    for n, word in enumerate(LEX_WORDS, 1):
+        shutil.copy(files["paths"][(n - 1) % n_files], pairs / f"{n}.wav")
+        (pairs / f"{n}.txt").write_text(word + "\n")
+        # the prompt's CMUdict phones between two silences ("zorblat":
+        # phones typed in)
+        cmu = lexicon.cmu_dict(word) or "Z AO1 R B L AE2 T"
+        marks = [""] + cmu.split(" ") + [""]
+        step = 1.0 / len(marks)
+        ivs = "".join(
+            f'        intervals [{i + 1}]:\n            xmin = {i * step}\n'
+            f'            xmax = {(i + 1) * step}\n            text = "{m}"\n'
+            for i, m in enumerate(marks))
+        (tgs / f"{n}.TextGrid").write_text(
+            'File type = "ooTextFile"\nObject class = "TextGrid"\n\nxmin = 0\n'
+            'xmax = 1\ntiers? <exists>\nsize = 2\nitem []:\n'
+            '    item [1]:\n        class = "IntervalTier"\n'
+            '        name = "words"\n        xmin = 0\n        xmax = 1\n'
+            '        intervals: size = 1\n        intervals [1]:\n'
+            f'            xmin = 0\n            xmax = 1\n'
+            f'            text = "{word}"\n'
+            '    item [2]:\n        class = "IntervalTier"\n'
+            '        name = "phones"\n        xmin = 0\n        xmax = 1\n'
+            f'        intervals: size = {len(marks)}\n' + ivs)
+    base = ["infer", "--wav-transcript-path", str(pairs), "--conf",
+            str(WORK / "serve.yaml"), "--checkpoint", str(WORK / "ckpt"),
+            "--cmvn", str(WORK / "cmvn.txt"), "--dict-dir", dict_dir,
+            "--ecdict-csv", ecdict, "--device", "cuda"]
+    dump = WORK / "decode_seq.txt"
+    n_pairs = len(LEX_WORDS)
+
+    # (b) infer, three ways
+    lstm_fwd_kernel.launches = 0
+    t0 = time.perf_counter()
+    runs = {"dump": run_cli(base + ["--decode-dump", str(dump)]),
+            "ipa": run_cli(base + ["--phonetic-format", "ipa",
+                                   "--forgiving", "1"]),
+            "textgrid": run_cli(base + ["--textgrid-path", str(tgs)])}
+    infer_s = time.perf_counter() - t0
+    infer_launches = lstm_fwd_kernel.launches
+    for how, text in runs.items():
+        rows = report_rows(text)
+        if [u for u, _ in rows] != [str(n) for n in range(1, n_pairs + 1)]:
+            raise AssertionError(f"infer ({how}): reports {rows}")
+        for utt, got in rows:
+            word = LEX_WORDS[int(utt) - 1]
+            if how == "textgrid":
+                want = [p for p in read_phonemes_from_textgrid(
+                    str(tgs / f"{utt}.TextGrid")) if p != "sil"]
+            elif how == "ipa":
+                want = [CMU_TO_IPA_WIKI.get(p.upper(), p) for p in canon[word]]
+            else:
+                want = canon[word]
+            if got != want:
+                raise AssertionError(f"infer ({how}) {utt} {word}: canonical "
+                                     f"{got}, the lexicon's {want}")
+        rtf = [l for l in text.splitlines()
+               if l.startswith(("RTF:", "init model time:", "process time:"))]
+        if len(rtf) != 3:
+            raise AssertionError(f"infer ({how}): RTF lines {rtf}")
+        log(f"[lexicon] infer ({how}): {n_pairs} reports ok; {rtf[0]}")
+    dumped = dump.read_text().splitlines()
+    if [l.split()[0] for l in dumped] != [str(n)
+                                          for n in range(1, n_pairs + 1)]:
+        raise AssertionError(f"decode dump {dumped}")
+    forwards = 3 * n_pairs   # diagnose_dir: one forward a pair
+    log(f"[lexicon] infer: 3 runs in {infer_s:.2f} s; lstm_fwd launches "
+        f"{infer_launches} over {forwards} model forwards ({card})")
+    if infer_launches < 4 * forwards:
+        raise AssertionError(f"{infer_launches} kernel launches for "
+                             f"{forwards} forwards: a layer bypassed it")
+
+    # (c) serve, word-only requests, --warmup and --max-batch 4
+    def word_request(i, word, rid, canonical=None):
+        req = {"id": rid, "wav": files["paths"][i % n_files], "word": word}
+        if canonical is not None:
+            req["canonical"] = canonical
+        return json.dumps(req)
+
+    lines = [word_request(i, w, i) for i, w in enumerate(LEX_WORDS)]
+    lines += [word_request(i + 1, w, 100 + i)
+              for i, w in enumerate(LEX_WORDS)]
+    lines.append(word_request(1, "gather", "override",
+                              ["g", "ae", "dh", "er"]))
+    out, err = io.StringIO(), io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    lstm_fwd_kernel.launches = 0
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["serve", "--conf", str(WORK / "serve.yaml"),
+                           "--checkpoint", str(WORK / "ckpt"),
+                           "--cmvn", str(WORK / "cmvn.txt"),
+                           "--dict-dir", dict_dir, "--ecdict-csv", ecdict,
+                           "--warmup", "--max-batch", "4", "--device", "cuda",
+                           "--quiet"])
+    finally:
+        sys.stdin = stdin
+    serve_launches = lstm_fwd_kernel.launches
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}: {err.getvalue()}")
+    resps = [json.loads(l) for l in out.getvalue().splitlines()]
+    check_ok(resps, len(lines))
+    translated = {"about", "gather", "vocabulary", "magazine", "through"}
+    with_phonics = {"about", "gather", "through", "talked"}
+    for r in resps:
+        if not r["ipa"].startswith("英: /"):
+            raise AssertionError(f"ipa {r['ipa']!r}")
+        if bool(r["translation"]) != (r["word"] in translated):
+            raise AssertionError(f"translation of {r['word']}: "
+                                 f"{r['translation']!r}")
+        if bool(r["phonics"]) != (r["word"] in with_phonics):
+            raise AssertionError(f"phonics of {r['word']}: {r['phonics']!r}")
+        want = (["g", "ae", "dh", "er"] if r["id"] == "override"
+                else canon[r["word"]])
+        got = [p for p in r["canonical_row"].split()[2:] if p != "I"]
+        if got != want:
+            raise AssertionError(f"{r['id']} {r['word']}: canonical {got}, "
+                                 f"want {want}")
+    batches = [r["batch"] for r in resps]
+    if max(batches) > 4:
+        raise AssertionError(f"a group of {max(batches)} past --max-batch 4")
+    tail = err.getvalue().strip().splitlines()
+    warmed = next(l for l in tail if l.startswith("warmed "))
+    serve_forwards = int(tail[-1].split(" in ")[1].split()[0])
+    log(f"[lexicon] serve: {len(lines)} word-only requests ok (one with a "
+        f"canonical override, one word in no dictionary), groups "
+        f"{sorted(set(batches))}; {warmed}; {tail[-1]}")
+    log(f"[lexicon] serve: lstm_fwd launches {serve_launches} over "
+        f"{serve_forwards} model forwards")
+    if serve_launches < 4 * serve_forwards or serve_forwards == 0:
+        raise AssertionError(f"{serve_launches} kernel launches for "
+                             f"{serve_forwards} forwards")
+
+    # (e) numbers: word-only vs canonical-carrying latency, in turns; the
+    # lexicon's host time a word; the cold start of a CMUdict-sized load
+    engine = cli._build_engine(cli.build_parser().parse_args(files["args"]))
+    engine.warmup()
+    lat = {"word": [], "canonical": []}
+    for _ in range(3):
+        for i, w in enumerate(LEX_WORDS):
+            for kind in ("word", "canonical"):
+                line = word_request(i, w, i, None if kind == "word"
+                                    else canon[w])
+                t0 = time.perf_counter()
+                check_ok(handle_requests(engine, [line]), 1)
+                lat[kind].append(time.perf_counter() - t0)
+    log(f"[lexicon] p50 batch-1 latency over {len(lat['word'])} requests, "
+        f"in turns: word-only {statistics.median(lat['word']) * 1e3:.3f} ms, "
+        f"canonical-carrying {statistics.median(lat['canonical']) * 1e3:.3f}"
+        f" ms ({card})")
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for w in LEX_WORDS:
+            engine._word_meta(w, None)
+    meta_us = (time.perf_counter() - t0) / (reps * len(LEX_WORDS)) * 1e6
+    log(f"[lexicon] _word_meta host time: {meta_us:.1f} us a word (mean "
+        f"over {reps} x {len(LEX_WORDS)} words, the small dictionary)")
+    t0 = time.perf_counter()
+    big_dir, big_word = write_big_lexicon(CMUDICT_ENTRIES)
+    gen_s = time.perf_counter() - t0
+    big = Phonetic(big_dir)
+    t0 = time.perf_counter()
+    big.validate_assets()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        first = big.canonical_model_phones(big_word)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big.canonical_model_phones(big_word)
+        warm_us = (time.perf_counter() - t0) * 1e6
+    if not first or len(big.cmudict_plain) != CMUDICT_ENTRIES:
+        raise AssertionError(f"big dictionary: {len(big.cmudict_plain)} "
+                             f"entries, {first}")
+    log(f"[lexicon] cold start: the first lookup loads {CMUDICT_ENTRIES:,} "
+        f"+ {len(big.cmudict_ipa):,} entries in {cold_s:.3f} s; the next "
+        f"lookup {warm_us:.1f} us (files written in {gen_s:.2f} s)")
+    return {"infer": infer_launches, "serve-lexicon": serve_launches}
 
 
 def phase_profile(torch, engine, files, card: str) -> None:
@@ -1787,6 +2104,7 @@ def main() -> int:
     cfg, meta, state = phase_model(torch)
     files = write_serving_files(cfg, meta, state)
     launches, engine = phase_serve(files, card)
+    lexicon = phase_lexicon(torch, files, card)
     phase_profile(torch, engine, files, card)
     train = write_corpus("train", TRAIN_UTTS, SEED + 2)
     dev = write_corpus("dev", DEV_UTTS, SEED + 3)
@@ -1811,10 +2129,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
-        "launches": (launches + train_fwd + fused["lstm_fwd"]
-                     + bf16["lstm_fwd"] + cached["lstm_fwd"] + eval_fwd
-                     + eval_cached_fwd),
-        "launches_by_path": {"serve": launches, "train": train_fwd,
+        "launches": (launches + sum(lexicon.values()) + train_fwd
+                     + fused["lstm_fwd"] + bf16["lstm_fwd"]
+                     + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd),
+        "launches_by_path": {"serve": launches, **lexicon,
+                             "train": train_fwd,
                              "train-fused": fused["lstm_fwd"],
                              "train-bf16": bf16["lstm_fwd"],
                              "train-cached": cached["lstm_fwd"],

@@ -1,5 +1,11 @@
 """Command-line interface of the port (counterpart of mdd_tpu/cli.py).
 
+  python -m mdd_tpu_torch prepare-timit --timit-dir D --out D
+                                [--speakers-file F] [--phoneme-map 60-41]
+  python -m mdd_tpu_torch prepare-l2arctic --l2-dir D --out-root D
+                                [--fold-reduced]
+  python -m mdd_tpu_torch merge --dirs D [D ...] --out D
+  python -m mdd_tpu_torch units --phn-text F --out F
   python -m mdd_tpu_torch train --conf YAML [--resume] [--device cuda|cpu]
   python -m mdd_tpu_torch evaluate --conf YAML [--checkpoint DIR]
                                 [--dump-dir DIR] [--decode-type Greedy|Beam]
@@ -7,10 +13,21 @@
   python -m mdd_tpu_torch mdd-result --ref F --human F --hyp F
                                 [--detail-dir DIR]
   python -m mdd_tpu_torch train-lm --phn-text F --out ARPA
+  python -m mdd_tpu_torch infer --wav-transcript-path DIR --conf YAML
+                                --cmvn F [--checkpoint DIR] [--dict-dir DIR]
+                                [--ecdict-csv F] [--forgiving 0|1|2]
+                                [--phonetic-format cmu|ipa]
+                                [--textgrid-path DIR] [--decode-dump F]
+                                [--device cuda|cpu]
   python -m mdd_tpu_torch serve --conf YAML --cmvn F [--checkpoint DIR]
+                                [--dict-dir DIR] [--ecdict-csv F]
+                                [--forgiving 0|1|2] [--phonetic-format cmu|ipa]
+                                [--warmup [SECONDS]] [--max-batch N]
                                 [--device cuda|cpu] [--decode-type Greedy|Beam]
 
-`train` runs the recipe of the YAML, on the device-resident corpus where
+`prepare-timit`, `prepare-l2arctic`, `merge` and `units` write the
+Kaldi-style data dirs and the unit inventory (data/prepare.py).  `train`
+runs the recipe of the YAML, on the device-resident corpus where
 it says `device_cache: true` (train and dev split) and on the streaming
 loader otherwise, and writes `best` and the resumable `latest` under
 `<checkpoint_dir>/<exp_name>/`.  `evaluate` decodes the YAML's test split
@@ -19,7 +36,13 @@ weighted by `lm_alpha`), prints PER and the TA/FR/FA/TR report and, with
 `--dump-dir`, writes the decode_seq / human_seq / transcribe files that
 `mdd-result` scores; `--cached` puts the test split on the device first.
 `train-lm` trains that bigram LM from a phone transcript file.
-`serve` answers line-delimited JSON requests on stdin (see serve.py).
+`infer` diagnoses every N.wav + N.txt prompt pair of a directory and
+prints a report per word and the RTF breakdown; `serve` answers
+line-delimited JSON requests on stdin (see serve.py).  Both take the
+canonical phones, IPA, translation and phonics from the lexicon: the
+CMUdict files of `--dict-dir` (else MDD_DICT_DIR) and the ECDICT csv of
+`--ecdict-csv`.  Not in the port yet: `--denoise` (so `infer` equals
+`mdd_tpu infer --no-denoise`) and `serve --socket`.
 The checkpoint is the port's format (train/checkpoint.py): by default
 `<checkpoint_dir>/<exp_name>/best.pt` + `best.meta.json` of the config.
 """
@@ -30,6 +53,46 @@ import argparse
 import os
 import sys
 from typing import List, Optional
+
+
+def cmd_prepare_timit(args) -> int:
+    from mdd_tpu_torch.data.prepare import prepare_timit
+
+    speakers = None
+    if args.speakers_file:
+        with open(args.speakers_file) as f:
+            speakers = [l.strip() for l in f if l.strip()]
+    n = prepare_timit(args.timit_dir, args.out, speakers=speakers,
+                      phoneme_map=args.phoneme_map)
+    print(f"prepared {n} TIMIT utterances -> {args.out}")
+    return 0
+
+
+def cmd_prepare_l2arctic(args) -> int:
+    from mdd_tpu_torch.data.prepare import prepare_l2arctic
+
+    for split in ("train", "dev", "test"):
+        out = f"{args.out_root}/l2_{split}"
+        n = prepare_l2arctic(args.l2_dir, out, split,
+                             keep_reduced=not args.fold_reduced)
+        print(f"prepared {n} L2-ARCTIC {split} utterances -> {out}")
+    return 0
+
+
+def cmd_merge(args) -> int:
+    from mdd_tpu_torch.data.prepare import merge_data_dirs
+
+    merge_data_dirs(args.dirs, args.out)
+    print(f"merged {len(args.dirs)} dirs -> {args.out}")
+    return 0
+
+
+def cmd_units(args) -> int:
+    from mdd_tpu_torch.data.prepare import build_units
+
+    units = build_units(args.phn_text, args.out)
+    print(f"{len(units)} units -> {args.out}")
+    return 0
 
 
 def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
@@ -188,9 +251,12 @@ def cmd_mdd_result(args) -> int:
 
 
 def _build_engine(args):
+    """The InferenceEngine of `infer` and `serve`: the experiment's `best`,
+    the YAML's decoder and front end, and the lexicon of --dict-dir."""
     from mdd_tpu_torch.data.vocab import Vocab
     from mdd_tpu_torch.frontend.cmvn import parse_kaldi_cmvn_text
     from mdd_tpu_torch.infer import InferenceEngine
+    from mdd_tpu_torch.lexicon.dictionary import Phonetic
     from mdd_tpu_torch.utils.config import load_config
 
     cfg = load_config(args.conf)
@@ -201,30 +267,98 @@ def _build_engine(args):
         model_cfg, state,
         Vocab.from_units_file(cfg.vocab_file),
         cmvn=parse_kaldi_cmvn_text(args.cmvn),
+        phonetic=Phonetic(asset_dir=args.dict_dir,
+                          ecdict_csv=args.ecdict_csv),
         decode_type=cfg.decode_type, beam_width=cfg.beam_width,
         lm_path=cfg.lm_path or None, lm_alpha=cfg.lm_alpha,
         left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
         n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample,
+        use_ipa=args.phonetic_format == "ipa", forgiving=args.forgiving,
         device=args.device)
 
 
+def cmd_infer(args) -> int:
+    """The single-word diagnosis demo over N.wav + N.txt pairs."""
+    engine = _build_engine(args)
+    engine.diagnose_dir(args.wav_transcript_path,
+                        textgrid_dir=args.textgrid_path,
+                        decode_dump=args.decode_dump)
+    return 0
+
+
 def cmd_serve(args) -> int:
-    """Load the model once, answer JSON request lines on stdin until EOF."""
+    """Load the model and the lexicon once, answer JSON request lines on
+    stdin until EOF."""
     from mdd_tpu_torch.serve import serve_loop
 
     engine = _build_engine(args)
+    if args.warmup:
+        n_shapes = engine.warmup(max_seconds=args.warmup)
+        print(f"warmed {n_shapes} shapes", file=sys.stderr, flush=True)
     log = (None if args.quiet else
            (lambda m: print(m, file=sys.stderr, flush=True)))
     print("ready", file=sys.stderr, flush=True)
-    n = serve_loop(engine, sys.stdin, sys.stdout, log=log)
+    n = serve_loop(engine, sys.stdin, sys.stdout, log=log,
+                   max_batch=args.max_batch)
     print(f"served {n} requests in {engine.session.forwards} forwards",
           file=sys.stderr)
     return 0
 
 
+def _add_lexicon_args(q) -> None:
+    """The flags `infer` and `serve` share: model, lexicon and display."""
+    q.add_argument("--conf", required=True)
+    q.add_argument("--checkpoint",
+                   help="directory holding best.pt + best.meta.json "
+                        "(default: <checkpoint_dir>/<exp_name>)")
+    q.add_argument("--cmvn", required=True)
+    q.add_argument("--dict-dir",
+                   help="directory of cmudict.dict and cmudict-0.7b-ipa.txt "
+                        "(and optionally phonics_engine.csv); default "
+                        "$MDD_DICT_DIR")
+    q.add_argument("--ecdict-csv",
+                   help="ECDICT csv for Chinese word translations")
+    q.add_argument("--forgiving", type=int, choices=[0, 1, 2],
+                   default=None,
+                   help="forgive confusable-phone substitutions at this "
+                        "level (off by default: the strict criterion)")
+    q.add_argument("--phonetic-format", choices=["cmu", "ipa"],
+                   default="cmu",
+                   help="show the canonical and decoded rows in CMU units "
+                        "or IPA symbols")
+    q.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mdd_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    q = sub.add_parser("prepare-timit", help="TIMIT -> data dir")
+    q.add_argument("--timit-dir", required=True)
+    q.add_argument("--out", required=True)
+    q.add_argument("--speakers-file",
+                   help="keep only these speakers (one id a line)")
+    q.add_argument("--phoneme-map", default="60-41",
+                   choices=["60-41", "60-48", "48-39"])
+    q.set_defaults(fn=cmd_prepare_timit)
+
+    q = sub.add_parser("prepare-l2arctic", help="L2-ARCTIC -> data dirs")
+    q.add_argument("--l2-dir", required=True)
+    q.add_argument("--out-root", required=True)
+    q.add_argument("--fold-reduced", action="store_true",
+                   help="fold ah0/er0 into ah/er (39-phone recipe)")
+    q.set_defaults(fn=cmd_prepare_l2arctic)
+
+    q = sub.add_parser("merge", help="merge data dirs")
+    q.add_argument("--dirs", nargs="+", required=True)
+    q.add_argument("--out", required=True)
+    q.set_defaults(fn=cmd_merge)
+
+    q = sub.add_parser("units", help="build modelling units")
+    q.add_argument("--phn-text", required=True)
+    q.add_argument("--out", required=True)
+    q.set_defaults(fn=cmd_units)
 
     q = sub.add_parser("train", help="train the CTC-attention model")
     q.add_argument("--conf", required=True)
@@ -277,18 +411,29 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--out", required=True)
     q.set_defaults(fn=cmd_train_lm)
 
+    q = sub.add_parser("infer", help="single-word diagnosis demo over "
+                                     "N.wav + N.txt prompt pairs")
+    q.add_argument("--wav-transcript-path", required=True)
+    _add_lexicon_args(q)
+    q.add_argument("--textgrid-path",
+                   help="canonical phones from N.TextGrid files here "
+                        "instead of the lexicon")
+    q.add_argument("--decode-dump",
+                   help="write one 'N decoded phones' line per pair here")
+    q.set_defaults(fn=cmd_infer, decode_type=None)
+
     q = sub.add_parser("serve", help="persistent diagnosis server "
                                      "(line-delimited JSON on stdin)")
-    q.add_argument("--conf", required=True)
-    q.add_argument("--checkpoint",
-                   help="directory holding best.pt + best.meta.json "
-                        "(default: <checkpoint_dir>/<exp_name>)")
-    q.add_argument("--cmvn", required=True)
-    q.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda)")
+    _add_lexicon_args(q)
     q.add_argument("--decode-type", dest="decode_type",
                    help="override the config's decode_type (Greedy, or "
                         "anything else for the beam)")
+    q.add_argument("--warmup", type=float, nargs="?", const=3.2,
+                   default=0.0, metavar="SECONDS",
+                   help="run the serving shape set for wavs up to SECONDS "
+                        "(default 3.2) before the first request")
+    q.add_argument("--max-batch", type=int, default=16,
+                   help="requests answered together, at most (default 16)")
     q.add_argument("--quiet", action="store_true",
                    help="no per-request log lines on stderr")
     q.set_defaults(fn=cmd_serve)

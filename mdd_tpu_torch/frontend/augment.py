@@ -20,17 +20,7 @@ import numpy as np
 import torch
 
 from mdd_tpu_torch.data.vocab import Vocab
-
-# the phone classes of mdd_tpu/lexicon/phones.py, in its order (mode 1
-# draws an index into them)
-VOWELS = [
-    "iy", "aa", "ae", "eh", "ah", "ao", "ih", "ey", "aw", "ay", "er",
-    "uw", "uh", "oy", "ow", "ah0", "er0",
-]
-CONSONANTS = [
-    "w", "dh", "y", "hh", "ch", "jh", "th", "zh", "d", "ng", "b", "g",
-    "f", "k", "m", "l", "n", "s", "r", "t", "v", "z", "p", "sh",
-]
+from mdd_tpu_torch.lexicon.phones import CONSONANTS, VOWELS
 
 # Common learner-error substitution distribution (reference
 # utils/tools.py:13-54): canonical phone -> plausible mispronunciations.

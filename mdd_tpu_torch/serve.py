@@ -1,21 +1,29 @@
 """Persistent serving loop for single-word MDD diagnosis (counterpart of
 mdd_tpu/serve.py: the line-delimited JSON protocol over a stream pair).
 
-  request:  {"wav": "/path/to.wav", "word": "about",
-             "canonical": ["ah", "b", "aw", "t"]}   optional: "id" (echoed)
+The engine and the lexicon load once and answer many requests:
+
+  request:  {"wav": "/path/to.wav", "word": "about"}
+            optional: "id" (echoed), "canonical" (a non-empty list of
+            model units that overrides the lexicon's phones for the word,
+            the analogue of the demo's TextGrid prompts)
   response: {"status": "ok", "id": ..., "word": ..., "score": ...,
              "correct": ..., "total": ...,
              "canonical_row": ..., "ops_row": ..., "decoded_row": ...,
              "insertion_faults": [...], "substitution_faults": [...],
-             "deletion_faults": [...], "ipa": "", "translation": "",
-             "phonics": "", "seconds": <group wall>,
+             "deletion_faults": [...], "ipa": ..., "translation": ...,
+             "phonics": ..., "seconds": <group wall>,
              "amortized_seconds": <seconds / batch>, "batch": <size>}
   errors:   {"status": "error", "id": ..., "error": "..."}
 
-"canonical" is required: the lexicon that would derive it from "word" is
-not ported yet, so a request without it gets an error response.  One
-response line per request line, in order; EOF shuts down.  Requests that
-are already queued are answered together, in batched forwards.
+"ipa" is the lexicon's 英/美 display, "translation" the ECDICT entry and
+"phonics" the letter-group breakdown ("" where the dictionaries have
+none).  One response line per request line, in order; EOF shuts down.
+Requests that are already queued are answered together (up to
+`max_batch`), in batched forwards bucketed by length, so a diagnosis never
+depends on what arrived with it.  "seconds" is the wall clock a request
+waited (its whole group's processing time); "amortized_seconds" its share.
+The socket transport of mdd_tpu (`SocketServer`) is not in the port yet.
 """
 
 from __future__ import annotations
@@ -28,9 +36,6 @@ import time
 from typing import IO
 
 from mdd_tpu_torch.infer import InferenceEngine
-
-MAX_BATCH = 16   # requests answered together, at most (the top of the
-# engine's BATCH_SIZES ladder)
 
 
 def _diag_response(diag, rid, seconds: float, batch: int) -> dict:
@@ -65,10 +70,10 @@ def _request_error(req: dict) -> str | None:
             or not isinstance(word, str)):
         return "request needs string 'wav' and 'word'"
     canonical = req.get("canonical")
-    if (not isinstance(canonical, list) or not canonical
+    if canonical is not None and (
+            not isinstance(canonical, list) or not canonical
             or not all(isinstance(p, str) for p in canonical)):
-        return ("request needs 'canonical', a non-empty list of phone "
-                "strings: the lexicon (word -> phones) is not ported yet")
+        return "'canonical', when given, must be a non-empty list of strings"
     return None
 
 
@@ -109,7 +114,7 @@ def handle_requests(engine: InferenceEngine, lines: list) -> list:
                         "error": "audio exceeds the maximum length gate"}
             continue
         # unique utt id per slot so same-word requests don't collide
-        items.append((f"r{i}", wav, req["word"], req["canonical"]))
+        items.append((f"r{i}", wav, req["word"], req.get("canonical")))
         slots.append((i, rid))
     if items:
         try:
@@ -130,12 +135,19 @@ def handle_requests(engine: InferenceEngine, lines: list) -> list:
     return resps
 
 
+def handle_request(engine: InferenceEngine, line: str) -> dict:
+    """One JSON request line -> one JSON-serializable response dict."""
+    return handle_requests(engine, [line])[0]
+
+
 def serve_loop(engine: InferenceEngine, in_stream: IO[str],
-               out_stream: IO[str], log=None) -> int:
+               out_stream: IO[str], log=None, max_batch: int = 16) -> int:
     """Serve until EOF; returns the number of requests handled.
 
     A reader thread moves complete lines into a queue; requests already
-    queued when one is picked up are handled together (up to MAX_BATCH)."""
+    queued when one is picked up are handled together (up to
+    `max_batch`; the default is the top of the engine's BATCH_SIZES
+    ladder)."""
     q: "queue.Queue" = queue.Queue()
     eof = object()
 
@@ -155,7 +167,7 @@ def serve_loop(engine: InferenceEngine, in_stream: IO[str],
         if item is eof:
             break
         group = [item]
-        while len(group) < MAX_BATCH:
+        while len(group) < max_batch:
             try:
                 nxt = q.get_nowait()
             except queue.Empty:

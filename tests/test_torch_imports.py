@@ -49,3 +49,23 @@ def test_evaluation_slice_modules_are_checked(module):
                  for node in ast.parse(path.read_text()).body
                  if isinstance(node, ast.Import) for alias in node.names}
     assert "triton" not in top_level
+
+
+@pytest.mark.parametrize("module", [
+    "lexicon/__init__.py", "lexicon/phones.py", "lexicon/timit.py",
+    "lexicon/dictionary.py", "data/textgrid.py", "data/prepare.py",
+    "infer.py", "serve.py"])
+def test_lexicon_slice_modules_are_checked(module):
+    """The modules of the lexicon and inference slice exist and are among
+    the checked sources; the lexicon's optional backends (g2p_en,
+    phonemizer, melo) are imported inside the functions that use them,
+    never at module level, so the port imports on a machine without them."""
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    top_level = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            top_level |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top_level.add(node.module.split(".")[0])
+    assert not top_level & {"triton", "g2p_en", "phonemizer", "melo"}

@@ -1,8 +1,10 @@
 """Port serving path vs mdd_tpu's: EvalSession.decode_batch on one Batch,
 handle_requests on the same JSON lines with greedy and with beam + LM
-decoding (the JAX engine gets a stub lexicon that returns empty strings),
-the stdin server and the `serve` subcommand, on the CPU at a small
-width."""
+decoding (requests that carry their canonical phones, both engines on a
+stub lexicon that returns empty strings; a word-only request on both
+packages' real lexicon), the stdin server and the `serve` subcommand, on
+the CPU at a small width.  tests/test_torch_infer.py holds the lexicon's
+serving path at length."""
 
 import dataclasses
 import io
@@ -35,6 +37,7 @@ from mdd_tpu_torch.models.ctc_model import ModelConfig
 from mdd_tpu_torch.serve import handle_requests, serve_loop
 from mdd_tpu_torch.train.checkpoint import save_checkpoint
 from mdd_tpu_torch.utils.config import load_config
+from test_torch_lexicon import write_dictionary
 
 UNITS = ["sil", "err", "aa", "ae", "b", "d", "k", "t", "s", "m"]
 CFG = dict(input_dim=243, num_class=len(UNITS) + 2, conv_channels=(4, 4),
@@ -43,8 +46,8 @@ CFG = dict(input_dim=243, num_class=len(UNITS) + 2, conv_channels=(4, 4),
 
 
 class StubPhonetic:
-    """Lexicon stand-in: every request carries its canonical phones, and
-    the display fields are empty, as in the port."""
+    """Lexicon stand-in for the tests that need none: every request
+    carries its canonical phones, and the display fields are empty."""
 
     def validate_assets(self):
         pass
@@ -85,9 +88,11 @@ def world(tmp_path_factory):
         jax.random.key(0), np.zeros((1, 16, 243), np.float32),
         np.zeros((1, 4), np.int32), np.asarray([4], np.int32))
     variables = jax.device_get(variables)
+    asset_dir, ecdict = write_dictionary(root / "dict")
     return dict(root=root, paths=paths, variables=variables,
                 state=flax_to_torch(variables["params"],
-                                    variables["batch_stats"]))
+                                    variables["batch_stats"]),
+                asset_dir=asset_dir, ecdict=ecdict)
 
 
 def _requests(paths):
@@ -131,7 +136,7 @@ def _engines(world):
                            phonetic=StubPhonetic(), decode_type="greedy")
     engine = InferenceEngine(ModelConfig(**CFG), world["state"],
                              Vocab(UNITS), parse_kaldi_cmvn_text(cmvn_path),
-                             device="cpu")
+                             phonetic=StubPhonetic(), device="cpu")
     return jax_engine, engine
 
 
@@ -167,14 +172,38 @@ def test_batched_and_single_word_diagnoses_agree(world):
 
 
 def test_request_without_canonical_gets_an_error(world):
-    _, engine = _engines(world)
-    good = json.dumps({"wav": world["paths"][0], "word": "a",
-                       "canonical": ["aa"]})
-    bad = json.dumps({"id": 7, "wav": world["paths"][0], "word": "a"})
-    resps = handle_requests(engine, [good, bad])
-    assert resps[0]["status"] == "ok"
-    assert resps[1]["status"] == "error" and resps[1]["id"] == 7
-    assert "canonical" in resps[1]["error"]
+    """The name dates from before the port had a lexicon, when a request
+    without "canonical" got an error.  Now the lexicon derives the phones
+    from the word: such a request is answered like mdd_tpu's, field for
+    field (ipa, translation and phonics included), both engines on their
+    own `Phonetic` over one dictionary.  A "canonical" that is present but
+    not a non-empty list of strings still gets an error."""
+    from mdd_tpu.lexicon.dictionary import Phonetic as JaxPhonetic
+    from mdd_tpu_torch.lexicon.dictionary import Phonetic
+
+    cmvn_path = str(world["root"] / "cmvn.txt")
+    lexicon = (world["asset_dir"], world["ecdict"])
+    jax_engine = JaxEngine(JaxConfig(**CFG), world["variables"],
+                           JaxVocab(UNITS), jax_parse_cmvn(cmvn_path),
+                           phonetic=JaxPhonetic(*lexicon),
+                           decode_type="greedy")
+    engine = InferenceEngine(ModelConfig(**CFG), world["state"],
+                             Vocab(UNITS), parse_kaldi_cmvn_text(cmvn_path),
+                             phonetic=Phonetic(*lexicon), device="cpu")
+    word_only = [json.dumps({"id": 7, "wav": world["paths"][i], "word": w})
+                 for i, w in ((0, "about"), (2, "magazine"), (3, "zxqj"))]
+    resps = handle_requests(engine, word_only)
+    ref = jax_handle_requests(jax_engine, word_only)
+    for a, b in zip(resps, ref):
+        assert {k: a.get(k) for k in _FIELDS} == {k: b.get(k) for k in _FIELDS}
+    assert [r["status"] for r in resps] == ["ok"] * 3
+    assert resps[0]["id"] == 7 and resps[0]["ipa"].startswith("英: /")
+    assert resps[0]["translation"] and resps[0]["phonics"]
+    bad = json.dumps({"id": 8, "wav": world["paths"][0], "word": "a",
+                      "canonical": []})
+    resp = handle_requests(engine, [bad])[0]
+    assert resp["status"] == "error" and resp["id"] == 8
+    assert "canonical" in resp["error"]
 
 
 def test_serve_loop_answers_every_line_in_order(world):
@@ -198,15 +227,15 @@ def test_serve_subcommand_on_cpu(world, monkeypatch, capsys):
     monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(lines) + "\n"))
     rc = cli.main(["serve", "--conf", str(conf), "--cmvn",
                    str(root / "cmvn.txt"), "--checkpoint", str(root / "ckpt"),
+                   "--dict-dir", world["asset_dir"],
                    "--device", "cpu", "--decode-type", "Greedy", "--quiet"])
     assert rc == 0
     resps = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert [r["status"] for r in resps] == ["ok", "ok", "error"]
 
 
-def test_beam_decoding_is_not_ported_yet(world):
-    """The name dates from when the port refused `decode_type: Beam`; now
-    a request served with the beam (width 4, a bigram LM at alpha 0.5)
+def test_beam_requests_match_jax_and_serve_yaml_builds_the_beam(world):
+    """A request served with the beam (width 4, a bigram LM at alpha 0.5)
     answers like mdd_tpu's, field for field, and through the `serve`
     subcommand the YAML's decode_type, beam_width, lm_path and lm_alpha
     build the beam session."""
@@ -228,7 +257,7 @@ def test_beam_decoding_is_not_ported_yet(world):
                            phonetic=StubPhonetic(), **kw)
     engine = InferenceEngine(ModelConfig(**CFG), world["state"],
                              Vocab(UNITS), parse_kaldi_cmvn_text(cmvn_path),
-                             device="cpu", **kw)
+                             phonetic=StubPhonetic(), device="cpu", **kw)
     assert isinstance(engine.session.beam, BatchedBeamDecoder)
     lines = _requests(world["paths"])
     ours = handle_requests(engine, lines)
@@ -244,9 +273,11 @@ def test_beam_decoding_is_not_ported_yet(world):
                     f"beam_width: 4\nlm_path: {arpa}\nlm_alpha: 0.5\n")
     built = cli._build_engine(cli.build_parser().parse_args(
         ["serve", "--conf", str(conf), "--cmvn", cmvn_path, "--checkpoint",
-         str(root / "ckpt_beam"), "--device", "cpu"]))
+         str(root / "ckpt_beam"), "--dict-dir", world["asset_dir"],
+         "--device", "cpu"]))
     assert not built.session.greedy and built.session.beam.beam_width == 4
     assert built.session.beam.lm_matrix.abs().sum() > 0
+    built.phonetic = StubPhonetic()   # the display fields of the lines above
     again = handle_requests(built, lines)
     for a, b in zip(again, ours):
         assert {k: a.get(k) for k in _FIELDS} == {k: b.get(k) for k in _FIELDS}

@@ -17,6 +17,7 @@ from mdd_tpu_torch.frontend.cmvn import CmvnStats, write_kaldi_cmvn_text
 from mdd_tpu_torch.frontend.wav import write_wav
 from mdd_tpu_torch.serve import handle_requests
 from test_torch_data import UNITS, write_corpus
+from test_torch_lexicon import write_dictionary
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -98,9 +99,11 @@ def test_best_loads_into_the_serving_engine(run):
     cmvn = str(root / "cmvn.txt")
     write_kaldi_cmvn_text(CmvnStats.accumulate(
         [rng.standard_normal((50, 81))]), cmvn)
+    # the serving engine requires the lexicon's dictionary files
+    dict_dir, _ = write_dictionary(root / "dict")
     args = cli.build_parser().parse_args(
         ["serve", "--conf", _yaml(root, 1), "--cmvn", cmvn,
-         "--device", "cpu", "--decode-type", "Greedy"])
+         "--dict-dir", dict_dir, "--device", "cpu", "--decode-type", "Greedy"])
     engine = cli._build_engine(args)
     (resp,) = handle_requests(engine, [json.dumps(
         {"id": 0, "wav": wav, "word": "w", "canonical": ["sil", "b", "aa"]})])
