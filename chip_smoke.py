@@ -7,7 +7,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
             lstm_fwd.cu, lstm_bwd.cu, dropout.cu, and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
-            the model's path).
+            the model's path); g++ the host C++ sources at the same time:
+            denoise.cc (the denoiser library and the mdd_denoise tool) and
+            ark_io.cc (the mmap ark reader).
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
             serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
             {16, 80, 128}) and at B=24, 256 and 512 (two unit groups a
@@ -45,12 +47,31 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             word-only against canonical-carrying requests in turns, the
             lexicon's host time a word, and the first lookup's load of a
             seeded dictionary pair of CMUdict 0.7b's size (135,000 entries).
-7. profile  torch.profiler over batch-1 requests: device busy share and
+7. product  the product front end and socket serving on phase 5's files:
+            (a) `feat` in-process over a seeded wav.scp of 64 wavs of
+            0.6-3.2 s, once a feature type (fbank, mfcc, spectrogram), on
+            the card and on the CPU: features within 2e-4 plus each
+            element's float32 rounding bound (feature_tol), the CMVN files
+            written; `bulk_load` of the fbank ark through the native reader
+            equal bit for bit to the Python pass, both timed.  (b) `infer`
+            with its default --denoise over phase 6's pairs: one report a
+            pair, the RTF lines, lstm_fwd launched 4 times a forward; the
+            denoiser raises the SNR of a seeded noisy tone by 3 dB; its
+            host ms per audio-second.  (c) `serve --socket 127.0.0.1:0
+            --max-batch 16 --warmup` and `serve --socket PATH` in threads:
+            4 TCP clients x 16 requests and a unix client x 8 at once,
+            every answer ok and equal to its solo answer on the decoded and
+            canonical rows, faults and score, no group past 16, lstm_fwd 4
+            times a forward, 0.0.0.0 refused, and a client that stops
+            reading dropped while another's answers come within 2 s.  (d)
+            Not gating: the port's serve_loadtest for 15 s at 1, 4 and 16
+            clients, denoise on and off: p50 / p90 / p99 and requests/s.
+8. profile  torch.profiler over batch-1 requests: device busy share and
             the kernels that take the device time.
-8. model-grad  the full-width model, one Trainer step at B=8 (dropout 0)
+9. model-grad  the full-width model, one Trainer step at B=8 (dropout 0)
             with the kernels and one with the plain LSTM: loss, every
             parameter's gradient and the updated BN statistics compared.
-9. train    the training path a user runs: a seeded corpus (512 train, 64
+10. train    the training path a user runs: a seeded corpus (512 train, 64
             dev utterances of 16-40 phones of the 41-unit inventory, 81-dim
             band-template features) written with the port's ArkScpWriter, a
             YAML of the flagship recipe, then `python -m mdd_tpu_torch train`
@@ -58,9 +79,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             finite and falling, `best` and `latest` on disk, the launch
             counters (zeroed just before) covering every layer of every
             step; then the step time at B=64.
-10. profile-train  torch.profiler over 3 train steps: device busy share and
+11. profile-train  torch.profiler over 3 train steps: device busy share and
             the ops that take the device time.
-11. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
+12. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
             (and its plan), its plain version, its bound, the port's layer
             and one torch.nn.LSTM call (a whole layer, the yardstick); the
             backward at B=16, 64, 256 and 512, T'=80, its plain version,
@@ -68,7 +89,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             recurrence, the dW_hh product: ms and effective TFLOP/s), and
             the backward of one torch.nn.LSTM (forward+backward minus
             forward) as the yardstick only.
-12. kernel-dropout  fused_dropout against its plain version, bit for bit,
+13. kernel-dropout  fused_dropout against its plain version, bit for bit,
             float32 and bfloat16, rates 0.1 / 0.2 / 0.5, at the 3 site
             shapes of a B=64, T=220 (T'=110) step (conv0 64x32x220x122,
             conv1 64x32x110x61, BiLSTM 110x64x768) and at sizes that are
@@ -77,7 +98,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             16-byte alignment; kept share within 4 sigma of keep; the
             autograd gradient = mask / keep * dy with the forward's mask;
             two seeds, two masks.
-13. train-fused  the flagship model with use_fused_dropout=True through
+14. train-fused  the flagship model with use_fused_dropout=True through
             cli._build_loader, cli.build_trainer and Trainer.fit for 3
             epochs of the corpus (seconds; after one epoch the posteriors
             are too flat to score a beam with an LM against greedy): loss
@@ -85,15 +106,15 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             forward and backward), `best` on disk with use_fused_dropout
             in its meta; then the step time and the device time of a step
             with fused and with plain dropout, in turns.
-14. train-bf16  the flagship recipe with compute_dtype bfloat16 (the
+15. train-bf16  the flagship recipe with compute_dtype bfloat16 (the
             shipped recipes' dtype) and use_fused_dropout=True, through the
-            entry points of phase 13 for one epoch: losses finite and
+            entry points of phase 14 for one epoch: losses finite and
             falling, every layer of every step on the kernels, the step
             median; then one Trainer step of the full-width model at
             bench.py's cell, B=512 x 160 input frames (T'=80, 48 canonical
             phones) in bfloat16: loss finite, one lstm_bwd count a layer
             (its recurrence in several launches), the step time.
-15. train-cached  the training path on the device-resident corpus: a
+16. train-cached  the training path on the device-resident corpus: a
             hard-profile corpus (512 / 64 / 64 utterances of 16-40 phones,
             the recovered 41-unit inventory) from `python -m
             mdd_tpu_torch.tools.synthetic_corpus`, then `train` in-process
@@ -106,9 +127,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             SpeechDataset.load_item's items padded to its bucket; then the
             cached and the streaming step median (next batch, copy and
             step), in turns, and the host -> device bytes a step of each.
-16. evaluate  `train-lm` on the training labels, then `evaluate` (beam
+17. evaluate  `train-lm` on the training labels, then `evaluate` (beam
             width 10 + that LM at alpha 0.5, device front end, the dev
-            split as test split) on the `best` of phase 13 with
+            split as test split) on the `best` of phase 14 with
             --dump-dir, `evaluate --lm-alpha 0`, `evaluate --decode-type
             Greedy`, and `mdd-result` on the beam + LM dumps, all
             in-process: the reports parse, the canonical total equals the
@@ -117,14 +138,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             batch of that model's log-probs the
             device beam against the host beam (decode/beam.py), at least
             95% of the sequences identical.
-17. evaluate-cached  `evaluate --cached` and `evaluate` on the hard
+18. evaluate-cached  `evaluate --cached` and `evaluate` on the hard
             test split with train-cached's `best` (beam 10 + the corpus
             LM at alpha 0.5): at batch size 1, where both loaders pad an
             utterance alike, reports and dump lines equal; at B=64, where
             the cache groups utterances by bucket, every utterance padded
             alike decodes alike (the model's outputs depend on the
             padding); lstm_fwd launched 4 times a forward.
-18. profile-evaluate  evaluate_model over the 512 training utterances, beam
+19. profile-evaluate  evaluate_model over the 512 training utterances, beam
             and greedy: utterances per second, and torch.profiler's device
             busy share over one beam pass; the beam alone at B=64, T'=110,
             K=10, C=43 (ms a batch and a frame); fused_dropout at the 3
@@ -145,6 +166,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -260,13 +282,16 @@ def phase_build() -> None:
     t0 = time.time()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
     procs = [(s, build.start_build(s)) for s in sources]   # all at once
+    hosts = [(t, build.start_host_build(t)) for t in build.HOST_TARGETS]
+    for target, proc in hosts:
+        log(f"  g++ {target}: {build.finish_host_build(target, proc).name}")
     for source, proc in procs:
         out = build.finish_build(source, proc)
         for line in out.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {source}: {line.strip()}")
-    log(f"[build] {len(sources)} source(s) {sources} in "
-        f"{time.time() - t0:.2f} s")
+    log(f"[build] {len(sources)} source(s) {sources} and host targets "
+        f"{list(build.HOST_TARGETS)} in {time.time() - t0:.2f} s")
 
 
 def phase_kernel(torch) -> dict:
@@ -815,6 +840,430 @@ def phase_lexicon(torch, files, card: str) -> dict:
         f"+ {len(big.cmudict_ipa):,} entries in {cold_s:.3f} s; the next "
         f"lookup {warm_us:.1f} us (files written in {gen_s:.2f} s)")
     return {"infer": infer_launches, "serve-lexicon": serve_launches}
+
+
+# phase product: the front end and socket serving of `mdd_tpu`'s product
+FEAT_WAVS = 64
+FEAT_TOL = 2e-4    # card vs CPU features, plus each element's rounding
+# bound (feature_tol): a log-mel of a band the signal barely has carries
+# the DFT's float32 rounding through its power, and CMVN scales each
+# dimension's rounding by 1 / std
+SOCKET_CLIENTS, SOCKET_REQUESTS, UNIX_REQUESTS = 4, 16, 8
+STALL_WAIT_S = 2.0  # the longest a reading client may wait on a stalled one
+LOAD_SECONDS = 15.0
+LOAD_CLIENTS = (1, 4, 16)
+
+
+def feature_tol(wave, feat_type: str, cmvn):
+    """FEAT_TOL plus the rounding bound of each feature, element by element:
+    4 float32 ulps of its value and, for a log-mel or a spectrogram bin,
+    one ulp of sum_n |x_n w_n| in a DFT bin's real and imaginary parts
+    carried through its power (or magnitude) and log; an MFCC mixes 23
+    log-mels through the DCT, which averages that term out.  Times
+    CMVN's 1 / std (the spectrogram: its own 1 / std)."""
+    import numpy as np
+
+    from mdd_tpu_torch.frontend import fbank, mfcc
+
+    eps = float(np.finfo(np.float32).eps)
+    wave = np.asarray(wave, np.float64)
+    if feat_type == "spectrogram":
+        t = 1 + max(0, len(wave) - 400) // 160
+        idx = np.clip(np.arange(t)[:, None] * 160 + np.arange(400), 0,
+                      len(wave) - 1)
+        frames = wave[idx] * fbank._window_function(fbank.FbankConfig())
+        mag = np.abs(np.fft.rfft(frames, 512, axis=1))
+        raw = np.log1p(mag)
+        d = (eps * np.abs(frames).sum(axis=1, keepdims=True) * np.sqrt(2)
+             / (1 + mag) + 4 * eps * raw) / max(raw.std(), 1e-8)
+        return FEAT_TOL + d
+    cfg = mfcc.MfccConfig() if feat_type == "mfcc" else fbank.FbankConfig()
+    fb_cfg = cfg.fbank_config() if feat_type == "mfcc" else cfg
+    n_t = fbank.num_frames(len(wave), fb_cfg)
+    idx = (np.arange(n_t)[:, None] * fb_cfg.frame_shift
+           + np.arange(fb_cfg.frame_length))
+    frames = wave[idx] - wave[idx].mean(axis=1, keepdims=True)
+    log_energy = np.log(np.maximum((frames ** 2).sum(axis=1), eps))
+    frames = np.concatenate([frames[:, :1] * (1 - fb_cfg.preemphasis),
+                             frames[:, 1:] - fb_cfg.preemphasis
+                             * frames[:, :-1]], axis=1)
+    frames = frames * fbank._window_function(fb_cfg)
+    spec = np.fft.rfft(frames, fb_cfg.padded_length,
+                       axis=1)[:, :fb_cfg.padded_length // 2]
+    bank = fbank._dft_and_mel_matrices(fb_cfg)[1].astype(np.float64)
+    log_mel = np.log(np.maximum(np.abs(spec) ** 2 @ bank, eps))
+    if feat_type == "mfcc":
+        dct, lifter = mfcc._dct_and_lifter(cfg.num_mel_bins, cfg.num_ceps,
+                                           cfg.cepstral_lifter)
+        d = 4 * eps * np.abs(log_mel @ dct * lifter)
+    else:
+        d_x = eps * np.abs(frames).sum(axis=1, keepdims=True)
+        d_power = 2 * np.sqrt(2) * np.abs(spec) * d_x + 2 * d_x ** 2
+        d = np.concatenate([4 * eps * np.abs(log_energy)[:, None],
+                            d_power @ bank / np.exp(log_mel)
+                            + 4 * eps * np.abs(log_mel)], axis=1)
+    return FEAT_TOL + d / np.sqrt(cmvn.var)
+
+
+def write_feat_wavs() -> tuple:
+    """FEAT_WAVS seeded wavs of 0.6-3.2 s and their wav.scp under
+    WORK/feat -> (wav.scp, the paths)."""
+    from mdd_tpu_torch.tools.serve_loadtest import write_wavs
+
+    d = WORK / "feat"
+    d.mkdir()
+    paths = write_wavs(str(d), FEAT_WAVS, SEED + 7)
+    scp = d / "wav.scp"
+    scp.write_text("".join(f"f{i:03d} {p}\n" for i, p in enumerate(paths)))
+    return str(scp), paths
+
+
+def product_feat(torch, scp: str, paths: list, card: str) -> None:
+    """(a) `feat` for the three types on the card and on the CPU; the
+    features agree, the CMVN files are written; bulk_load of the fbank ark
+    natively and by the Python pass, bit for bit, timed."""
+    import numpy as np
+
+    from mdd_tpu_torch.frontend import kaldi_io
+    from mdd_tpu_torch.frontend.cmvn import parse_kaldi_cmvn_text
+    from mdd_tpu_torch.frontend.wav import read_audio
+
+    waves = {f"f{i:03d}": read_audio(p)[0] for i, p in enumerate(paths)}
+    audio_s = sum(len(w) for w in waves.values()) / 16000.0
+    for feat_type in ("fbank", "mfcc", "spectrogram"):
+        out, secs = {}, {}
+        for device in ("cuda", "cpu"):
+            out[device] = WORK / "feat" / f"{feat_type}-{device}"
+            t0 = time.perf_counter()
+            run_cli(["feat", "--wav-scp", scp, "--out-dir",
+                     str(out[device]), "--feat-type", feat_type,
+                     "--device", device])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs[device] = time.perf_counter() - t0
+        cmvn_file = out["cuda"] / f"global_{feat_type}_cmvn.txt"
+        if (feat_type != "spectrogram") != cmvn_file.exists():
+            raise AssertionError(f"feat {feat_type}: CMVN file "
+                                 f"{'missing' if not cmvn_file.exists() else 'written'}")
+        cmvn = (parse_kaldi_cmvn_text(str(cmvn_file))
+                if feat_type != "spectrogram" else None)
+        card_scp = kaldi_io.read_scp(str(out["cuda"] / f"{feat_type}.scp"))
+        cpu_scp = kaldi_io.read_scp(str(out["cpu"] / f"{feat_type}.scp"))
+        if list(card_scp) != list(cpu_scp) or len(card_scp) != FEAT_WAVS:
+            raise AssertionError(f"feat {feat_type}: utterances differ")
+        worst, over = 0.0, 0
+        for utt in card_scp:
+            a = kaldi_io.load_mat(card_scp[utt])
+            b = kaldi_io.load_mat(cpu_scp[utt])
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"feat {feat_type} {utt}: {a.shape} "
+                                     f"vs {b.shape}")
+            err = np.abs(a.astype(np.float64) - b)
+            worst = max(worst, float(err.max()))
+            over += int((err > FEAT_TOL).sum())
+            if (err > feature_tol(waves[utt], feat_type, cmvn)).any():
+                raise AssertionError(f"feat {feat_type} {utt}: card vs CPU "
+                                     f"{err.max():.3g} past its tolerance")
+        log(f"[product] feat {feat_type}: {FEAT_WAVS} wavs ({audio_s:.1f} s "
+            f"of audio), card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s; "
+            f"card vs CPU max |diff| {worst:.3g}, {over} elements past "
+            f"{FEAT_TOL:g} (within their rounding bound) ({card})")
+    rxs = list(kaldi_io.read_scp(
+        str(WORK / "feat" / "fbank-cuda" / "fbank.scp")).values())
+    native = kaldi_io.bulk_load(rxs)
+    plain = kaldi_io.bulk_load_python(rxs)
+    if not all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(native, plain)):
+        raise AssertionError("bulk_load: native and Python reads differ")
+    times = {"native": [], "python": []}
+    for _ in range(5):   # in turns, the file in the page cache
+        for name, fn in (("native", kaldi_io.bulk_load),
+                         ("python", kaldi_io.bulk_load_python)):
+            t0 = time.perf_counter()
+            fn(rxs)
+            times[name].append(time.perf_counter() - t0)
+    nbytes = sum(m.nbytes for m in native)
+    log(f"[product] bulk_load of the fbank ark ({len(rxs)} matrices, "
+        f"{nbytes / 2**20:.2f} MiB), median of 5 in turns: native "
+        f"{statistics.median(times['native']) * 1e3:.3f} ms, Python pass "
+        f"{statistics.median(times['python']) * 1e3:.3f} ms; equal bit for "
+        f"bit (the card machine's host)")
+
+
+def product_infer(torch, files, paths: list, card: str) -> int:
+    """(b) `infer` with the default --denoise over phase lexicon's pairs;
+    the denoiser's SNR gain and its host time; -> lstm_fwd launches."""
+    import numpy as np
+
+    from mdd_tpu_torch import native
+    from mdd_tpu_torch.frontend.wav import read_audio
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
+
+    pairs = WORK / "pairs"
+    n_pairs = len(LEX_WORDS)
+    lstm_fwd_kernel.launches = 0
+    text = run_cli(["infer", "--wav-transcript-path", str(pairs), "--conf",
+                    str(WORK / "serve.yaml"), "--checkpoint",
+                    str(WORK / "ckpt"), "--cmvn", str(WORK / "cmvn.txt"),
+                    "--dict-dir", files["dict_dir"], "--ecdict-csv",
+                    files["ecdict"], "--device", "cuda"])
+    launches = lstm_fwd_kernel.launches
+    rows = report_rows(text)
+    if [u for u, _ in rows] != [str(n) for n in range(1, n_pairs + 1)]:
+        raise AssertionError(f"infer --denoise: reports {rows}")
+    rtf = [l for l in text.splitlines()
+           if l.startswith(("RTF:", "init model time:", "process time:"))]
+    if len(rtf) != 3:
+        raise AssertionError(f"infer --denoise: RTF lines {rtf}")
+    if launches < 4 * n_pairs:
+        raise AssertionError(f"infer --denoise: {launches} lstm_fwd launches "
+                             f"for {n_pairs} forwards")
+    log(f"[product] infer --denoise: {n_pairs} reports ok; {rtf[0]}; "
+        f"{rtf[1]}")
+    log(f"[product] infer --denoise: lstm_fwd launches {launches} over "
+        f"{n_pairs} model forwards")
+    # the denoiser on a seeded noisy tone: SNR up by at least 3 dB
+    rng = np.random.default_rng(SEED)
+    t = np.arange(3 * 16000) / 16000.0
+    clean = np.zeros_like(t, dtype=np.float32)
+    for f0, start in [(220.0, 0.5), (440.0, 1.2), (330.0, 2.0)]:
+        seg = (t >= start) & (t < start + 0.4)
+        clean[seg] = 8000 * np.sin(2 * np.pi * f0 * t[seg]) * np.hanning(
+            seg.sum())
+    noisy = clean + rng.standard_normal(t.size).astype(np.float32) * 500
+
+    def snr(y):
+        return 10 * np.log10(np.sum(clean ** 2) / np.sum((y - clean) ** 2))
+
+    before, after = snr(noisy), snr(native.spectral_denoise(noisy))
+    if not after > before + 3.0:
+        raise AssertionError(f"denoise: SNR {before:.2f} -> {after:.2f} dB")
+    # its host time over phase product's wavs
+    waves = [read_audio(p)[0] for p in paths]
+    audio_s = sum(len(w) for w in waves) / 16000.0
+    passes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for w in waves:
+            native.spectral_denoise(w)
+        passes.append(time.perf_counter() - t0)
+    per_s = statistics.median(passes) * 1e3 / audio_s
+    log(f"[product] denoise: SNR {before:.2f} -> {after:.2f} dB on a seeded "
+        f"noisy tone; host time {per_s:.3f} ms per audio-second (median of 3 "
+        f"passes over {len(waves)} wavs, {audio_s:.1f} s; a 0.6 / 3.2 s wav "
+        f"{0.6 * per_s:.2f} / {3.2 * per_s:.2f} ms; the card machine's host)")
+    return launches
+
+
+def socket_client(address, lines, timeout: float = 60.0) -> list:
+    """One client: send every line, then read one answer each."""
+    import socket
+
+    if isinstance(address, int):
+        s = socket.create_connection(("127.0.0.1", address), timeout=timeout)
+    else:
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.settimeout(timeout)
+        s.connect(address)
+    with s:
+        s.sendall(("\n".join(lines) + "\n").encode())
+        f = s.makefile("r", encoding="utf-8")
+        return [json.loads(f.readline()) for _ in lines]
+
+
+def product_socket(torch, files, card: str) -> int:
+    """(c) `serve --socket 127.0.0.1:0 --max-batch 16 --warmup` and `serve
+    --socket PATH` in threads: 4 TCP clients and a unix one at once, every
+    answer ok and equal to the request's solo answer, no group past 16; a
+    non-loopback bind refused; a client that stops reading; -> lstm_fwd
+    launches."""
+    import socket
+    import threading
+
+    import mdd_tpu_torch.serve as serve_mod
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
+
+    n_files = len(files["paths"])
+
+    def line(tag, k):
+        return json.dumps({"id": f"{tag}{k}", "wav": files["paths"][k % n_files],
+                           "word": LEX_WORDS[k % len(LEX_WORDS)]})
+
+    servers, rcs = [], []
+    base = serve_mod.SocketServer
+
+    class Recorded(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            servers.append(self)
+
+    unix_path = str(WORK / "product.sock")
+    argvs = [files["args"] + ["--socket", "127.0.0.1:0", "--max-batch", "16",
+                              "--warmup", "--quiet"],
+             files["args"] + ["--socket", unix_path, "--max-batch", "16",
+                              "--quiet"]]
+    err = io.StringIO()
+    lstm_fwd_kernel.launches = 0
+    serve_mod.SocketServer = Recorded
+    threads = [threading.Thread(target=lambda a=a: rcs.append(cli.main(a)),
+                                daemon=True) for a in argvs]
+    try:
+        with contextlib.redirect_stderr(err):
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 300
+            while len(servers) < 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if len(servers) < 2:
+                raise AssertionError(f"socket servers did not start: "
+                                     f"{err.getvalue()[-2000:]}")
+            tcp = next(s for s in servers if s.port is not None)
+            got = {}
+
+            def client(name, address, lines):
+                got[name] = socket_client(address, lines)
+
+            work = {f"tcp{c}": (tcp.port, [line(f"t{c}-", k) for k in
+                                           range(SOCKET_REQUESTS)])
+                    for c in range(SOCKET_CLIENTS)}
+            work["unix"] = (unix_path, [line("u-", k)
+                                        for k in range(UNIX_REQUESTS)])
+            t0 = time.perf_counter()
+            clients = [threading.Thread(target=client, args=(n, *w))
+                       for n, w in work.items()]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=300)
+            wall = time.perf_counter() - t0
+            if sorted(got) != sorted(work):
+                raise AssertionError(f"clients answered: {sorted(got)}")
+            # a client that stops reading, with the bounds of the test
+            # suite: its outbox of 4 overflows and it is dropped, while
+            # another client's answers keep coming
+            tcp.outbox_max, tcp.sndbuf = 4, 4096
+            stalled = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            stalled.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+            stalled.settimeout(60)
+            stalled.connect(("127.0.0.1", tcp.port))
+            flood = "".join(json.dumps({"id": k, "wav": "/nonexistent/"
+                                        + "x" * 2000, "word": "about"}) + "\n"
+                            for k in range(2000)).encode()
+
+            def send_flood():
+                with contextlib.suppress(OSError):
+                    stalled.sendall(flood)
+
+            sender = threading.Thread(target=send_flood, daemon=True)
+            sender.start()
+            waits = []
+            for k in range(4):
+                t1 = time.perf_counter()
+                (resp,) = socket_client(tcp.port, [line("g-", k)])
+                waits.append(time.perf_counter() - t1)
+                if resp["status"] != "ok":
+                    raise AssertionError(f"beside a stalled client: {resp}")
+            deadline = time.monotonic() + 60
+            while tcp.n_dropped == 0 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            stalled.close()
+            sender.join(timeout=60)
+            for s in servers:
+                s.shutdown()
+            for t in threads:
+                t.join(timeout=120)
+    finally:
+        serve_mod.SocketServer = base
+    launches = lstm_fwd_kernel.launches
+    if any(t.is_alive() for t in threads) or rcs != [0, 0]:
+        raise AssertionError(f"socket servers: exit codes {rcs}; "
+                             f"{err.getvalue()[-2000:]}")
+    if tcp.n_dropped != 1:
+        raise AssertionError(f"{tcp.n_dropped} connections dropped, not the "
+                             "stalled one")
+    if max(waits) > STALL_WAIT_S:
+        raise AssertionError(f"answers beside a stalled client took {waits}")
+    if os.path.exists(unix_path):
+        raise AssertionError("the unix socket path was not unlinked")
+    text = err.getvalue()
+    if "ready on port " not in text or f"ready on {unix_path}" not in text:
+        raise AssertionError(f"ready lines missing: {text[-2000:]}")
+    forwards = sum(int(l.split(" in ")[1].split()[0])
+                   for l in text.splitlines() if l.startswith("served "))
+    if launches < 4 * forwards or forwards == 0:
+        raise AssertionError(f"{launches} lstm_fwd launches for {forwards} "
+                             "forwards")
+    # every answer: ok, in order, groups of at most 16, equal to its solo
+    # answer on the fields that the grouping must not move
+    solo_engine = cli._build_engine(cli.build_parser().parse_args(
+        files["args"]))
+    batches = []
+    for name, (_, lines) in work.items():
+        for req, resp in zip(lines, got[name]):
+            (solo,) = serve_mod.handle_requests(solo_engine, [req])
+            if resp["status"] != "ok" or resp["id"] != json.loads(req)["id"]:
+                raise AssertionError(f"{name}: {resp}")
+            for k in ("decoded_row", "canonical_row", "insertion_faults",
+                      "substitution_faults", "deletion_faults", "score"):
+                if resp[k] != solo[k]:
+                    raise AssertionError(f"{name} {resp['id']}: {k} "
+                                         f"{resp[k]!r}, solo {solo[k]!r}")
+            batches.append(resp["batch"])
+    if max(batches) > 16:
+        raise AssertionError(f"a group of {max(batches)} past --max-batch 16")
+    try:
+        base(solo_engine, "0.0.0.0:0")
+        raise AssertionError("a bind to 0.0.0.0 was taken")
+    except ValueError:
+        pass
+    n_req = SOCKET_CLIENTS * SOCKET_REQUESTS + UNIX_REQUESTS
+    log(f"[product] serve --socket: {SOCKET_CLIENTS} TCP clients x "
+        f"{SOCKET_REQUESTS} and a unix client x {UNIX_REQUESTS}, {n_req} "
+        f"answers ok in {wall:.3f} s, each equal to its solo answer; groups "
+        f"{sorted(set(batches))} (at most 16); 0.0.0.0 refused ({card})")
+    log(f"[product] serve --socket: beside a client that stopped reading "
+        f"(dropped: {tcp.n_dropped}), 4 answers in "
+        f"{max(waits) * 1e3:.1f} ms at most; the unix path unlinked")
+    log(f"[product] serve --socket: lstm_fwd launches {launches} over "
+        f"{forwards} model forwards (warmup included)")
+    return launches
+
+
+def product_loadtest(files, paths: list, card: str) -> None:
+    """(d), not gating: the port's serve_loadtest at 1, 4 and 16 clients,
+    denoise on and off."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.tools.serve_loadtest import run_loadtest
+
+    requests = [(p, LEX_WORDS[i % len(LEX_WORDS)])
+                for i, p in enumerate(paths)]
+    for denoise in ("--denoise", "--no-denoise"):
+        engine = cli._build_engine(cli.build_parser().parse_args(
+            files["args"] + [denoise]))
+        engine.warmup()
+        for clients in LOAD_CLIENTS:
+            out = run_loadtest(engine, requests, clients, LOAD_SECONDS)
+            log(f"[product] load {denoise} clients={clients}: "
+                + json.dumps({k: out[k] for k in (
+                    "requests_ok", "errors", "requests_per_s", "p50_ms",
+                    "p90_ms", "p99_ms", "max_ms", "forwards", "seconds")})
+                + f" ({card})")
+            if out["errors"]:
+                log(f"[product]   errors: {out['sample_errors']}")
+
+
+def phase_product(torch, files, card: str) -> dict:
+    """The product front end on phase serve's files: feat, infer --denoise,
+    serve --socket, then the load test; -> lstm_fwd launches by path."""
+    t0 = time.perf_counter()
+    scp, paths = write_feat_wavs()
+    product_feat(torch, scp, paths, card)
+    launches = {"infer-denoise": product_infer(torch, files, paths, card),
+                "serve-socket": product_socket(torch, files, card)}
+    product_loadtest(files, paths, card)
+    log(f"[product] phase in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def phase_profile(torch, engine, files, card: str) -> None:
@@ -2105,6 +2554,7 @@ def main() -> int:
     files = write_serving_files(cfg, meta, state)
     launches, engine = phase_serve(files, card)
     lexicon = phase_lexicon(torch, files, card)
+    product = phase_product(torch, files, card)
     phase_profile(torch, engine, files, card)
     train = write_corpus("train", TRAIN_UTTS, SEED + 2)
     dev = write_corpus("dev", DEV_UTTS, SEED + 3)
@@ -2129,10 +2579,11 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
-        "launches": (launches + sum(lexicon.values()) + train_fwd
+        "launches": (launches + sum(lexicon.values())
+                     + sum(product.values()) + train_fwd
                      + fused["lstm_fwd"] + bf16["lstm_fwd"]
                      + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd),
-        "launches_by_path": {"serve": launches, **lexicon,
+        "launches_by_path": {"serve": launches, **lexicon, **product,
                              "train": train_fwd,
                              "train-fused": fused["lstm_fwd"],
                              "train-bf16": bf16["lstm_fwd"],

@@ -6,6 +6,10 @@
                                 [--fold-reduced]
   python -m mdd_tpu_torch merge --dirs D [D ...] --out D
   python -m mdd_tpu_torch units --phn-text F --out F
+  python -m mdd_tpu_torch feat --wav-scp F --out-dir D
+                                [--feat-type fbank|mfcc|spectrogram]
+                                [--name N] [--cmvn F] [--batch-size N]
+                                [--device cuda|cpu]
   python -m mdd_tpu_torch train --conf YAML [--resume] [--device cuda|cpu]
   python -m mdd_tpu_torch evaluate --conf YAML [--checkpoint DIR]
                                 [--dump-dir DIR] [--decode-type Greedy|Beam]
@@ -18,15 +22,21 @@
                                 [--ecdict-csv F] [--forgiving 0|1|2]
                                 [--phonetic-format cmu|ipa]
                                 [--textgrid-path DIR] [--decode-dump F]
-                                [--device cuda|cpu]
+                                [--[no-]denoise] [--device cuda|cpu]
   python -m mdd_tpu_torch serve --conf YAML --cmvn F [--checkpoint DIR]
                                 [--dict-dir DIR] [--ecdict-csv F]
                                 [--forgiving 0|1|2] [--phonetic-format cmu|ipa]
                                 [--warmup [SECONDS]] [--max-batch N]
+                                [--socket HOST:PORT|PATH] [--[no-]denoise]
                                 [--device cuda|cpu] [--decode-type Greedy|Beam]
 
 `prepare-timit`, `prepare-l2arctic`, `merge` and `units` write the
-Kaldi-style data dirs and the unit inventory (data/prepare.py).  `train`
+Kaldi-style data dirs and the unit inventory (data/prepare.py).  `feat`
+extracts fbank or MFCC features of a wav.scp on the device to
+`<out-dir>/<name>.{ark,scp}`, CMVN-normalized with `--cmvn`'s stats or
+with stats trained on this split (written to
+`global_<name>_cmvn.txt`), or the per-utterance normalized spectrogram,
+which has no CMVN stage.  `train`
 runs the recipe of the YAML, on the device-resident corpus where
 it says `device_cache: true` (train and dev split) and on the streaming
 loader otherwise, and writes `best` and the resumable `latest` under
@@ -38,11 +48,13 @@ weighted by `lm_alpha`), prints PER and the TA/FR/FA/TR report and, with
 `train-lm` trains that bigram LM from a phone transcript file.
 `infer` diagnoses every N.wav + N.txt prompt pair of a directory and
 prints a report per word and the RTF breakdown; `serve` answers
-line-delimited JSON requests on stdin (see serve.py).  Both take the
-canonical phones, IPA, translation and phonics from the lexicon: the
-CMUdict files of `--dict-dir` (else MDD_DICT_DIR) and the ECDICT csv of
-`--ecdict-csv`.  Not in the port yet: `--denoise` (so `infer` equals
-`mdd_tpu infer --no-denoise`) and `serve --socket`.
+line-delimited JSON requests on stdin, or with `--socket` on a loopback
+TCP address or a unix-socket path for concurrent clients (see serve.py).
+Both take the canonical phones, IPA, translation and phonics from the
+lexicon: the CMUdict files of `--dict-dir` (else MDD_DICT_DIR) and the
+ECDICT csv of `--ecdict-csv`, and both denoise every wav with the native
+denoiser unless given `--no-denoise`; where the denoiser does not build
+they fail (mdd_tpu warns and goes on without it).
 The checkpoint is the port's format (train/checkpoint.py): by default
 `<checkpoint_dir>/<exp_name>/best.pt` + `best.meta.json` of the config.
 """
@@ -92,6 +104,49 @@ def cmd_units(args) -> int:
 
     units = build_units(args.phn_text, args.out)
     print(f"{len(units)} units -> {args.out}")
+    return 0
+
+
+def cmd_feat(args) -> int:
+    from pathlib import Path
+
+    from mdd_tpu_torch.frontend.cmvn import parse_kaldi_cmvn_text
+    from mdd_tpu_torch.frontend.pipeline import extract_split
+
+    if args.feat_type == "spectrogram":
+        # the legacy spectrogram path has no CMVN stage
+        if args.cmvn:
+            raise SystemExit(
+                "--cmvn is not supported with --feat-type spectrogram: the "
+                "legacy spectrogram path (local/make_spectrum.py) has no "
+                "CMVN stage, so the stats would be silently ignored.  Use "
+                "fbank or mfcc for CMVN-normalized features.")
+        from mdd_tpu_torch.frontend.spectrogram import make_spectrum
+
+        out = Path(args.out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        name = args.name if args.name != "fbank" else "spectrogram"
+        scp_path = str(out / f"{name}.scp")
+        make_spectrum(args.wav_scp, str(out / f"{name}.ark"), scp_path,
+                      device=args.device)
+        print(f"features -> {scp_path}")
+        return 0
+    if args.feat_type == "mfcc":
+        from mdd_tpu_torch.frontend.mfcc import MfccConfig
+
+        cfg = MfccConfig()
+        name = args.name if args.name != "fbank" else "mfcc"
+    else:
+        from mdd_tpu_torch.frontend.fbank import FbankConfig
+
+        cfg = FbankConfig()
+        name = args.name
+    cmvn = parse_kaldi_cmvn_text(args.cmvn) if args.cmvn else None
+    scp_path, _ = extract_split(args.wav_scp, args.out_dir, name=name,
+                                cfg=cfg, cmvn=cmvn,
+                                batch_size=args.batch_size,
+                                device=args.device)
+    print(f"features -> {scp_path}")
     return 0
 
 
@@ -263,6 +318,18 @@ def _build_engine(args):
     if args.decode_type:
         cfg.decode_type = args.decode_type
     state, model_cfg = _load_best(cfg, args.checkpoint)
+    denoiser = None
+    if args.denoise:
+        # the demo's denoise stage, on every wav; mdd_tpu goes on without
+        # it when its library does not build, the port stops
+        from mdd_tpu_torch import native
+
+        try:
+            native.load_denoiser()
+        except (RuntimeError, OSError) as e:
+            raise SystemExit(f"the native denoiser is unavailable ({e}); "
+                             "pass --no-denoise to run without it") from e
+        denoiser = native.spectral_denoise
     return InferenceEngine(
         model_cfg, state,
         Vocab.from_units_file(cfg.vocab_file),
@@ -274,7 +341,7 @@ def _build_engine(args):
         left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
         n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample,
         use_ipa=args.phonetic_format == "ipa", forgiving=args.forgiving,
-        device=args.device)
+        device=args.device, denoiser=denoiser)
 
 
 def cmd_infer(args) -> int:
@@ -288,8 +355,8 @@ def cmd_infer(args) -> int:
 
 def cmd_serve(args) -> int:
     """Load the model and the lexicon once, answer JSON request lines on
-    stdin until EOF."""
-    from mdd_tpu_torch.serve import serve_loop
+    stdin until EOF, or on `--socket` until interrupted."""
+    from mdd_tpu_torch.serve import SocketServer, serve_loop
 
     engine = _build_engine(args)
     if args.warmup:
@@ -297,9 +364,20 @@ def cmd_serve(args) -> int:
         print(f"warmed {n_shapes} shapes", file=sys.stderr, flush=True)
     log = (None if args.quiet else
            (lambda m: print(m, file=sys.stderr, flush=True)))
-    print("ready", file=sys.stderr, flush=True)
-    n = serve_loop(engine, sys.stdin, sys.stdout, log=log,
-                   max_batch=args.max_batch)
+    if args.socket:
+        server = SocketServer(engine, args.socket, max_batch=args.max_batch,
+                              log=log)
+        addr = (f"port {server.port}" if server.port is not None
+                else args.socket)
+        print(f"ready on {addr}", file=sys.stderr, flush=True)
+        try:
+            n = server.serve_forever()
+        except KeyboardInterrupt:
+            n = server.n_served
+    else:
+        print("ready", file=sys.stderr, flush=True)
+        n = serve_loop(engine, sys.stdin, sys.stdout, log=log,
+                       max_batch=args.max_batch)
     print(f"served {n} requests in {engine.session.forwards} forwards",
           file=sys.stderr)
     return 0
@@ -326,6 +404,11 @@ def _add_lexicon_args(q) -> None:
                    default="cmu",
                    help="show the canonical and decoded rows in CMU units "
                         "or IPA symbols")
+    q.add_argument("--denoise", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="run the native denoiser on every wav (default on, "
+                        "as the reference demo denoises every input); "
+                        "--no-denoise disables it")
     q.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
 
@@ -359,6 +442,21 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--phn-text", required=True)
     q.add_argument("--out", required=True)
     q.set_defaults(fn=cmd_units)
+
+    q = sub.add_parser("feat", help="extract acoustic features")
+    q.add_argument("--wav-scp", required=True)
+    q.add_argument("--out-dir", required=True)
+    q.add_argument("--feat-type", default="fbank",
+                   choices=["fbank", "mfcc", "spectrogram"],
+                   help="feature type (the reference runner's feat_type)")
+    q.add_argument("--name", default="fbank",
+                   help="file stem (default fbank; mfcc and spectrogram "
+                        "when left at fbank for those types)")
+    q.add_argument("--cmvn", help="existing CMVN stats (else trained here)")
+    q.add_argument("--batch-size", type=int, default=16)
+    q.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    q.set_defaults(fn=cmd_feat)
 
     q = sub.add_parser("train", help="train the CTC-attention model")
     q.add_argument("--conf", required=True)
@@ -432,6 +530,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=0.0, metavar="SECONDS",
                    help="run the serving shape set for wavs up to SECONDS "
                         "(default 3.2) before the first request")
+    q.add_argument("--socket", metavar="ADDR",
+                   help="listen on 'host:port' (TCP, a loopback host only) "
+                        "or a unix-socket path instead of stdin/stdout; "
+                        "concurrent clients are batched together")
     q.add_argument("--max-batch", type=int, default=16,
                    help="requests answered together, at most (default 16)")
     q.add_argument("--quiet", action="store_true",

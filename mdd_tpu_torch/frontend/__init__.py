@@ -1,2 +1,3 @@
-"""Audio in, Kaldi-compatible features out: wav, fbank, CMVN, splice,
-Kaldi ark/scp IO and training-time augmentation."""
+"""Audio in, Kaldi-compatible features out: wav, fbank (with dither),
+MFCC, spectrogram, CMVN, splice, the feature pipeline, Kaldi ark/scp IO
+and training-time augmentation."""

@@ -8,7 +8,10 @@ over the first 256 bins, Kaldi mel triangles (1127 ln(1 + f/700), low
 20 Hz, high nyquist), log with a float-epsilon floor, energy at feature
 index 0.  The 512-point real DFT is one (frames x 512) @ (512 x 512)
 matmul against precomputed cos/sin bases and the mel projection one
-(frames x 256) @ (256 x 80) matmul.  No dither: the serving path runs
+(frames x 256) @ (256 x 80) matmul.  Dither (`FbankConfig.dither`, the
+stddev of Gaussian noise added to every frame before the DC removal) is
+off by default, as in mdd_tpu, and applies only where the caller passes a
+`torch.Generator` (mdd_tpu takes a PRNG key): serving and `feat` run
 deterministic features.
 """
 
@@ -35,6 +38,8 @@ class FbankConfig:
     preemphasis: float = 0.97
     remove_dc_offset: bool = True
     window_type: str = "hamming"
+    dither: float = 0.0  # Kaldi's binaries default to 1.0; off here, as in
+    # mdd_tpu (train-time dither through a caller's torch.Generator)
     low_freq: float = 20.0
     high_freq: float = 0.0  # <=0 -> offset from nyquist
     snip_edges: bool = True
@@ -124,13 +129,27 @@ def frame_counts(lengths: np.ndarray, cfg: FbankConfig) -> np.ndarray:
     return np.asarray([num_frames(int(n), cfg) for n in lengths], np.int32)
 
 
+def dither_noise(shape, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Standard normal noise of `shape`, drawn on the generator's device
+    and moved to `device` (a CPU generator gives the same bits for a CPU
+    and a CUDA batch)."""
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
+
+
 def compute_fbank_batch(waveforms: torch.Tensor, lengths: np.ndarray,
-                        cfg: FbankConfig = FbankConfig()):
+                        cfg: FbankConfig = FbankConfig(),
+                        generator: torch.Generator | None = None):
     """Batched fbank over zero-padded waveforms, on waveforms' device.
 
     Args:
       waveforms: (B, S_max) float32 in int16 scale, zero-padded.
       lengths: (B,) valid sample counts (host).
+      generator: draws the dither noise when cfg.dither is not 0 (one
+        independent draw a frame sample, every row its own; mdd_tpu's
+        vmap over one key gives every row of a batch the same draws).
+        Without it, or at dither 0, no noise is added.
     Returns (features (B, T_max, D) float32 tensor, frame_counts (B,) int32
     numpy).  Every row is framed over the padded length, as mdd_tpu's vmap
     over compute_fbank does; frames past a row's own count are padding.
@@ -141,6 +160,9 @@ def compute_fbank_batch(waveforms: torch.Tensor, lengths: np.ndarray,
     wav = torch.nn.functional.pad(waveforms.float(),
                                   (0, need - waveforms.shape[1]))
     frames = wav.unfold(1, length, shift)[:, :t]            # (B, T, L)
+    if cfg.dither != 0.0 and generator is not None:
+        frames = frames + cfg.dither * dither_noise(frames.shape, generator,
+                                                    frames.device)
     if cfg.remove_dc_offset:
         frames = frames - frames.mean(dim=2, keepdim=True)
     if cfg.use_energy and cfg.raw_energy:
@@ -170,3 +192,12 @@ def compute_fbank_batch(waveforms: torch.Tensor, lengths: np.ndarray,
     if cfg.use_energy:
         mel_energies = torch.cat([log_energy[..., None], mel_energies], dim=2)
     return mel_energies, frame_counts(lengths, cfg)
+
+
+def compute_fbank(waveform: torch.Tensor, cfg: FbankConfig = FbankConfig(),
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """(num_samples,) float32 in int16 scale -> (T, feat_dim) features."""
+    feats, _ = compute_fbank_batch(waveform[None],
+                                   np.asarray([waveform.shape[0]]), cfg,
+                                   generator)
+    return feats[0]

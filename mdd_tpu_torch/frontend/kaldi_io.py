@@ -2,11 +2,14 @@
 
 Binary float/double matrices ("BFM "/"BDM ", as `copy-feats
 --compress=false` writes them) and vectors, scp indirection
-(`utt path:offset`), the bulk reader of the device-resident corpus, and
-the writer the training corpus tools use.  Pure Python + NumPy; the native
-mmap reader waits for the port's front-end slice, and the header-only
-length scan (`matrix_rows`, for mdd_tpu's multi-process global schedule)
-for its scale-out slice.
+(`utt path:offset`), the bulk reader of the device-resident corpus
+(`bulk_load`) and the length scan (`matrix_rows`), and the writer the
+feature and corpus tools use.  The bulk paths index each ark file once
+through the native mmap reader (`native.NativeArkReader`, `csrc/ark_io.cc`);
+an ark it cannot index (an entry that is not a float32 matrix) is read by
+one sequential Python pass, as in mdd_tpu, but a library that fails to
+build raises.  `bulk_load_python` is that pass for every file, the plain
+version the native path is held against.
 """
 
 from __future__ import annotations
@@ -115,31 +118,123 @@ def _iter_ark_with_offsets(path: str) -> Iterator[Tuple[str, int, np.ndarray]]:
             yield utt, offset, _read_binary_matrix(f)
 
 
-def bulk_load(rxspecifiers: Iterable[str]) -> List[np.ndarray]:
-    """Load many scp entries, reading each ark file once, in one sequential
-    pass, instead of one open and seek an entry; -> matrices in the input
-    order.  An offset the pass did not meet (a stale scp) falls back to
-    load_mat, which raises if the entry is truly unreadable; a bare ark
-    path stands for its first matrix, as in load_mat."""
-    order = [_split_rx(rx) for rx in rxspecifiers]
+def _group_by_ark(rxspecifiers: Iterable[str]):
+    """-> (number of entries, {ark path: [(input index, offset or None)]})."""
     groups: Dict[str, List[Tuple[int, Optional[int]]]] = {}
-    for k, (path, off) in enumerate(order):
+    n = 0
+    for k, rx in enumerate(rxspecifiers):
+        path, off = _split_rx(rx)
         groups.setdefault(path, []).append((k, off))
-    out: List[Optional[np.ndarray]] = [None] * len(order)
+        n = k + 1
+    return n, groups
+
+
+def _load_group_python(path: str, entries, out: list) -> None:
+    """One sequential pass over `path` fills out[k] for its entries."""
+    by_off: Dict[int, np.ndarray] = {}
+    first = None
+    for _, off, mat in _iter_ark_with_offsets(path):
+        if first is None:
+            first = mat
+        by_off[off] = mat
+    for k, off in entries:
+        if off is None:
+            out[k] = first
+        else:
+            mat = by_off.get(off)
+            out[k] = mat if mat is not None else load_mat(f"{path}:{off}")
+
+
+def bulk_load(rxspecifiers: Iterable[str]) -> List[np.ndarray]:
+    """Load many scp entries, indexing each ark file once, instead of one
+    open and seek an entry; -> matrices in the input order.
+
+    Each file goes through the native mmap reader; one it cannot index
+    (not plain BFM) through one sequential Python pass.  An offset the
+    index did not meet (a stale scp) falls back to load_mat, which raises
+    if the entry is truly unreadable; a bare ark path stands for its first
+    matrix, as in load_mat."""
+    from mdd_tpu_torch.native import NativeArkReader
+
+    n, groups = _group_by_ark(rxspecifiers)
+    out: List[Optional[np.ndarray]] = [None] * n
     for path, entries in groups.items():
-        by_off: Dict[int, np.ndarray] = {}
-        first = None
-        for _, off, mat in _iter_ark_with_offsets(path):
-            if first is None:
-                first = mat
-            by_off[off] = mat
-        for k, off in entries:
-            if off is None:
-                out[k] = first
-            else:
-                mat = by_off.get(off)
-                out[k] = mat if mat is not None else load_mat(
-                    f"{path}:{off}")
+        try:
+            reader = NativeArkReader(path)
+        except OSError:
+            _load_group_python(path, entries, out)
+            continue
+        with reader:
+            for k, off in entries:
+                i = 0 if off is None else reader.by_offset.get(off)
+                out[k] = (reader.read(i) if i is not None
+                          else load_mat(f"{path}:{off}"))
+    return out
+
+
+def bulk_load_python(rxspecifiers: Iterable[str]) -> List[np.ndarray]:
+    """bulk_load by one sequential Python pass a file, for every file."""
+    n, groups = _group_by_ark(rxspecifiers)
+    out: List[Optional[np.ndarray]] = [None] * n
+    for path, entries in groups.items():
+        _load_group_python(path, entries, out)
+    return out
+
+
+def _iter_ark_headers(path: str) -> Iterator[Tuple[str, int, int, int]]:
+    """Header-only ark scan: (utt, marker offset, rows, cols) an entry,
+    seeking over the payloads."""
+    with open(path, "rb") as f:
+        while True:
+            utt = _read_token(f)
+            if not utt:
+                return
+            offset = f.tell()
+            if f.read(2) != b"\x00B":
+                raise ValueError("only binary arks are supported")
+            token = _read_token(f)
+            if token not in ("BFM", "BDM"):
+                raise ValueError(f"unsupported token {token!r}")
+            itemsize = 4 if token == "BFM" else 8
+            _expect(f, b"\x04")
+            rows = struct.unpack("<i", f.read(4))[0]
+            _expect(f, b"\x04")
+            cols = struct.unpack("<i", f.read(4))[0]
+            f.seek(rows * cols * itemsize, 1)
+            yield utt, offset, rows, cols
+
+
+def matrix_rows(rxspecifiers: Iterable[str]) -> List[int]:
+    """Row counts (frame lengths) of many scp entries without reading
+    their payloads: the native index, or header-only seeks for a file it
+    cannot index; input order kept."""
+    from mdd_tpu_torch.native import NativeArkReader
+
+    n, groups = _group_by_ark(rxspecifiers)
+    out = [0] * n
+    for path, entries in groups.items():
+        try:
+            reader = NativeArkReader(path)
+        except OSError:
+            by_off: Dict[int, int] = {}
+            first = None
+            for _, off, rows, _ in _iter_ark_headers(path):
+                if first is None:
+                    first = rows
+                by_off[off] = rows
+            for k, off in entries:
+                if off is None:
+                    out[k] = first
+                else:
+                    r = by_off.get(off)
+                    out[k] = (r if r is not None
+                              else load_mat(f"{path}:{off}").shape[0])
+            continue
+        with reader:
+            for k, off in entries:
+                i = 0 if off is None else reader.by_offset.get(off)
+                out[k] = (int(reader.rows[i]) if i is not None
+                          else load_mat(f"{path}:{off}").shape[0])
     return out
 
 

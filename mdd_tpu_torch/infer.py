@@ -2,7 +2,8 @@
 mdd_tpu/infer.py).  For each recorded word (one `N.wav` + `N.txt` prompt
 pair of a directory in `diagnose_dir`, or one serving request):
 
-  resample -> fbank (device) + committed CMVN -> splice / skip / pad ->
+  resample -> denoise (host, optional) -> fbank (device) + committed
+  CMVN -> splice / skip / pad ->
   CTC-attention forward + greedy or beam decode (device) -> strip sil /
   drop err -> align decoded vs canonical -> optional forgiveness of
   confusable phones -> per-phone fault lists -> 0-100 score ->
@@ -11,8 +12,11 @@ pair of a directory in `diagnose_dir`, or one serving request):
 The canonical phones, the IPA display, the translation and the phonics
 come from the word through the lexicon (lexicon/dictionary.Phonetic),
 unless an item carries its own canonical phones (a TextGrid prompt, or a
-request's "canonical").  Not in this module yet: the denoise stage of
-mdd_tpu's demo, so `infer` here equals `mdd_tpu infer --no-denoise`.
+request's "canonical").  The denoise stage is the engine's `denoiser`
+hook ((waveform, sample rate) -> waveform), applied after resampling and
+before the length gate, as in mdd_tpu; the `infer` and `serve` commands
+pass the native spectral denoiser (native.spectral_denoise) unless given
+`--no-denoise`.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import dataclasses
 import time
 import warnings
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,6 +151,7 @@ class InferenceEngine:
         forgiving: Optional[int] = None,   # g_pairs level; None is the
         # reference's strict criterion (infer.py:69-153)
         device: str | torch.device = "cuda",
+        denoiser: Optional[Callable[[np.ndarray, int], np.ndarray]] = None,
     ):
         t0 = time.time()
         self.session = EvalSession(model_cfg, state_dict, vocab,
@@ -167,6 +172,7 @@ class InferenceEngine:
         self.left_ctx, self.right_ctx = left_ctx, right_ctx
         self.n_skip_frame, self.n_downsample = n_skip_frame, n_downsample
         self.max_wav_seconds = max_wav_seconds
+        self.denoiser = denoiser
         self.use_ipa = use_ipa
         self.forgiving = forgiving
 
@@ -177,6 +183,8 @@ class InferenceEngine:
             data = data[:, 0]
         if sr != 16000:
             data = resample(data, sr, 16000)
+        if self.denoiser is not None:
+            data = self.denoiser(data, 16000)
         if len(data) / 16000.0 > self.max_wav_seconds:
             return None
         return data.astype(np.float32)
@@ -394,8 +402,8 @@ class InferenceEngine:
 
         if total_audio > 0:
             # the reference's 4-way breakdown (infer.py:588-597): model
-            # init / phone init / audio load ("denoise", as the reference
-            # names that stage) / diagnosis, each over the audio's length
+            # init / phone init / audio load and denoise / diagnosis, each
+            # over the audio's length
             load_s, mdd_s = t1 - t0, t2 - t1
             time_used = (self._model_init_s + self._phone_init_s
                          + load_s + mdd_s)

@@ -1,13 +1,18 @@
-"""Build the package's CUDA sources into shared libraries loaded with ctypes.
+"""Build the package's CUDA and host C++ sources, loaded with ctypes.
 
 Each `csrc/*.cu` file exports a plain C interface and is compiled by hand
 with `nvcc` for `sm_90a` (Hopper) into `mdd_tpu_torch/_build/`, at first
 use, keyed by a hash of the source, the shared `csrc/*.cuh` headers and
-the flags, so an edited source or header is rebuilt.  Nothing here runs
-at import time, and nothing falls back: a missing `nvcc` or a failed
-compile raises.  `KernelBinding` binds one library's entry point and counts
-its launches; extra flags (`-DMDD_LSTM_FWD_STAMPS`) build a separate
-library beside the normal one.
+the flags, so an edited source or header is rebuilt.  The host sources
+`csrc/denoise.cc` and `csrc/ark_io.cc` are compiled the same way with
+`g++` and mdd_tpu's Makefile flags (`HOST_TARGETS`: the denoiser and the
+ark reader as shared libraries, the `mdd_denoise` command line tool).
+Nothing here runs at import time, and nothing falls back: a missing
+compiler or a failed compile raises.  Each build is written under a
+per-process name and moved into place, so processes building at once
+never see a partial file.  `KernelBinding` binds one library's entry
+point and counts its launches; extra flags (`-DMDD_LSTM_FWD_STAMPS`)
+build a separate library beside the normal one.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -27,6 +33,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# mdd_tpu's Makefile flags for its C++ libraries: CXXFLAGS, then each
+# target's own
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall")
+HOST_TARGETS = {
+    "libmdddenoise.so": ("denoise.cc", ("-shared",)),
+    "libmddarkio.so": ("ark_io.cc", ("-shared",)),
+    "mdd_denoise": ("denoise.cc", ("-DMDD_DENOISE_MAIN",)),
+}
 
 _loaded: Dict[tuple, ctypes.CDLL] = {}
 
@@ -57,6 +72,64 @@ def library_path(source: str, extra: tuple = ()) -> Path:
 def _tmp_path(out: Path) -> Path:
     # per-process name: two processes building at once never share a file
     return out.with_name(f"{out.name}.{os.getpid()}.tmp")
+
+
+def gxx_path() -> str:
+    cand = os.environ.get("CXX") or shutil.which("g++")
+    if not cand or not shutil.which(cand):
+        raise RuntimeError("g++ not found (set CXX): the host libraries of "
+                           "mdd_tpu_torch are built from source on first use")
+    return cand
+
+
+def host_path(target: str) -> Path:
+    """Where the host target `target` (a key of HOST_TARGETS) builds to;
+    the name carries a hash of its source and flags."""
+    source, extra = HOST_TARGETS[target]
+    flags = GXX_FLAGS + extra
+    digest = hashlib.sha256((CSRC / source).read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    stem, dot, suffix = target.partition(".")
+    return BUILD_DIR / f"{stem}-{digest}{dot}{suffix}"
+
+
+def start_host_build(target: str) -> subprocess.Popen | None:
+    """Start `g++` for one host target in the background (None if built)."""
+    out = host_path(target)
+    if out.exists():
+        return None
+    source, extra = HOST_TARGETS[target]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [gxx_path(), *GXX_FLAGS, *extra, "-o", str(_tmp_path(out)),
+           str(CSRC / source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def finish_host_build(target: str, proc: subprocess.Popen | None) -> Path:
+    """Wait for `start_host_build`'s compile; returns the built file."""
+    out = host_path(target)
+    if proc is not None:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            _tmp_path(out).unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed on {target}:\n{log}")
+        os.replace(_tmp_path(out), out)
+    return out
+
+
+def build_host(target: str) -> Path:
+    return finish_host_build(target, start_host_build(target))
+
+
+def load_host(target: str) -> ctypes.CDLL:
+    """Build (if needed) and load a host shared library; cached per
+    process."""
+    lib = _loaded.get(("host", target))
+    if lib is None:
+        lib = ctypes.CDLL(str(build_host(target)))
+        _loaded[("host", target)] = lib
+    return lib
 
 
 def start_build(source: str, extra: tuple = ()) -> subprocess.Popen | None:
@@ -108,8 +181,9 @@ class KernelBinding:
     """ctypes binding of one `csrc/` library with a launch counter.
 
     `argtypes` are the entry point's arguments before the stream.
-    `launches` counts the calls that launched the kernel; it is a plain
-    integer that a caller may reset.  `extra_flags` are passed to nvcc
+    `launches` counts the calls that launched the kernel (under a lock:
+    two serving threads may launch at once); it is a plain integer that a
+    caller may reset.  `extra_flags` are passed to nvcc
     after NVCC_FLAGS (a binding of the stamped build sets them)."""
 
     source = ""
@@ -118,6 +192,7 @@ class KernelBinding:
 
     def __init__(self, extra_flags: tuple = ()):
         self.launches = 0
+        self._count_lock = threading.Lock()
         self.extra_flags = tuple(extra_flags)
         self._lib = None
 
@@ -151,4 +226,5 @@ class KernelBinding:
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: "
                                + lib.mdd_cuda_error_string(err).decode())
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

@@ -1,5 +1,8 @@
 """Persistent serving loop for single-word MDD diagnosis (counterpart of
-mdd_tpu/serve.py: the line-delimited JSON protocol over a stream pair).
+mdd_tpu/serve.py): the line-delimited JSON protocol over a stream pair
+(`serve_loop`, stdin / stdout) or over a TCP or unix socket with
+concurrent clients and batching across them (`SocketServer`, the CLI's
+`serve --socket ADDR`).
 
 The engine and the lexicon load once and answer many requests:
 
@@ -23,14 +26,17 @@ Requests that are already queued are answered together (up to
 `max_batch`), in batched forwards bucketed by length, so a diagnosis never
 depends on what arrived with it.  "seconds" is the wall clock a request
 waited (its whole group's processing time); "amortized_seconds" its share.
-The socket transport of mdd_tpu (`SocketServer`) is not in the port yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import ipaddress
 import json
+import os
 import queue
+import socket
+import stat
 import threading
 import time
 from typing import IO
@@ -185,3 +191,259 @@ def serve_loop(engine: InferenceEngine, in_stream: IO[str],
                     f"batch {len(group)})")
         out_stream.flush()
     return n
+
+
+class _Connection:
+    """One client of a SocketServer: its socket, a bounded outbox of
+    encoded response lines and the writer thread that drains it, so that
+    no other thread ever blocks on this client's socket.  The writer closes
+    the connection once the client has stopped sending (`eof`) and every
+    request it sent was answered."""
+
+    def __init__(self, sock: socket.socket, outbox_max: int, on_sent):
+        self.sock = sock
+        self.outbox: "queue.Queue" = queue.Queue(maxsize=outbox_max)
+        self.closed = threading.Event()
+        self.eof = False       # the reader met the end of the client's lines
+        self.pending = 0       # requests queued and not yet answered
+        self.lock = threading.Lock()
+        self._on_sent = on_sent
+        self.writer = threading.Thread(target=self._write, daemon=True)
+        self.writer.start()
+
+    def send(self, data: bytes) -> bool:
+        """Queue one response without blocking; False, and the connection
+        closed, when it is closed already or its outbox is full."""
+        with self.lock:
+            self.pending -= 1
+        if self.closed.is_set():
+            return False
+        try:
+            self.outbox.put_nowait(data)
+        except queue.Full:
+            self.close()
+            return False
+        return True
+
+    def done(self) -> bool:
+        with self.lock:
+            return self.eof and self.pending == 0 and self.outbox.empty()
+
+    def _write(self) -> None:
+        while not self.closed.is_set():
+            try:
+                data = self.outbox.get(timeout=0.1)
+            except queue.Empty:
+                if self.done():
+                    self.close()
+                continue
+            try:
+                self.sock.sendall(data)
+            except OSError:
+                self.close()
+                return
+            finally:
+                self.outbox.task_done()
+            self._on_sent()
+
+    def close(self) -> None:
+        if self.closed.is_set():
+            return
+        self.closed.set()
+        try:
+            # wakes a writer blocked in sendall and a reader in recv
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.sock.close()
+
+
+def _loopback_host(host: str) -> str:
+    """The host of a TCP bind, which must be a loopback address: the
+    protocol names files on the server, so it must not face a network."""
+    host = host or "127.0.0.1"
+    if host == "localhost":
+        return "127.0.0.1"
+    try:
+        loopback = ipaddress.ip_address(host).is_loopback
+    except ValueError:
+        loopback = False
+    if not loopback:
+        raise ValueError(
+            f"refusing to listen on {host!r}: requests name files on this "
+            "machine, so the socket server binds only a loopback address "
+            "(127.0.0.1, localhost) or a unix-socket path")
+    return host
+
+
+class SocketServer:
+    """TCP / unix-socket transport around the serve protocol.
+
+    The line-delimited JSON contract of `serve_loop`, over a listening
+    socket with any number of concurrent clients.  A reader thread a
+    connection puts complete lines on one shared FIFO; the batcher thread
+    (`serve_forever`) answers whatever is pending, up to `max_batch`, in
+    one `handle_requests` call and hands each response to its connection's
+    writer thread through a bounded outbox: batching across clients, and
+    per-connection answers in request order.  The batcher never blocks on
+    a socket: a connection whose outbox overflows (a client that stopped
+    reading) is dropped and counted in `n_dropped`.
+
+    `address` is "host:port" for TCP, where the host must be a loopback
+    address ("host:0" binds an ephemeral port, kept in `.port`), or a
+    filesystem path for a unix socket.  `serve_forever()` returns after
+    `shutdown()`, once the queued requests are answered: it closes the live
+    connections and unlinks the unix-socket path.  `n_served` counts the
+    responses delivered to a client's socket.  `sndbuf` sets SO_SNDBUF on
+    each connection (None: the system's)."""
+
+    #: shared-queue bound: readers wait when the engine falls behind
+    QUEUE_MAX = 1024
+    #: responses waiting for one client's writer; past it the client is
+    #: dropped
+    OUTBOX_MAX = 256
+
+    def __init__(self, engine: InferenceEngine, address: str,
+                 max_batch: int = 16, log=None, outbox_max: int | None = None,
+                 sndbuf: int | None = None):
+        self.engine = engine
+        self.max_batch = max_batch
+        self.log = log
+        self.outbox_max = outbox_max or self.OUTBOX_MAX
+        self.sndbuf = sndbuf
+        self.q: "queue.Queue" = queue.Queue(maxsize=self.QUEUE_MAX)
+        self._shutdown = threading.Event()
+        self._conns: set = set()
+        self._lock = threading.Lock()
+        self.n_served = 0
+        self.n_dropped = 0
+        # a path (a separator, or no colon at all) is a unix socket;
+        # otherwise host:port
+        if os.sep in address or ":" not in address:
+            if os.path.exists(address):
+                if not stat.S_ISSOCK(os.stat(address).st_mode):
+                    raise ValueError(
+                        f"refusing to replace non-socket file {address!r}")
+                os.unlink(address)
+            self.path = address
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.bind(address)
+            self.port = None
+        else:
+            host, port = address.rsplit(":", 1)
+            host = _loopback_host(host)
+            self.path = None
+            self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self.sock.bind((host, int(port)))
+            self.port = self.sock.getsockname()[1]
+        self.sock.listen(64)
+        self.sock.settimeout(0.2)   # so the accept loop sees shutdown
+
+    def _sent(self) -> None:
+        with self._lock:
+            self.n_served += 1
+
+    def _reader(self, conn: _Connection) -> None:
+        """Complete lines of one client -> the shared queue."""
+        try:
+            with conn.sock.makefile("r", encoding="utf-8",
+                                    errors="replace") as f:
+                for line in f:
+                    if not line.strip():
+                        continue
+                    with conn.lock:
+                        conn.pending += 1
+                    while not self._shutdown.is_set():
+                        try:
+                            self.q.put((conn, line.strip()), timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
+                    else:
+                        return
+        except (OSError, ValueError):
+            pass  # closed under us; its queued requests still run
+        finally:
+            with conn.lock:
+                conn.eof = True
+
+    def _accept_loop(self) -> None:
+        while not self._shutdown.is_set():
+            try:
+                sock, _ = self.sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            if self.sndbuf:
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF,
+                                self.sndbuf)
+            conn = _Connection(sock, self.outbox_max, self._sent)
+            with self._lock:
+                self._conns = {c for c in self._conns
+                               if not c.closed.is_set()} | {conn}
+            threading.Thread(target=self._reader, args=(conn,),
+                             daemon=True).start()
+
+    def _route(self, conn: _Connection, resp: dict, batch: int) -> None:
+        data = (json.dumps(resp, ensure_ascii=False) + "\n").encode()
+        was_open = not conn.closed.is_set()
+        if not conn.send(data) and was_open:
+            with self._lock:
+                self.n_dropped += 1
+        if self.log is not None:
+            self.log(f"[serve] {resp.get('word', '?')} -> {resp['status']} "
+                     f"(batch {batch})")
+
+    def serve_forever(self) -> int:
+        """Accept and answer until shutdown(); returns n_served."""
+        accept = threading.Thread(target=self._accept_loop, daemon=True)
+        accept.start()
+        try:
+            while True:
+                try:
+                    item = self.q.get(timeout=0.2)
+                except queue.Empty:
+                    if self._shutdown.is_set():
+                        break
+                    continue
+                group = [item]
+                while len(group) < self.max_batch:
+                    try:
+                        group.append(self.q.get_nowait())
+                    except queue.Empty:
+                        break
+                conns, lines = zip(*group)
+                for conn, resp in zip(conns,
+                                      handle_requests(self.engine,
+                                                      list(lines))):
+                    self._route(conn, resp, len(group))
+        finally:
+            self._shutdown.set()
+            self.sock.close()
+            accept.join(timeout=5)
+            self._close_connections()
+            if self.path is not None and os.path.exists(self.path):
+                os.unlink(self.path)
+        return self.n_served
+
+    def _close_connections(self, drain_s: float = 2.0) -> None:
+        """Let each writer deliver what is queued (up to drain_s in all),
+        then close every connection."""
+        deadline = time.monotonic() + drain_s
+        with self._lock:
+            conns = list(self._conns)
+            self._conns = set()
+        for conn in conns:
+            while (not conn.closed.is_set() and conn.outbox.unfinished_tasks
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            conn.close()
+            conn.writer.join(timeout=max(0.0, deadline - time.monotonic())
+                             + 0.5)
+
+    def shutdown(self) -> None:
+        """Stop accepting; serve_forever answers what is queued, closes the
+        connections and returns."""
+        self._shutdown.set()

@@ -1,9 +1,12 @@
 """The port stands alone: no module of mdd_tpu_torch, and not chip_smoke.py,
 imports JAX, flax, orbax or anything of mdd_tpu (checked on the AST, so
-an import inside a function counts too)."""
+an import inside a function counts too), and no file of mdd_tpu_torch
+names the repository's C++ directory `native/`: the port builds its host
+libraries from its own copies in `mdd_tpu_torch/csrc/`."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 
@@ -69,3 +72,42 @@ def test_lexicon_slice_modules_are_checked(module):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             top_level.add(node.module.split(".")[0])
     assert not top_level & {"triton", "g2p_en", "phonemizer", "melo"}
+
+
+@pytest.mark.parametrize("module", [
+    "native/__init__.py", "frontend/mfcc.py", "frontend/spectrogram.py",
+    "frontend/pipeline.py", "frontend/kaldi_io.py", "frontend/fbank.py",
+    "ops/build.py", "serve.py", "tools/serve_loadtest.py"])
+def test_front_end_slice_modules_are_checked(module):
+    """The modules of the front-end and socket-serving slice exist, are
+    among the checked sources, and import neither triton nor a built
+    library at module level (the host libraries build at first use)."""
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    top_level = {alias.name.split(".")[0]
+                 for node in ast.parse(path.read_text()).body
+                 if isinstance(node, ast.Import) for alias in node.names}
+    assert "triton" not in top_level
+
+
+# `native/` or "native" as a path part, but not the port's own
+# `mdd_tpu_torch/native` nor mdd_tpu's `mdd_tpu/native` module path
+_ROOT_NATIVE = re.compile(r"(?<![\w/.])native/|[\"']native[\"']")
+PORT_FILES = sorted(p for p in (ROOT / "mdd_tpu_torch").rglob("*")
+                    if p.suffix in {".py", ".cc", ".cu", ".cuh"})
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_does_not_name_the_native_directory(path):
+    hits = [line for line in path.read_text().splitlines()
+            if _ROOT_NATIVE.search(line)]
+    assert not hits, f"{path.relative_to(ROOT)} names native/: {hits}"
+
+
+def test_native_pattern_catches_the_root_directory():
+    assert _ROOT_NATIVE.search('path = ROOT / "native" / "denoise.cc"')
+    assert _ROOT_NATIVE.search("built from native/denoise.cc")
+    assert not _ROOT_NATIVE.search("mdd_tpu_torch/native/__init__.py")
+    assert not _ROOT_NATIVE.search("counterpart of mdd_tpu/native/x.py")
+    assert (ROOT / "mdd_tpu_torch" / "csrc" / "denoise.cc") in PORT_FILES

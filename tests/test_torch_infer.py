@@ -296,7 +296,9 @@ def _conf(world, decode_type="Greedy"):
 def test_infer_subcommand_matches_jax_engine(world, greedy, tmp_path,
                                              capsys):
     """`infer --device cpu` with --phonetic-format ipa --forgiving 1 and a
-    decode dump prints what mdd_tpu's engine logs with the same options."""
+    decode dump prints what mdd_tpu's engine logs with the same options
+    (both without the denoiser: tests/test_torch_socket.py holds `infer`
+    with it)."""
     jax_engine, _ = greedy
     dump = tmp_path / "decode_seq.txt"
     rc = cli.main(["infer", "--wav-transcript-path", str(world["wav_dir"]),
@@ -305,7 +307,7 @@ def test_infer_subcommand_matches_jax_engine(world, greedy, tmp_path,
                    "--dict-dir", world["asset_dir"], "--ecdict-csv",
                    world["ecdict"], "--phonetic-format", "ipa",
                    "--forgiving", "1", "--decode-dump", str(dump),
-                   "--device", "cpu"])
+                   "--no-denoise", "--device", "cpu"])
     assert rc == 0
     ours = _split_logs([capsys.readouterr().out])
     ref_log = []
@@ -330,8 +332,8 @@ def test_serve_subcommand_word_only_max_batch_2(world, beam, monkeypatch,
     rc = cli.main(["serve", "--conf", _conf(world, "Beam"), "--cmvn",
                    world["cmvn"], "--checkpoint", str(world["root"] / "ckpt"),
                    "--dict-dir", world["asset_dir"], "--ecdict-csv",
-                   world["ecdict"], "--max-batch", "2", "--device", "cpu",
-                   "--quiet"])
+                   world["ecdict"], "--max-batch", "2", "--no-denoise",
+                   "--device", "cpu", "--quiet"])
     assert rc == 0
     resps = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert [r["status"] for r in resps] == ["ok"] * 5

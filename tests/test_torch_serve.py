@@ -274,7 +274,7 @@ def test_beam_requests_match_jax_and_serve_yaml_builds_the_beam(world):
     built = cli._build_engine(cli.build_parser().parse_args(
         ["serve", "--conf", str(conf), "--cmvn", cmvn_path, "--checkpoint",
          str(root / "ckpt_beam"), "--dict-dir", world["asset_dir"],
-         "--device", "cpu"]))
+         "--no-denoise", "--device", "cpu"]))
     assert not built.session.greedy and built.session.beam.beam_width == 4
     assert built.session.beam.lm_matrix.abs().sum() > 0
     built.phonetic = StubPhonetic()   # the display fields of the lines above
