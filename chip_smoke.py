@@ -153,6 +153,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             its kernel's device time (torch.profiler) beside its bound (the
             larger of bytes and integer operations), its plain version and
             F.dropout (the yardstick only; ops/dropout_time.py).
+20. distributed  `train --distributed` and `evaluate --distributed` at
+            full width, each rank a subprocess of the port's CLI with
+            torchrun's variables (a timeout each; a rank that fails or
+            hangs fails the phase): (a) 2 ranks x 32 sharing the card
+            (gloo) against 1 process x 64 for an epoch of the corpus at
+            dropout 0, on the streaming loader (global schedule) and on the
+            row-sharded device cache: the ranks' logged losses equal bit
+            for bit, the train losses within 1e-4 of one process's, the dev
+            loss within 3e-4 (DDP_DEV_RTOL says why); (b) 2 x 32 with
+            dropout 0.2 through the fused kernel: per rank, lstm_fwd 4 a
+            forward, lstm_bwd 4 and fused_dropout 12 a train step; (c)
+            `evaluate --distributed` (beam + LM) on train-fused's `best`,
+            2 ranks against one process (per rank lstm_fwd 4 a forward,
+            no other launch): the same tallies at batch 1, and
+            utterances/s at batch 1 and 64; (d) the step medians of 1 x 64
+            and 2 x 32 and the gradient all-reduce's time a step; (e) with
+            two cards or more, (a) as 2 ranks x 32 over two cards (nccl),
+            with four also 4 x 16 over four; else a line that says it was
+            not run.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits 2 without a CUDA device, or when run
@@ -2525,6 +2544,313 @@ def phase_timing_dropout(torch, card: str) -> dict:
     return out
 
 
+DDP_TIMEOUT_S = 420   # one rank's process, set-up included
+DDP_TRAIN_RTOL = 1e-4  # 2 ranks x 32 vs 1 x 64: every logged train loss
+DDP_DEV_RTOL = 3e-4    # the dev loss after the epoch's 8 Adam steps: the
+# conv biases feed a train-mode BatchNorm, their gradient is 0 up to
+# rounding, and Adam moves each about lr * sign(rounding) a step, so the
+# two runs' biases part by up to 2 lr a step and shift the eval-mode
+# BatchNorm's input (ROADMAP §3 item 8); the train losses do not see it
+# (train-mode BatchNorm subtracts the batch mean).  Sound runs on an H100
+# read up to 9.8e-5 (PERF.md §6)
+
+# Each rank is `python -c RANK_BOOT <result> <cli args>`: the port's CLI
+# entry point, with the launch counters set to 0 just before it, each
+# train step and gradient all-reduce timed to a synchronize, every
+# accumulator read (the logged losses at full precision) and the
+# evaluation's wall time recorded, and `use_fused_dropout` passed to
+# cli.build_trainer where SMOKE_FUSED is set (no YAML key sets it, in
+# mdd_tpu either).
+RANK_BOOT = r"""
+import json, os, sys, time
+sys.path.insert(0, os.environ["SMOKE_ROOT"])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from mdd_tpu_torch import cli
+from mdd_tpu_torch.evals import evaluate
+from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
+from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+from mdd_tpu_torch.train.loop import Trainer
+
+rec = {"steps": [], "reduces": [], "fetches": [], "eval_steps": 0}
+if os.environ.get("SMOKE_FUSED"):
+    build = cli.build_trainer
+    cli.build_trainer = lambda *a, **k: build(*a, use_fused_dropout=True,
+                                              **k)
+
+def timed(fn, key):
+    def wrapped(self, *a, **k):
+        rec["grad_bytes"] = 4 * sum(p.numel()
+                                    for p in self.model.parameters())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **k)
+        torch.cuda.synchronize()
+        rec[key].append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+Trainer.train_step = timed(Trainer.train_step, "steps")
+Trainer.all_reduce_gradients = timed(Trainer.all_reduce_gradients,
+                                     "reduces")
+fetch, eval_step, run_eval = (Trainer._fetch, Trainer.eval_step,
+                              evaluate.evaluate_model)
+
+def fetch_rec(self, acc):
+    out = fetch(self, acc)
+    rec["fetches"].append(list(out))
+    return out
+
+def eval_rec(self, *a):
+    rec["eval_steps"] += 1
+    return eval_step(self, *a)
+
+def run_eval_rec(*a, **k):
+    t0 = time.perf_counter()
+    rep = run_eval(*a, **k)
+    torch.cuda.synchronize()
+    rec["eval_s"] = time.perf_counter() - t0
+    return rep
+
+Trainer._fetch, Trainer.eval_step = fetch_rec, eval_rec
+evaluate.evaluate_model = run_eval_rec
+kernels = {"lstm_fwd": lstm_fwd_kernel, "lstm_bwd": lstm_bwd_kernel,
+           "fused_dropout": fused_dropout_kernel}
+for k in kernels.values():
+    k.launches = 0
+rc = cli.main(sys.argv[2:])
+rec["launches"] = {n: k.launches for n, k in kernels.items()}
+with open(sys.argv[1].replace("RANK", os.environ.get("RANK", "0")), "w") as f:
+    json.dump(rec, f)
+sys.exit(rc)
+"""
+
+
+def run_ranks(tag: str, n: int, args: list, env: dict = None) -> list:
+    """`args` of the port's CLI as `n` ranks (torchrun's variables, a free
+    port, `--distributed`), or as one plain process (n = 0); -> each
+    process's (log text, record).  A rank that fails or outlives
+    DDP_TIMEOUT_S fails the phase; every process is ended."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, logs = [], []
+    for rank in range(max(n, 1)):
+        penv = {k: v for k, v in os.environ.items()
+                if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                             "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                             "MASTER_PORT")}
+        penv.update(SMOKE_ROOT=str(ROOT), **(env or {}))
+        argv = list(args)
+        if n:
+            penv.update(RANK=str(rank), WORLD_SIZE=str(n),
+                        LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n),
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            argv.append("--distributed")
+        logs.append(WORK / f"{tag}_rank{rank}.log")
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_BOOT,
+                 str(WORK / f"{tag}_RANK.json")] + argv,
+                cwd=ROOT, env=penv, stdout=out, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + DDP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[distributed] {tag}: a rank ran past "
+                             f"{DDP_TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        text = path.read_text()
+        if p.returncode != 0:
+            raise AssertionError(f"[distributed] {tag} rank {rank} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+        out.append((text, json.loads(
+            (WORK / f"{tag}_{rank}.json").read_text())))
+    return out
+
+
+def ddp_train(tag: str, n: int, conf: str, env: dict = None,
+              backend: str = "gloo") -> list:
+    """`train --conf conf` as n ranks (or one process, n = 0): -> the
+    records, after checking that every rank joined with `backend` and
+    logged the same losses."""
+    runs = run_ranks(tag, n, ["train", "--conf", conf, "--device", "cuda"],
+                     env)
+    if n:
+        for rank, (text, _) in enumerate(runs):
+            if (f"distributed: process {rank}/{n}, backend {backend}"
+                    not in text):
+                raise AssertionError(f"[distributed] {tag} rank {rank} did "
+                                     f"not join the group with {backend}")
+        first = runs[0][1]["fetches"]
+        if any(r["fetches"] != first for _, r in runs[1:]):
+            raise AssertionError(f"[distributed] {tag}: the ranks logged "
+                                 "other losses")
+    return [r for _, r in runs]
+
+
+def compare_ddp(tag: str, ranks: list, one: list) -> tuple:
+    """The ranks' logged losses against one process's: -> (worst relative
+    difference of the train losses, of the dev loss)."""
+    got, want = ranks[0]["fetches"], one[0]["fetches"]
+    if len(got) != len(want) or not all(math.isfinite(f[0]) for f in got):
+        raise AssertionError(f"[distributed] {tag}: {len(got)} losses vs "
+                             f"{len(want)}, or not finite: {got}")
+    rel = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got, want)]
+    train_rel, dev_rel = max(rel[:-1]), rel[-1]
+    if train_rel > DDP_TRAIN_RTOL or dev_rel > DDP_DEV_RTOL:
+        raise AssertionError(
+            f"[distributed] {tag}: losses {[g[0] for g in got]} vs one "
+            f"process's {[w[0] for w in want]} (train rel {train_rel:.2e} > "
+            f"{DDP_TRAIN_RTOL} or dev rel {dev_rel:.2e} > {DDP_DEV_RTOL})")
+    return train_rel, dev_rel
+
+
+def check_ddp_launches(tag: str, rec: dict, fused: bool) -> None:
+    """Every layer of every step and forward on the kernels, per rank."""
+    steps, forwards = len(rec["steps"]), len(rec["steps"]) + rec["eval_steps"]
+    got = rec["launches"]
+    if (got["lstm_bwd"] != 4 * steps or got["lstm_fwd"] != 4 * forwards
+            or got["fused_dropout"] != (12 * steps if fused else 0)):
+        raise AssertionError(
+            f"[distributed] {tag}: launches {got} for {steps} train steps "
+            f"and {forwards} forwards: a layer or a site bypassed its kernel")
+
+
+def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
+                      card: str) -> dict:
+    """train / evaluate --distributed at full width; -> the launches of
+    the path by kernel: {"train-ddp": {...}, "evaluate-ddp": {...}}."""
+    one_card = {"CUDA_VISIBLE_DEVICES": "0"}   # 2 ranks share it: gloo
+    half = BATCH // 2
+    launches = {path: dict.fromkeys(("lstm_fwd", "lstm_bwd",
+                                     "fused_dropout"), 0)
+                for path in ("train-ddp", "evaluate-ddp")}
+
+    def add(path, recs):
+        for r in recs:
+            for k in launches[path]:
+                launches[path][k] += r["launches"][k]
+
+    # (a) equivalence, dropout 0, streaming (global schedule) and cached
+    timings = {}
+    for loader, cached in (("streaming", False), ("cached", True)):
+        confs = {b: write_train_yaml(
+            train, dev, 1, exp_name=f"ddp_{loader}_{b}", batch_size=b,
+            drop_out=0.0, device_cache=cached) for b in (BATCH, half)}
+        one = ddp_train(f"ddp_{loader}_1x{BATCH}", 0, confs[BATCH], one_card)
+        two = ddp_train(f"ddp_{loader}_2x{half}", 2, confs[half], one_card)
+        for r in one + two:
+            check_ddp_launches(f"{loader}", r, fused=False)
+        add("train-ddp", two)
+        train_rel, dev_rel = compare_ddp(loader, two, one)
+        timings[loader] = (one, two)
+        log(f"[distributed] train {loader}: 2 ranks x {half} on one card "
+            f"(gloo) vs 1 x {BATCH}, 1 epoch at dropout 0: the ranks' "
+            f"{len(two[0]['fetches'])} logged losses equal bit for bit; "
+            f"train losses within {train_rel:.2e} of one process's (tol "
+            f"{DDP_TRAIN_RTOL}), dev loss {two[0]['fetches'][-1][0]:.6f} vs "
+            f"{one[0]['fetches'][-1][0]:.6f} (rel {dev_rel:.2e}, tol "
+            f"{DDP_DEV_RTOL})")
+
+    # (b) the kernels on the path: dropout 0.2 through the fused kernel
+    fused_conf = write_train_yaml(train, dev, 1, exp_name="ddp_fused",
+                                  batch_size=half)
+    fused = ddp_train(f"ddp_fused_2x{half}", 2, fused_conf,
+                      {**one_card, "SMOKE_FUSED": "1"})
+    for rank, r in enumerate(fused):
+        check_ddp_launches("fused", r, fused=True)
+        log(f"[distributed] train with use_fused_dropout, rank {rank}: "
+            f"launches {r['launches']} over {len(r['steps'])} train steps "
+            f"and {r['eval_steps']} dev forwards; first step loss "
+            f"{r['fetches'][0][0]:.4f}, epoch mean {r['fetches'][-2][0]:.4f}")
+    add("train-ddp", fused)
+
+    # (c) evaluate --distributed, beam + LM, on train-fused's best
+    lm = str(WORK / "lm.arpa")
+    for b in (1, BATCH):
+        yaml_path = write_eval_yaml(conf, f"eval_ddp_b{b}", dev, lm,
+                                    batch_size=b)
+        args = ["evaluate", "--conf", yaml_path, "--device", "cuda"]
+        one = run_ranks(f"eval_ddp_b{b}_1", 0, args, one_card)
+        two = run_ranks(f"eval_ddp_b{b}_2", 2, args, one_card)
+        reports = [parse_report(t) for t, _ in one + two]
+        # each rank decodes its half of the dev split, 4 layers a forward
+        want = {"lstm_fwd": 4 * -(-(DEV_UTTS // 2) // b), "lstm_bwd": 0,
+                "fused_dropout": 0}
+        if any(r["launches"] != want for _, r in two):
+            raise AssertionError(
+                f"[distributed] evaluate at batch {b}: lstm_fwd launches "
+                f"{[r['launches'] for _, r in two]}, not {want} a rank")
+        add("evaluate-ddp", [r for _, r in two])
+        if reports[2] != reports[1]:
+            raise AssertionError("[distributed] evaluate: the ranks printed "
+                                 "other reports")
+        same = reports[0] == reports[1]
+        if b == 1 and not same:
+            raise AssertionError(
+                f"[distributed] evaluate at batch 1: 2 ranks' tallies "
+                f"{reports[1]} vs one process's {reports[0]}")
+        ups = [DEV_UTTS / r["eval_s"] for _, r in one]
+        ups2 = DEV_UTTS / max(r["eval_s"] for _, r in two)
+        log(f"[distributed] evaluate beam + LM at batch {b}: 2 ranks' "
+            f"tallies {'equal' if same else 'differ from'} one process's "
+            f"(PER {reports[1]['per']:.4f} vs {reports[0]['per']:.4f}); "
+            f"{DEV_UTTS} utterances: {ups[0]:.1f} utts/s in one process, "
+            f"{ups2:.1f} utts/s over 2 ranks on one card; lstm_fwd "
+            f"launches by rank {[r['launches']['lstm_fwd'] for _, r in two]}"
+            f" ({card})")
+
+    # (d) step medians and the gradient all-reduce
+    med = lambda xs: statistics.median(xs) * 1e3
+    for loader, (one, two) in timings.items():
+        log(f"[distributed] step median {loader}: 1 x {BATCH} "
+            f"{med(one[0]['steps']):.2f} ms, 2 x {half} on one card "
+            f"{med(two[0]['steps']):.2f} / {med(two[1]['steps']):.2f} ms by "
+            f"rank, of which the gradient all-reduce (gloo, "
+            f"{two[0]['grad_bytes'] / 1e6:.1f} MB of float32) "
+            f"{med(two[0]['reduces']):.2f} / {med(two[1]['reduces']):.2f} "
+            f"ms ({card})")
+
+    # (e) NCCL across 2 cards, and 4 where there are 4: N ranks x 64 / N
+    cards = torch.cuda.device_count()
+    for n in (2, 4):
+        if cards < n:
+            log(f"[distributed] (e) {n} ranks over {n} cards (nccl): not "
+                f"run, this machine has {cards} card(s)")
+            continue
+        env = {"CUDA_VISIBLE_DEVICES": ",".join(map(str, range(n)))}
+        for loader, cached in (("streaming", False), ("cached", True)):
+            conf_n = write_train_yaml(
+                train, dev, 1, exp_name=f"ddp_nccl{n}_{loader}",
+                batch_size=BATCH // n, drop_out=0.0, device_cache=cached)
+            recs = ddp_train(f"ddp_nccl{n}_{loader}", n, conf_n, env,
+                             backend="nccl")
+            for r in recs:
+                check_ddp_launches(f"nccl {loader}", r, fused=False)
+            add("train-ddp", recs)
+            train_rel, dev_rel = compare_ddp(f"nccl {loader}", recs,
+                                             timings[loader][0])
+            log(f"[distributed] train {loader}: {n} ranks x {BATCH // n} over "
+                f"{n} cards (nccl) vs 1 x {BATCH}: train losses within "
+                f"{train_rel:.2e} of one process's, dev rel {dev_rel:.2e}; "
+                f"step median {[round(med(r['steps']), 2) for r in recs]} ms "
+                f"by rank vs {med(timings[loader][0][0]['steps']):.2f} ms, "
+                f"gradient all-reduce "
+                f"{[round(med(r['reduces']), 2) for r in recs]} ms ({card})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2569,6 +2895,7 @@ def main() -> int:
     eval_fwd, _ = phase_evaluate(torch, conf, train, dev, card)
     eval_cached_fwd = phase_evaluate_cached(torch, cached, card)
     phase_profile_evaluate(torch, conf, train, card)
+    ddp = phase_distributed(torch, conf, train, dev, card)
     dropout_timing = phase_timing_dropout(torch, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2582,14 +2909,18 @@ def main() -> int:
         "launches": (launches + sum(lexicon.values())
                      + sum(product.values()) + train_fwd
                      + fused["lstm_fwd"] + bf16["lstm_fwd"]
-                     + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd),
+                     + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd
+                     + ddp["train-ddp"]["lstm_fwd"]
+                     + ddp["evaluate-ddp"]["lstm_fwd"]),
         "launches_by_path": {"serve": launches, **lexicon, **product,
                              "train": train_fwd,
                              "train-fused": fused["lstm_fwd"],
                              "train-bf16": bf16["lstm_fwd"],
                              "train-cached": cached["lstm_fwd"],
                              "evaluate": eval_fwd,
-                             "evaluate-cached": eval_cached_fwd},
+                             "evaluate-cached": eval_cached_fwd,
+                             "train-ddp": ddp["train-ddp"]["lstm_fwd"],
+                             "evaluate-ddp": ddp["evaluate-ddp"]["lstm_fwd"]},
         "max_abs_err": max(worst["float32"],
                            *(timing[b]["timing_err"] for b in timing)),
         "shape": f"T'=80 B=16 H={H} float32",
@@ -2601,11 +2932,14 @@ def main() -> int:
         "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
         "launches": (train_bwd + fused["lstm_bwd"] + bf16["lstm_bwd"]
-                     + cached["lstm_bwd"]),
+                     + cached["lstm_bwd"] + ddp["train-ddp"]["lstm_bwd"]
+                     + ddp["evaluate-ddp"]["lstm_bwd"]),
         "launches_by_path": {"train": train_bwd,
                              "train-fused": fused["lstm_bwd"],
                              "train-bf16": bf16["lstm_bwd"],
-                             "train-cached": cached["lstm_bwd"]},
+                             "train-cached": cached["lstm_bwd"],
+                             "train-ddp": ddp["train-ddp"]["lstm_bwd"],
+                             "evaluate-ddp": ddp["evaluate-ddp"]["lstm_bwd"]},
         "max_abs_err": worst_bwd["float32_abs"],
         "shape": f"T'=80 B={BATCH} H={H} float32",
         **timing_bwd[BATCH],
@@ -2615,9 +2949,14 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/dropout.cu",
         "replaces": "mdd_tpu/ops/dropout_pallas.py:53",
-        "launches": fused["fused_dropout"] + bf16["fused_dropout"],
+        "launches": (fused["fused_dropout"] + bf16["fused_dropout"]
+                     + ddp["train-ddp"]["fused_dropout"]
+                     + ddp["evaluate-ddp"]["fused_dropout"]),
         "launches_by_path": {"train-fused": fused["fused_dropout"],
-                             "train-bf16": bf16["fused_dropout"]},
+                             "train-bf16": bf16["fused_dropout"],
+                             "train-ddp": ddp["train-ddp"]["fused_dropout"],
+                             "evaluate-ddp":
+                                 ddp["evaluate-ddp"]["fused_dropout"]},
         "max_abs_err": dropout_err,
         "shape": "conv0 site 64x32x220x122 float32",
         **dropout_timing["conv0"]["float32"],

@@ -11,9 +11,11 @@
                                 [--name N] [--cmvn F] [--batch-size N]
                                 [--device cuda|cpu]
   python -m mdd_tpu_torch train --conf YAML [--resume] [--device cuda|cpu]
+                                [--distributed] [--profile-dir DIR]
   python -m mdd_tpu_torch evaluate --conf YAML [--checkpoint DIR]
                                 [--dump-dir DIR] [--decode-type Greedy|Beam]
-                                [--lm-alpha A] [--cached] [--device cuda|cpu]
+                                [--lm-alpha A] [--cached] [--distributed]
+                                [--device cuda|cpu]
   python -m mdd_tpu_torch mdd-result --ref F --human F --hyp F
                                 [--detail-dir DIR]
   python -m mdd_tpu_torch train-lm --phn-text F --out ARPA
@@ -46,6 +48,11 @@ weighted by `lm_alpha`), prints PER and the TA/FR/FA/TR report and, with
 `--dump-dir`, writes the decode_seq / human_seq / transcribe files that
 `mdd-result` scores; `--cached` puts the test split on the device first.
 `train-lm` trains that bigram LM from a phone transcript file.
+With `--distributed`, `train` and `evaluate` are one rank of a
+multi-process run (`torchrun --nproc-per-node N -m mdd_tpu_torch train
+--conf YAML --distributed`): each rank on its own card where there are
+enough (nccl), else sharing them (gloo), `batch_size` counting each
+rank's rows; every rank prints the same losses and reports.
 `infer` diagnoses every N.wav + N.txt prompt pair of a directory and
 prints a report per word and the RTF breakdown; `serve` answers
 line-delimited JSON requests on stdin, or with `--socket` on a loopback
@@ -62,6 +69,7 @@ The checkpoint is the port's format (train/checkpoint.py): by default
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 from typing import List, Optional
@@ -151,12 +159,15 @@ def cmd_feat(args) -> int:
 
 
 def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
-                  device: str = "cuda"):
-    """mdd_tpu's `_build_loader` in one process: the device-resident corpus
-    on `device` where the config says `device_cache`, else the streaming
-    loader."""
+                  device: str = "cuda", global_schedule: Optional[bool] = None):
+    """mdd_tpu's `_build_loader`: the device-resident corpus on `device`
+    where the config says `device_cache` (its rows sharded over the
+    ranks), else the streaming loader; both yield this rank's rows of
+    each batch.  `global_schedule`: the streaming loader's (None: on with
+    several processes)."""
     from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
     from mdd_tpu_torch.data.prefetch import ThreadedLoader
+    from mdd_tpu_torch.parallel import mesh
 
     ds = SpeechDataset(
         vocab, scp, lab, trans,
@@ -165,6 +176,8 @@ def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
         train=train, augment_mode=cfg.augment_mode,
         mutation_prob=cfg.mutation_prob,
         device_frontend=cfg.device_frontend)
+    ranks = dict(process_index=mesh.process_index(),
+                 process_count=mesh.process_count())
     if cfg.device_frontend and cfg.device_cache:
         from mdd_tpu_torch.data.device_cache import (CachedLoader,
                                                      DeviceFeatureCache)
@@ -172,18 +185,35 @@ def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
         # the streaming branch's wire dtype (unset: float32), so both
         # paths give one config the same features
         cache = DeviceFeatureCache(ds, device, time_quantum=cfg.time_quantum,
-                                   wire_dtype=cfg.wire_dtype or "float32")
+                                   wire_dtype=cfg.wire_dtype or "float32",
+                                   **ranks)
         return CachedLoader(cache, cfg.batch_size,
                             shuffle=train and cfg.shuffle_train,
-                            seed=cfg.seed, label_quantum=cfg.label_quantum)
+                            seed=cfg.seed, label_quantum=cfg.label_quantum,
+                            **ranks)
     loader = BucketedLoader(
         ds, cfg.batch_size, shuffle=train and cfg.shuffle_train,
         seed=cfg.seed, num_workers=cfg.num_workers,
         time_quantum=cfg.time_quantum, label_quantum=cfg.label_quantum,
-        wire_dtype=(cfg.wire_dtype or None) if cfg.device_frontend else None)
+        wire_dtype=(cfg.wire_dtype or None) if cfg.device_frontend else None,
+        global_schedule=global_schedule, **ranks)
     if cfg.num_workers > 0:
         loader = ThreadedLoader(loader, prefetch=4)
     return loader
+
+
+@contextlib.contextmanager
+def _rank(args):
+    """-> the device of this process; with --distributed, as one rank of
+    the process group (mesh.joined), its line printed."""
+    from mdd_tpu_torch.parallel import mesh
+
+    if not args.distributed:
+        yield args.device
+        return
+    with mesh.joined(args.device) as device:
+        print(mesh.describe(device), flush=True)
+        yield str(device)
 
 
 def build_trainer(cfg, vocab, device: str, **model_overrides):
@@ -208,29 +238,60 @@ def build_trainer(cfg, vocab, device: str, **model_overrides):
 
 def cmd_train(args) -> int:
     from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.parallel import mesh
     from mdd_tpu_torch.utils.config import check_train_config, load_config
 
-    cfg = load_config(args.conf)
-    check_train_config(cfg)
-    vocab = Vocab.from_units_file(cfg.vocab_file)
-    print(f"Vocabulary size is {vocab.n_words}")
-    trainer = build_trainer(cfg, vocab, args.device)
-    train_loader = _build_loader(cfg, vocab, cfg.train_scp_path,
-                                 cfg.train_lab_path, cfg.train_trans_path,
-                                 train=True, device=args.device)
-    dev_loader = _build_loader(cfg, vocab, cfg.valid_scp_path,
-                               cfg.valid_lab_path, cfg.valid_trans_path,
-                               train=False, device=args.device)
-    summary = trainer.fit(train_loader, dev_loader,
-                          num_epochs=cfg.num_epoches,
-                          print_every=cfg.verbose_step,
-                          checkpoint_dir=cfg.checkpoint_dir,
-                          exp_name=cfg.exp_name, resume=args.resume,
-                          checkpoint_every=cfg.checkpoint_every)
+    with _rank(args) as device:
+        cfg = load_config(args.conf)
+        check_train_config(cfg, mesh.process_count())
+        vocab = Vocab.from_units_file(cfg.vocab_file)
+        print(f"Vocabulary size is {vocab.n_words}")
+        trainer = build_trainer(cfg, vocab, device)
+        schedule = True if cfg.global_schedule else None
+        train_loader = _build_loader(cfg, vocab, cfg.train_scp_path,
+                                     cfg.train_lab_path, cfg.train_trans_path,
+                                     train=True, device=device,
+                                     global_schedule=schedule)
+        dev_loader = _build_loader(cfg, vocab, cfg.valid_scp_path,
+                                   cfg.valid_lab_path, cfg.valid_trans_path,
+                                   train=False, device=device,
+                                   global_schedule=schedule)
+        with _profiled(args.profile_dir, device):
+            summary = trainer.fit(train_loader, dev_loader,
+                                  num_epochs=cfg.num_epoches,
+                                  print_every=cfg.verbose_step,
+                                  checkpoint_dir=cfg.checkpoint_dir,
+                                  exp_name=cfg.exp_name, resume=args.resume,
+                                  checkpoint_every=cfg.checkpoint_every)
     print("best dev loss %.4f acc %.4f after %d epochs"
           % (summary["best_dev_loss"], summary["best_acc"],
              summary["epochs"]))
     return 0
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device: str):
+    """torch.profiler over the block, its trace written to
+    `<profile_dir>/trace_rank<r>.json` (mdd_tpu's `--profile-dir`: a device
+    trace of the whole run); nothing without a directory."""
+    if not profile_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch.parallel import mesh
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"trace_rank{mesh.process_index()}.json")
+    prof.export_chrome_trace(path)
+    print(f"profile -> {path}")
 
 
 def cmd_train_lm(args) -> int:
@@ -254,13 +315,9 @@ def _load_best(cfg, checkpoint: Optional[str]):
 def cmd_evaluate(args) -> int:
     from mdd_tpu_torch.data.vocab import Vocab
     from mdd_tpu_torch.evals.evaluate import EvalSession, evaluate_model
+    from mdd_tpu_torch.parallel import mesh
     from mdd_tpu_torch.utils.config import load_config
 
-    if args.distributed:
-        raise SystemExit(
-            "evaluate --distributed is not ported yet: multi-process "
-            "evaluation comes with the port's scale-out slice (ROADMAP.md); "
-            "run without it")
     cfg = load_config(args.conf)
     # `--cached` is opt-in, not inferred from the YAML's device_cache: a
     # one-shot evaluation pays the upload before the first batch, where
@@ -268,28 +325,37 @@ def cmd_evaluate(args) -> int:
     if args.cached and not cfg.device_frontend:
         raise SystemExit("evaluate --cached requires device_frontend: true "
                          "in the config")
-    cfg.device_cache = args.cached
-    if args.decode_type:
-        cfg.decode_type = args.decode_type
-    if args.lm_alpha is not None:
-        cfg.lm_alpha = args.lm_alpha
-    vocab = Vocab.from_units_file(cfg.vocab_file)
-    state, model_cfg = _load_best(cfg, args.checkpoint)
-    # device-frontend eval: raw bf16 features on the wire, splice/skip on
-    # the device before the forward, as in training
-    session = EvalSession(
-        model_cfg, state, vocab, decode_type=cfg.decode_type,
-        beam_width=cfg.beam_width, lm_path=cfg.lm_path or None,
-        lm_alpha=cfg.lm_alpha, device=args.device,
-        device_frontend=cfg.device_frontend,
-        left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
-        n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
-    loader = _build_loader(cfg, vocab, cfg.test_scp_path, cfg.test_lab_path,
-                           cfg.test_trans_path, train=False,
-                           device=args.device)
-    if args.cached:
-        session.attach_cache(loader.cache)
-    evaluate_model(session, loader, dump_dir=args.dump_dir)
+    with _rank(args) as device:
+        if args.cached and mesh.process_count() > 1:
+            # mdd_tpu warns and falls back to the streaming loader
+            raise SystemExit("evaluate --cached runs in one process; with "
+                             "--distributed each rank decodes its share "
+                             "through the streaming loader: drop --cached")
+        cfg.device_cache = args.cached
+        if args.decode_type:
+            cfg.decode_type = args.decode_type
+        if args.lm_alpha is not None:
+            cfg.lm_alpha = args.lm_alpha
+        vocab = Vocab.from_units_file(cfg.vocab_file)
+        state, model_cfg = _load_best(cfg, args.checkpoint)
+        # device-frontend eval: raw bf16 features on the wire, splice/skip
+        # on the device before the forward, as in training
+        session = EvalSession(
+            model_cfg, state, vocab, decode_type=cfg.decode_type,
+            beam_width=cfg.beam_width, lm_path=cfg.lm_path or None,
+            lm_alpha=cfg.lm_alpha, device=device,
+            device_frontend=cfg.device_frontend,
+            left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
+            n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
+        # several ranks: each its own share of the split, decoded alone
+        # (no collective until the report), so no global schedule
+        loader = _build_loader(cfg, vocab, cfg.test_scp_path,
+                               cfg.test_lab_path, cfg.test_trans_path,
+                               train=False, device=device,
+                               global_schedule=False)
+        if args.cached:
+            session.attach_cache(loader.cache)
+        evaluate_model(session, loader, dump_dir=args.dump_dir)
     return 0
 
 
@@ -466,6 +532,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "loss histories are restored)")
     q.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
+    q.add_argument("--distributed", action="store_true",
+                   help="one rank of a data-parallel run: join the process "
+                        "group of torchrun's environment (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT); batch_size "
+                        "counts this rank's rows")
+    q.add_argument("--profile-dir",
+                   help="write a torch.profiler trace of the run here, one "
+                        "file a rank")
     q.set_defaults(fn=cmd_train)
 
     q = sub.add_parser("evaluate", help="MDD evaluation on the test set")
@@ -489,7 +563,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "first and form each batch there (needs "
                         "device_frontend)")
     q.add_argument("--distributed", action="store_true",
-                   help="not ported yet (scale-out slice): refused")
+                   help="one rank of a multi-process evaluation (torchrun's "
+                        "environment): each rank decodes its share of the "
+                        "test split, every rank prints the summed report")
     q.set_defaults(fn=cmd_evaluate)
 
     q = sub.add_parser("mdd-result",

@@ -1,4 +1,4 @@
-"""Device-resident feature corpus on one device (counterpart of
+"""Device-resident feature corpus (counterpart of
 mdd_tpu/data/device_cache.py).
 
 The streaming loader reads, augments, pads and ships every feature matrix
@@ -17,15 +17,21 @@ order of SpeechDataset.load_item (SpecAugment geometry, then transcript
 mutation).  So the gathered and masked features are the bits the
 streaming loader would have shipped for the same items.
 
-One device, one process: mdd_tpu's row-sharded layout over a mesh, the
-multi-process schedule (process_index / process_count, global_idx) and
-score_mask come with the port's scale-out slice.
+Several processes: the CachedLoader cuts one global batch schedule, alike
+on every rank, and each rank takes its row slice of every global batch
+(`global_idx` keeps the whole batch's rows).  With `shard_rows` each rank
+holds 1/N of every bucket's rows; a batch is then assembled by each rank
+taking the rows it owns for every slot of the global batch, exact zeros
+elsewhere, and one reduction over the ranks that hands each its own
+slots.  The sum runs on the payload's bytes, and exactly one rank
+contributes each slot, so the batch equals the replicated gather bit for
+bit (DeviceFeatureCache._gather_sharded).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from mdd_tpu_torch.data.dataset import (SpeechDataset, _round_up,
 from mdd_tpu_torch.frontend import kaldi_io
 from mdd_tpu_torch.frontend.augment import (mutate_transcript,
                                             sample_spec_augment_params)
+from mdd_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -52,6 +59,11 @@ class CachedBatch:
     trans_sizes: np.ndarray   # (B,) int32
     utt_ids: List[str]
     valid: np.ndarray         # (B,) bool — False rows are batch padding
+    score_mask: Optional[np.ndarray] = None   # rows that are scored
+    # (B_global,) int32: the whole global batch's rows, alike on every
+    # rank (the row-sharded gather needs every slot's); equals idx in one
+    # process
+    global_idx: Optional[np.ndarray] = None
 
     @property
     def size(self) -> int:
@@ -66,16 +78,26 @@ class DeviceFeatureCache:
     divisibility holds), one zero-padded (n_b, T_b, D) tensor a bucket.
     `bucket_items[b]` lists bucket b's items in corpus order, `row_of[i]`
     is item i's row in its bucket; `bytes` the tensors' size.
-    A corpus that does not fit raises (torch's out-of-memory error)."""
+
+    `shard_rows` (the default) splits every bucket's rows, padded to a
+    multiple of `process_count`, into contiguous equal shares: rank
+    `process_index` keeps rows [r * m, (r + 1) * m), `bytes_per_device`
+    of them; the CachedLoader over it takes the same two.  In one process
+    that is the whole corpus, as with `shard_rows=False`.  A corpus that
+    does not fit raises (torch's out-of-memory error)."""
 
     def __init__(self, dataset: SpeechDataset, device: str | torch.device,
-                 time_quantum: int = 64, wire_dtype: str = "bfloat16"):
+                 time_quantum: int = 64, wire_dtype: str = "bfloat16",
+                 shard_rows: bool = True, process_index: int = 0,
+                 process_count: int = 1):
         if not dataset.device_frontend:
             raise ValueError(
                 "DeviceFeatureCache needs a device_frontend dataset: the "
                 "cache holds raw features, spliced on the device")
         self.ds = dataset
         self.device = torch.device(device)
+        self.process_index = process_index if shard_rows else 0
+        self.process_count = process_count if shard_rows else 1
         skip = max(dataset.n_skip_frame, 1)
         self.raw_quantum = _round_up(time_quantum * skip,
                                      skip * dataset.n_downsample)
@@ -91,14 +113,19 @@ class DeviceFeatureCache:
             self.row_of[i] = len(rows)
             rows.append(i)
         self.buckets: Dict[int, torch.Tensor] = {}
-        self.bytes = 0
+        self.bytes = self.bytes_per_device = 0
+        n, r = self.process_count, self.process_index
         for b, rows in self.bucket_items.items():
+            # pad rows never appear in row_of, so they are never gathered
+            m = -(-len(rows) // n)
+            mine = rows[r * m:(r + 1) * m]
             # rounded to the wire dtype row by row (bf16: to nearest even,
             # as the streaming loader's wire), then one upload a bucket
-            arr = torch.zeros((len(rows), b, self.feat_dim), dtype=dtype)
-            for r, i in enumerate(rows):
-                arr[r, :feats[i].shape[0]] = torch.from_numpy(feats[i])
-            self.bytes += arr.numel() * arr.element_size()
+            arr = torch.zeros((m, b, self.feat_dim), dtype=dtype)
+            for k, i in enumerate(mine):
+                arr[k, :feats[i].shape[0]] = torch.from_numpy(feats[i])
+            self.bytes_per_device += arr.numel() * arr.element_size()
+            self.bytes += n * arr.numel() * arr.element_size()
             self.buckets[b] = arr.to(self.device)
 
     def __len__(self) -> int:
@@ -107,13 +134,36 @@ class DeviceFeatureCache:
     def gather(self, batch: CachedBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (the batch's raw features, (B, T_bucket, D) on the cache's
         device, gathered from its bucket by `index_select`, as mdd_tpu's
-        `make_cache_assemble(mesh, sharded=False)`; their lengths as
-        fractions of T_bucket).  Only the index and length vectors cross
-        to the device."""
+        `make_cache_assemble`; their lengths as fractions of T_bucket).
+        Only the index and length vectors cross to the device, and with
+        the rows sharded over several processes the batch's payload once
+        between the ranks."""
         put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
-        inputs = self.buckets[batch.bucket].index_select(
-            0, put(batch.idx).long())
+        shard = self.buckets[batch.bucket]
+        if self.process_count == 1:
+            inputs = shard.index_select(0, put(batch.idx).long())
+        else:
+            inputs = self._gather_sharded(shard, put(batch.global_idx).long())
         return inputs, put(batch.lengths).float() / inputs.shape[1]
+
+    def _gather_sharded(self, shard: torch.Tensor,
+                        gidx: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the global batch `gidx`: the rows it owns
+        (`shard` holds rows [r * m, (r + 1) * m) of the bucket), exact
+        zeros for the others' slots, summed over the ranks and scattered,
+        each rank receiving its own slots.  The sum runs on the bytes
+        (x + 0 = x for any dtype, -0.0 included)."""
+        m = shard.shape[0]
+        local = gidx - self.process_index * m
+        mine = (local >= 0) & (local < m)
+        rows = shard.index_select(0, local.clamp(0, m - 1))
+        contrib = torch.where(mine[:, None, None], rows,
+                              torch.zeros((), dtype=rows.dtype,
+                                          device=rows.device))
+        g, t, d = contrib.shape
+        out = mesh.reduce_scatter_rows(
+            contrib.reshape(g, -1).contiguous().view(torch.uint8))
+        return out.view(rows.dtype).reshape(g // self.process_count, t, d)
 
 
 class CachedLoader:
@@ -122,25 +172,32 @@ class CachedLoader:
     The streaming loader's contract (batch_size, shuffle keyed by the
     epoch, set_epoch for resume), with index batches: every batch is
     padded to batch_size by repeating its last row with valid=False, so
-    each bucket runs at one shape."""
+    each bucket runs at one shape.  With `process_count` > 1 the schedule
+    is cut in global batches of batch_size * process_count items, alike on
+    every rank, and rank `process_index` gets rows [r * batch_size,
+    (r + 1) * batch_size) of each: every rank runs the same steps at the
+    same shapes, and each utterance sits in one slot of one batch."""
 
     def __init__(self, cache: DeviceFeatureCache, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
-                 label_quantum: int = 16, process_count: int = 1):
-        if process_count != 1:
-            raise ValueError(
-                "CachedLoader runs in one process; the multi-process "
-                "schedule comes with the port's scale-out slice")
+                 label_quantum: int = 16, process_index: int = 0,
+                 process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not a rank "
+                             f"of {process_count}")
         self.cache = cache
         self.ds = cache.ds
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.label_quantum = label_quantum
+        self.process_index = process_index
+        self.process_count = process_count
+        self._global_chunk = batch_size * process_count
         self._epoch = 0
 
     def __len__(self) -> int:
-        return sum(-(-len(rows) // self.batch_size)
+        return sum(-(-len(rows) // self._global_chunk)
                    for rows in self.cache.bucket_items.values())
 
     def set_epoch(self, epoch: int) -> None:
@@ -150,7 +207,8 @@ class CachedLoader:
         self._epoch = int(epoch)
 
     def schedule(self, epoch: int) -> List[Tuple[int, List[int]]]:
-        """Epoch `epoch`'s (bucket, item indices) batches, in order."""
+        """Epoch `epoch`'s (bucket, item indices) global batches, in
+        order."""
         rng = np.random.default_rng(self.seed + epoch)
         batches: List[Tuple[int, List[int]]] = []
         for b in sorted(self.cache.bucket_items):
@@ -160,7 +218,7 @@ class CachedLoader:
             chunk: List[int] = []
             for j in order:
                 chunk.append(rows[j])
-                if len(chunk) == self.batch_size:
+                if len(chunk) == self._global_chunk:
                     batches.append((b, chunk))
                     chunk = []
             if chunk:
@@ -177,8 +235,11 @@ class CachedLoader:
 
     def _make_batch(self, bucket: int, chunk: Sequence[int],
                     epoch: int) -> CachedBatch:
+        """The global batch of `chunk` (every rank draws every row's
+        augmentation: the label widths span the whole batch), then this
+        rank's row slice of it."""
         cache, ds = self.cache, self.ds
-        n_real, b = len(chunk), self.batch_size
+        n_real, b = len(chunk), self._global_chunk
         idx = np.zeros(b, np.int32)
         lengths = np.zeros(b, np.int32)
         aug = np.zeros((b, 4), np.int32)
@@ -209,8 +270,12 @@ class CachedLoader:
         for k in range(b):
             targets[k, :len(labels[k])] = labels[k]
             trans_a[k, :len(transcripts[k])] = transcripts[k]
-        return CachedBatch(
-            bucket, idx, lengths, aug, targets,
-            np.asarray([len(l) for l in labels], np.int32), trans_a,
-            np.asarray([len(t) for t in transcripts], np.int32), utts,
-            valid)
+        tsizes = np.asarray([len(l) for l in labels], np.int32)
+        trsizes = np.asarray([len(t) for t in transcripts], np.int32)
+        lo = self.process_index * self.batch_size
+        sl = slice(lo, lo + self.batch_size)
+        # each utterance sits in one slot: every valid row is scored
+        return CachedBatch(bucket, idx[sl], lengths[sl], aug[sl],
+                           targets[sl], tsizes[sl], trans_a[sl], trsizes[sl],
+                           utts[sl], valid[sl], score_mask=valid[sl].copy(),
+                           global_idx=idx)

@@ -1,5 +1,5 @@
 """MDD evaluation harness: decode a test set, score PER + TA/FR/FA/TR
-(counterpart of mdd_tpu/evals/evaluate.py, on one device in one process).
+(counterpart of mdd_tpu/evals/evaluate.py).
 
 The equivalent of the reference's
 egs/attention_aug/steps/test_ctc_nosil.py: a batched forward over the
@@ -14,10 +14,11 @@ With ``EvalSession.attach_cache`` the session decodes the CachedBatches of
 a device-resident test split (data/device_cache.py), each gathered where
 the corpus lies.
 
-Not ported from mdd_tpu's module, each waiting for the port's scale-out
-slice: the device mesh and the padding of a batch up to it, the
-cross-process sum `all_reduce_report`, the per-rank dump directories and
-the loader's `score_mask`.
+Several processes: each rank decodes its own share of the test split on
+its own device (the loader's per-rank shards; rows whose score_mask is
+False, the wrap-around duplicates, are decoded but not scored), writes
+its dumps under `rank<r>/`, and `all_reduce_report` sums the integer
+tallies so every rank prints the global report.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from mdd_tpu_torch.data.vocab import Vocab
 from mdd_tpu_torch.decode.greedy import best_path, collapse_ctc
 from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
+from mdd_tpu_torch.parallel import mesh
 from mdd_tpu_torch.train.loop import exact_output_sizes
 
 
@@ -141,6 +143,17 @@ def report_from_vector(vec: np.ndarray) -> MddReport:
     for f, v in zip(_REPORT_FIELDS, vec[2 * n:]):
         setattr(rep, f, v)
     return rep
+
+
+def all_reduce_report(rep: MddReport) -> MddReport:
+    """Sum an MddReport's tallies over the ranks (each decoded its own
+    share of the test split); the report itself in one process.
+    decode_minutes stays the rank's own (wall clock, not summable)."""
+    if mesh.process_count() == 1:
+        return rep
+    out = report_from_vector(mesh.all_reduce_metrics(report_to_vector(rep)))
+    out.decode_minutes = rep.decode_minutes
+    return out
 
 
 def _format_counts(c: MddCounts, errors: int, tokens: int) -> List[str]:
@@ -246,6 +259,10 @@ class EvalSession:
         if not self.device_frontend:
             raise ValueError("cached evaluation decodes raw features; build "
                              "the EvalSession with device_frontend=True")
+        if mesh.process_count() > 1:
+            raise ValueError("cached evaluation runs in one process; "
+                             "several ranks decode through the streaming "
+                             "loader")
         self.cache = cache
 
     def stage_batch(self, batch):
@@ -410,6 +427,10 @@ def evaluate_model(
             # batch size) so a short tail pays a proportionate forward
             batch, valid = pad_batch_to(
                 batch, _ladder_size(batch.size, batch_size))
+        if batch.score_mask is not None:
+            # wrap-around duplicates: decoded (every rank runs as many
+            # batches) but scored on the rank that owns them
+            valid = valid & batch.score_mask
         return batch, valid
 
     def staged_iter():
@@ -444,6 +465,10 @@ def evaluate_model(
 
         if dump_dir is not None:
             d = Path(dump_dir)
+            if mesh.process_count() > 1:
+                # each rank holds its share's triples: one directory a
+                # rank (cat rank*/x puts the whole set together)
+                d = d / f"rank{mesh.process_index()}"
             d.mkdir(parents=True, exist_ok=True)
             with open(d / "decode_seq.log", "w") as w1, \
                  open(d / "human_seq.log", "w") as w2, \
@@ -460,5 +485,6 @@ def evaluate_model(
         if scorer is not None:
             scorer.close()       # ends the scorer thread on any exit
     rep.decode_minutes = (time.time() - start) / 60.0
+    rep = all_reduce_report(rep)
     log(format_mdd_report(rep))
     return rep

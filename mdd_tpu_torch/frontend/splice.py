@@ -50,6 +50,13 @@ def pad_to_multiple(feature, multiple: int):
     return np.pad(feature, widths)
 
 
+def output_frames(t_in: int, skip: int, multiple: int) -> int:
+    """Frame count after skip + pad (the dataset-side length bookkeeping)."""
+    t = (t_in + skip - 1) // skip if skip > 1 else t_in
+    rem = t % multiple
+    return t + (multiple - rem if rem else 0)
+
+
 def batched_splice_skip(raw: torch.Tensor, lengths: torch.Tensor, left: int,
                         right: int, skip: int, multiple: int):
     """Splice + frame-skip of a zero-padded raw (B, T_raw, D) batch on its

@@ -41,6 +41,7 @@ from mdd_tpu_torch.ops.attention import dot_attention
 from mdd_tpu_torch.ops.dropout_cuda import fused_dropout
 from mdd_tpu_torch.ops.lstm import bilstm
 from mdd_tpu_torch.ops.lstm_cuda import bilstm_cuda
+from mdd_tpu_torch.parallel import mesh
 
 BN_EPSILON = 1e-5    # flax.linen.BatchNorm's default
 BN_MOMENTUM = 0.9    # mdd_tpu's BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 x
@@ -109,17 +110,26 @@ def batch_stats(x: torch.Tensor, axis: int,
                 sample_mask: torch.Tensor | None):
     """flax's BatchNorm statistics over every axis but `axis`, leaving out
     the batch rows (axis 0) where `sample_mask` is False: float32 mean and
-    the fast variance E[x^2] - E[x]^2, clamped at 0 (use_fast_variance)."""
+    the fast variance E[x^2] - E[x]^2, clamped at 0 (use_fast_variance).
+
+    In a process group of several ranks the rows are those of the global
+    batch, as under mdd_tpu's mesh: the masked sums (x, x^2, count) are
+    summed over the ranks by a differentiable all-reduce, so the
+    statistics and the gradients through them are the global batch's."""
     xf = x.float()
     dims = [k for k in range(x.dim()) if k != axis % x.dim()]
-    if sample_mask is None:
+    if sample_mask is None and mesh.process_count() == 1:
         mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
     else:
-        keep = sample_mask.view([-1] + [1] * (x.dim() - 1)).expand_as(xf)
-        zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
-        count = keep.sum(dims).to(xf.dtype)
-        mean = torch.where(keep, xf, zero).sum(dims) / count
-        mean2 = torch.where(keep, xf * xf, zero).sum(dims) / count
+        keep = (torch.ones_like(xf, dtype=torch.bool) if sample_mask is None
+                else sample_mask.view([-1] + [1] * (x.dim() - 1)
+                                      ).expand_as(xf))
+        kept = torch.where(keep, xf, torch.zeros((), dtype=xf.dtype,
+                                                 device=xf.device))
+        sums = mesh.all_reduce_sum(torch.stack([
+            kept.sum(dims), (kept * kept).sum(dims),
+            keep.sum(dims).to(xf.dtype)]))
+        mean, mean2 = sums[0] / sums[2], sums[1] / sums[2]
     return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
 
@@ -129,8 +139,9 @@ class BatchNorm(nn.Module):
 
     Eval mode normalises with the running averages.  Train mode normalises
     with the batch statistics of the rows `sample_mask` keeps
-    (`batch_stats`) and moves the running averages towards them,
-    ra = 0.9 ra + 0.1 batch, with the biased variance, as flax does."""
+    (`batch_stats`, over every rank's rows in a process group) and moves
+    the running averages towards them, ra = 0.9 ra + 0.1 batch, with the
+    biased variance, as flax does."""
 
     def __init__(self, features: int):
         super().__init__()

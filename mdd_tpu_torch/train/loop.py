@@ -1,4 +1,4 @@
-"""Training loop on one device (counterpart of mdd_tpu/train/loop.py).
+"""Training loop (counterpart of mdd_tpu/train/loop.py).
 
 The reference recipe (train_ctc.py): CTCLoss(sum) / true batch size, Adam
 with coupled L2 weight decay over every parameter, greedy train-WER each
@@ -12,9 +12,17 @@ only.  A batch of the device-resident corpus (data/device_cache.py) is
 gathered from the corpus tensor and masked on the device before the same
 step.
 
-Not ported from mdd_tpu's Trainer: the device mesh (the port's scale-out
-slice), asynchronous saves and `add_weight_noise` (no shipped recipe uses
-them).
+Data parallel (a process group of N ranks, parallel/mesh.py), mdd_tpu's
+one program over the global batch: every rank holds the same parameters
+and takes its slice of each global batch.  Its loss is its rows' masked
+nll sum over the global row count, BatchNorm's statistics span the global
+batch (models/ctc_model.batch_stats), so the rank's gradient is a partial
+sum of the global loss's and the ranks' gradients are summed, in one
+all-reduce over a flat buffer, before the identical Adam step on each.
+The metric accumulator is summed over the ranks when it is read, so every
+rank logs the same numbers and the plateau machine decides alike.  Rank 0
+writes the checkpoints.  Dropout masks differ by rank (the rank is folded
+into their seed); the weight noise is drawn alike on every rank.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import threading
 import time
+import warnings
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -35,10 +45,14 @@ from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
 from mdd_tpu_torch.ops.ctc_loss import ctc_loss
 from mdd_tpu_torch.ops.wer import greedy_wer_counts
+from mdd_tpu_torch.parallel import mesh
 from mdd_tpu_torch.train.checkpoint import (load_checkpoint,
                                             load_optimizer_state,
                                             save_checkpoint)
 from mdd_tpu_torch.train.plateau import PlateauAction, PlateauScheduler
+
+
+RANK_SEED_STRIDE = 0x9E3779B1   # odd, so ranks' dropout seeds never meet
 
 
 def exact_output_sizes(model_frames, out_len: int, total_frames: int):
@@ -64,7 +78,10 @@ class Trainer:
         right_ctx: int = 2,
         n_skip_frame: int = 2,
         n_downsample: int = 2,
+        weight_noise_std: float = 0.0,
     ):
+        """weight_noise_std > 0: add_weight_noise at the start of every
+        epoch."""
         # device_frontend: batches arrive as RAW (B, T_raw, D) features and
         # are spliced and frame-skipped on the device in the step; their
         # input_fracs carry raw-length fractions
@@ -77,9 +94,12 @@ class Trainer:
         if device_frontend and model_cfg.input_dim % ctx:
             raise ValueError(f"input_dim {model_cfg.input_dim} is not "
                              f"divisible by the splice context {ctx}")
+        self.rank, self.world = mesh.process_index(), mesh.process_count()
+        self.weight_noise_std = weight_noise_std
         self.model = CTCAttentionModel(model_cfg)
         self.model.init_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        mesh.broadcast_module(self.model)
         # torch's Adam(weight_decay) adds wd * param to the gradient before
         # the moments: mdd_tpu's add_decayed_weights -> scale_by_adam
         self.optimizer = torch.optim.Adam(self.model.parameters(),
@@ -88,9 +108,16 @@ class Trainer:
         self.scheduler = PlateauScheduler(
             init_lr=init_lr, decay=lr_decay, end_adjust_acc=end_adjust_acc,
             patience=plateau_patience, max_adjust_times=max_adjust_times)
-        # the dropout masks' stream
+        # the dropout masks' stream, another on each rank (rank 0's is the
+        # one-process stream; the CPU generator keeps a seed's low 32
+        # bits, so the rank moves those); the weight noise's, alike on
+        # every rank
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed + 1)
+        self.generator.manual_seed(
+            (seed + 1 + self.rank * RANK_SEED_STRIDE) % 2 ** 32)
+        self.noise_generator = torch.Generator(device=self.device)
+        self.noise_generator.manual_seed(seed + 2)
+        self._save_thread = None   # an asynchronous save in flight
         self._snapshot = None      # plateau restore point
         self._best_acc_state = None
         self.loss_results: list = []
@@ -127,8 +154,10 @@ class Trainer:
             input_sizes = (fracs * out_len).long()
         nll = ctc_loss(log_probs, input_sizes, targets, tsizes)
         maskf = mask.to(nll.dtype)
-        # CTCLoss(sum) / true batch size — reference train_ctc.py:72-74
-        loss = (nll * maskf).sum() / maskf.sum().clamp_min(1.0)
+        # CTCLoss(sum) / true batch size — reference train_ctc.py:72-74 —
+        # over the global batch: this rank's share of the global loss
+        count = mesh.all_reduce_sum(maskf.sum().detach())
+        loss = (nll * maskf).sum() / count.clamp_min(1.0)
         ids = log_probs.detach().argmax(dim=-1).transpose(0, 1)
         errs, tokens = greedy_wer_counts(ids, input_sizes, targets, tsizes,
                                          mask)
@@ -147,8 +176,20 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, errs, tokens = self._loss_and_out(arrays, train=True)
         loss.backward()
+        self.all_reduce_gradients()
         self.optimizer.step()
         return self._acc_update(acc, loss, errs, tokens)
+
+    def all_reduce_gradients(self) -> None:
+        """Sum the ranks' parameter gradients (each is a partial sum of
+        the global loss's gradient); nothing in one process."""
+        if self.world == 1:
+            return
+        params = list(self.model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        mesh.all_reduce_tensors([p.grad for p in params])
 
     @torch.no_grad()
     def eval_step(self, arrays, acc: torch.Tensor) -> torch.Tensor:
@@ -179,9 +220,12 @@ class Trainer:
                 put(batch.trans).long(), put(batch.trans_sizes).long(),
                 put(batch.valid))
 
-    @staticmethod
-    def _fetch(acc: torch.Tensor):
-        loss_sum, errs, tokens, n_b = (float(v) for v in acc.cpu())
+    def _fetch(self, acc: torch.Tensor):
+        """-> (mean loss, WER, batches) of the accumulator: the loss
+        shares and WER counts summed over the ranks."""
+        vals = acc.detach().to("cpu", copy=True).numpy()   # not a view
+        vals[:3] = mesh.all_reduce_metrics(vals[:3])
+        loss_sum, errs, tokens, n_b = (float(v) for v in vals)
         return loss_sum / max(1.0, n_b), errs / max(1.0, tokens), n_b
 
     def run_epoch(
@@ -201,6 +245,13 @@ class Trainer:
         loader's device-resident corpus."""
         full_b = getattr(loader, "batch_size", None)
         cache = getattr(loader, "cache", None)
+        if (self.world > 1 and cache is None
+                and not getattr(loader, "shape_coordinated", False)):
+            # mdd_tpu warns alike; a list of batches the caller cut is fine
+            warnings.warn(
+                "a multi-process epoch over a loader without the global "
+                "schedule: per-rank shards can differ in steps or shapes "
+                "and deadlock the collectives")
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         for i, batch in enumerate(loader):
             if isinstance(batch, CachedBatch):
@@ -208,7 +259,12 @@ class Trainer:
             else:
                 target_b = (full_b if full_b and batch.size <= full_b
                             else batch.size)
-                arrays = self.batch_arrays(*pad_batch_to(batch, target_b))
+                padded, valid = pad_batch_to(batch, target_b)
+                if padded.score_mask is not None:
+                    # rows run for equal shapes (tail padding, wrap-around
+                    # duplicates) count nowhere
+                    valid = valid & padded.score_mask
+                arrays = self.batch_arrays(padded, valid)
             if train:
                 acc = self.train_step(arrays, acc)
             else:
@@ -242,6 +298,17 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
+    @torch.no_grad()
+    def add_weight_noise(self, std: float = 0.075) -> None:
+        """Add N(0, std) noise to every parameter (the reference's
+        `add_weights_noise`, model_ctc.py:246-249, which no trainer there
+        calls; here every epoch with `weight_noise_std`).  The draws come
+        from a generator seeded alike on every rank, so the replicas stay
+        equal."""
+        for p in self.model.parameters():
+            p.add_(std * torch.randn(p.shape, generator=self.noise_generator,
+                                     device=p.device, dtype=p.dtype))
+
     def fit(
         self,
         train_loader,
@@ -272,6 +339,8 @@ class Trainer:
         while not sched.stopped and epoch < num_epochs:
             epoch += 1
             self._set_lr(sched.learning_rate)
+            if self.weight_noise_std > 0:
+                self.add_weight_noise(self.weight_noise_std)
             log("Start training epoch: %d, learning_rate: %.5f"
                 % (epoch, sched.learning_rate))
             _, train_loss = self.run_epoch(train_loader, epoch, True,
@@ -297,10 +366,12 @@ class Trainer:
             done = sched.stopped or epoch >= num_epochs
             if checkpoint_dir and (epoch % max(checkpoint_every, 1) == 0
                                    or done):
-                self.save(checkpoint_dir, exp_name, "latest", epoch)
+                # written while the next epochs train
+                self.save_async(checkpoint_dir, exp_name, "latest", epoch)
 
         log("End training, best dev loss is: %.4f, acc is: %.4f"
             % (sched.loss_best, sched.acc_best))
+        self.join_saves()           # the final 'latest' must be durable
         if self._best_acc_state is not None:
             self._restore_snapshot(self._best_acc_state)
         if checkpoint_dir:
@@ -325,12 +396,40 @@ class Trainer:
 
     def save(self, directory: str, exp_name: str, tag: str,
              epoch: int) -> str:
-        """Synchronous save; `latest` carries the optimizer state."""
-        return save_checkpoint(
-            os.path.join(directory, exp_name), tag, self.model.state_dict(),
-            self._save_meta(epoch),
-            optimizer_state=(self.optimizer.state_dict()
-                             if tag == "latest" else None))
+        """Synchronous save (rank 0 writes; the others only wait for an
+        earlier save); `latest` carries the optimizer state."""
+        self.join_saves()
+        path = os.path.join(directory, exp_name)
+        if self.rank == 0:
+            save_checkpoint(
+                path, tag, self.model.state_dict(), self._save_meta(epoch),
+                optimizer_state=(self.optimizer.state_dict()
+                                 if tag == "latest" else None))
+        return path
+
+    def save_async(self, directory: str, exp_name: str, tag: str,
+                   epoch: int) -> None:
+        """Save off the training path: a device copy of the state is taken
+        now, and a thread moves it to the host and writes it while
+        training goes on.  At most one save is in flight; the meta is
+        taken now too.  Rank 0 only."""
+        self.join_saves()
+        if self.rank != 0:
+            return
+        model_state, opt_state = self._device_snapshot()
+        meta = self._save_meta(epoch)
+        path = os.path.join(directory, exp_name)
+        self._save_thread = threading.Thread(
+            target=save_checkpoint, daemon=True,
+            args=(path, tag, model_state, meta,
+                  opt_state if tag == "latest" else None))
+        self._save_thread.start()
+
+    def join_saves(self) -> None:
+        """Block until an asynchronous save has written its files."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
 
     def restore(self, directory: str, exp_name: str,
                 tag: str = "latest") -> int:
@@ -339,6 +438,7 @@ class Trainer:
         path = os.path.join(directory, exp_name)
         state, meta = load_checkpoint(path, tag)
         self.model.load_state_dict(state)
+        mesh.broadcast_module(self.model)     # rank 0's weights everywhere
         if tag == "latest":
             self.optimizer.load_state_dict(load_optimizer_state(path, tag))
         for k, v in meta.get("scheduler", {}).items():

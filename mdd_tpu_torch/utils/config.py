@@ -97,7 +97,9 @@ class Config:
     device_frontend: bool = False
     wire_dtype: str = ""        # "" = float32; "bfloat16"
     device_cache: bool = False      # corpus on the device (data/device_cache)
-    global_schedule: bool = False   # refused by `train` until scale-out
+    # the streaming loader's global batch schedule even in one process (it
+    # is the default with several); for holding one process to several
+    global_schedule: bool = False
 
     # decoding
     decode_type: str = "Beam"     # reference quirk: anything != 'Greedy' -> Beam
@@ -105,9 +107,9 @@ class Config:
     lm_alpha: float = 0.0
     lm_path: str = ""
 
-    # parallelism (mdd_tpu's data-parallel mesh width; the port trains on
-    # one device until its scale-out slice)
-    data_parallel: int = 0        # 0 = all local devices
+    # parallelism: mdd_tpu's data-parallel mesh width; in the port the
+    # ranks are processes, so 0 (all of them) or their number
+    data_parallel: int = 0
 
     def model_config(self, num_class: int):
         from mdd_tpu_torch.models.ctc_model import ModelConfig
@@ -156,13 +158,13 @@ def load_config(path: str) -> Config:
     return cfg
 
 
-def check_train_config(cfg: Config) -> None:
-    """Refuse what the port cannot train yet, instead of training
-    something else: the global batch schedule forms other batches than the
-    one-process loaders, and comes with the scale-out slice (ROADMAP.md)."""
-    if cfg.global_schedule:
+def check_train_config(cfg: Config, process_count: int = 1) -> None:
+    """Refuse a data-parallel width the run does not have, instead of
+    training on another: the port's ranks are processes (one a card), so
+    `data_parallel` is 0 or the number of processes, 1 in one process."""
+    if cfg.data_parallel not in (0, process_count):
         raise ValueError(
-            "global_schedule: true is not ported yet: mdd_tpu's multi-process "
-            "batch schedule comes with the port's scale-out slice "
-            "(ROADMAP.md); set global_schedule: false to train on the "
-            "streaming loader")
+            f"data_parallel: {cfg.data_parallel} but this run has "
+            f"{process_count} process(es): launch that many ranks with "
+            "`torchrun --nproc-per-node N -m mdd_tpu_torch train --conf ... "
+            "--distributed`, or set data_parallel: 0")

@@ -188,8 +188,10 @@ def test_refusals(corpus):
     with pytest.raises(ValueError, match="device_frontend"):
         DeviceFeatureCache(ds, "cpu")
     ours, _ = _pair(corpus, False)
-    with pytest.raises(ValueError, match="one process"):
-        CachedLoader(ours.cache, 4, process_count=2)
+    # several processes are ported (tests/test_torch_distributed.py); a
+    # rank outside the group is refused
+    with pytest.raises(ValueError, match="process_index 2"):
+        CachedLoader(ours.cache, 4, process_index=2, process_count=2)
 
 
 TINY = dict(input_dim=243, num_class=len(UNITS) + 2, conv_channels=(4, 4),

@@ -8,6 +8,7 @@ end to end on the CPU, and the threads' end when decoding raises."""
 
 import dataclasses
 import json
+import os
 import re
 import threading
 from pathlib import Path
@@ -236,7 +237,8 @@ def test_evaluate_and_mdd_result_subcommands(world, conf, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--cached", "--distributed"])
 def test_scale_out_flags_are_refused(conf, flag, tmp_path):
-    """--distributed waits for the scale-out slice; --cached is ported
+    """--distributed is ported (tests/test_torch_distributed_cli.py) and
+    refused without torchrun's environment; --cached is ported
     (tests/test_torch_device_cache.py) and refused without the device
     front end, whose raw features the cache holds."""
     if flag == "--cached":
@@ -246,7 +248,10 @@ def test_scale_out_flags_are_refused(conf, flag, tmp_path):
             'wire_dtype: "bfloat16"', 'wire_dtype: ""'))
         conf, match = str(host), "requires device_frontend"
     else:
-        match = "scale-out"
+        for v in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                  "MASTER_PORT"):
+            assert v not in os.environ
+        match = "torchrun's environment: RANK, WORLD_SIZE"
     with pytest.raises(SystemExit, match=match):
         cli.main(["evaluate", "--conf", conf, "--device", "cpu", flag])
 

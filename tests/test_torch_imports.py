@@ -111,3 +111,29 @@ def test_native_pattern_catches_the_root_directory():
     assert not _ROOT_NATIVE.search("mdd_tpu_torch/native/__init__.py")
     assert not _ROOT_NATIVE.search("counterpart of mdd_tpu/native/x.py")
     assert (ROOT / "mdd_tpu_torch" / "csrc" / "denoise.cc") in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/__init__.py", "parallel/mesh.py", "data/prefetch.py",
+    "data/dataset.py", "data/device_cache.py", "models/ctc_model.py",
+    "train/loop.py", "evals/evaluate.py", "cli.py",
+    "tools/distributed_smoke.py"])
+def test_scale_out_slice_modules_are_checked(module):
+    """The modules of the scale-out slice exist and are among the checked
+    sources, import no triton at module level, and importing one joins
+    no process group (only `init_distributed`, called by an entry point,
+    does)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    top_level = {alias.name.split(".")[0]
+                 for node in ast.parse(path.read_text()).body
+                 if isinstance(node, ast.Import) for alias in node.names}
+    assert "triton" not in top_level
+    name = "mdd_tpu_torch." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    importlib.import_module(name)
+    assert not dist.is_initialized()

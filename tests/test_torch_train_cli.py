@@ -122,8 +122,11 @@ def test_device_cache_is_refused(tmp_path):
 
 
 def test_global_schedule_is_refused(tmp_path):
-    conf = _yaml(tmp_path, 1, global_schedule=True)
-    with pytest.raises(ValueError, match="global_schedule.*scale-out"):
+    """The global schedule is ported (tests/test_torch_global_schedule.py,
+    tests/test_torch_distributed_cli.py); what stays refused with it is a
+    data_parallel width the run does not have: one process is one rank."""
+    conf = _yaml(tmp_path, 1, global_schedule=True, data_parallel=2)
+    with pytest.raises(ValueError, match="data_parallel: 2.*torchrun"):
         cli.main(["train", "--conf", conf, "--device", "cpu"])
     assert not (tmp_path / "ckpt").exists()
 
