@@ -24,6 +24,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             the flax layout and passed through convert.flax_to_torch: one
             forward with the kernel, one with the plain LSTM, log-probs
             compared.
+4a. visualize  utils/visualize.capture_activations on that model, one
+            utterance of T'=80: the 6 activations of mdd_tpu's list
+            (conv, rnn0's dropout and output, rnn1's BatchNorm, dropout
+            and output) and the log-probs on the kernel against the plain
+            LSTM within phase model's tolerance, lstm_fwd launched 4
+            times (zeroed just before); then visualize_utterance writes
+            its 8 PNGs, or raises the ImportError that names matplotlib
+            where it is missing.
 5. serve    the serving path a user runs: seeded 16 kHz wavs, their CMVN
             stats, a 41-unit inventory, the dictionary files of phase 6, a
             YAML config and a port checkpoint on disk, then `python -m
@@ -79,6 +87,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             finite and falling, `best` and `latest` on disk, the launch
             counters (zeroed just before) covering every layer of every
             step; then the step time at B=64.
+10a. train-strict  `python -m mdd_tpu_torch train` as a fresh process
+            (nothing of this script runs in it) for one epoch of that
+            corpus: the Trainer's first line must state TF32 off for
+            cuBLAS and cuDNN (the port's float32 rule; this script sets
+            no flag for the whole process).  Not gating: its first step's
+            loss against phase train's.
+10b. resume-plateau  `train` in-process at full width on the kernels,
+            dropout 0, a halving every second epoch and `latest` every
+            epoch, the plateau machine fed a rising dev loss (so each
+            halving restores epoch 1's state; PLATEAU_SEEN_LOSS says
+            why): 6 epochs in one run against 3 and `--resume` to 6.  The
+            epoch-4 restore after the resume installs the snapshot that
+            `latest` held at epoch 3, bit for bit; both runs take the
+            same plateau actions; then, its snapshot file deleted,
+            `latest` still resumes (to epoch 7) and says it has none;
+            the launch counters cover every layer of every step.
+            Printed: the two runs' dev losses by epoch
+            (within 1e-3, not gating), the epoch walls and each
+            `latest`'s write time and bytes by file.
 11. profile-train  torch.profiler over 3 train steps: device busy share and
             the ops that take the device time.
 12. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
@@ -318,7 +345,9 @@ def phase_kernel(torch) -> dict:
         lstm_fwd_kernel,
         lstm_seq_fwd_reference,
     )
+    from mdd_tpu_torch.utils.precision import strict_float32
 
+    strict_float32("cuda", "float32")     # the plain version's products
     g = torch.Generator().manual_seed(SEED)
     worst = {}
     for dtype in ("float32", "bfloat16"):
@@ -358,6 +387,9 @@ def phase_kernel_bwd(torch) -> dict:
         lstm_seq_bwd_reference,
         lstm_seq_fwd_reference,
     )
+    from mdd_tpu_torch.utils.precision import strict_float32
+
+    strict_float32("cuda", "float32")
 
     g = torch.Generator().manual_seed(SEED + 1)
     worst = {}
@@ -415,9 +447,12 @@ def phase_model(torch):
         model_config_from_meta,
     )
 
+    from mdd_tpu_torch.utils.precision import strict_float32
+
     meta = json.loads((ROOT / "checkpoints" / "syn_full"
                        / "best.meta.json").read_text())
     cfg = model_config_from_meta(meta)
+    strict_float32("cuda", cfg.compute_dtype)   # the model outside EvalSession
     if not cfg.use_pallas_lstm:
         raise AssertionError("the flagship config runs the fused LSTM")
     state = flax_to_torch(*random_flax_variables(cfg, SEED))
@@ -445,6 +480,91 @@ def phase_model(torch):
     if not err <= MODEL_TOL:
         raise AssertionError(f"model log-probs differ by {err}")
     return cfg, meta, state
+
+
+# mdd_tpu's capture of the flagship model (4 BiLSTM layers): its
+# _flatten_intermediates keeps the first 6 three-dimensional entries
+VIS_NAMES = ["conv/__call__", "rnn0/drop/__call__", "rnn0/__call__",
+             "rnn1/bn/__call__", "rnn1/drop/__call__", "rnn1/__call__"]
+
+
+def phase_visualize(torch, cfg, state, card: str) -> dict:
+    """utils/visualize.capture_activations on the full-width model with
+    phase model's weights, one utterance of T'=80 on the kernel against
+    the plain LSTM; then visualize_utterance's plots or its ImportError;
+    -> the launches of the capture by kernel."""
+    import numpy as np
+
+    from mdd_tpu_torch.models.ctc_model import CTCAttentionModel
+    from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.utils import visualize
+    from mdd_tpu_torch.utils.precision import strict_float32
+
+    strict_float32("cuda", cfg.compute_dtype)
+    models = {}
+    for name, use in (("kernel", True), ("plain", False)):
+        m = CTCAttentionModel(dataclasses.replace(cfg, use_pallas_lstm=use))
+        m.load_state_dict(state, strict=True)
+        models[name] = m.to("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    t = 160                                   # T' = 80
+    feats = rng.standard_normal((t, cfg.input_dim)).astype(np.float32)
+    trans = rng.integers(2, cfg.num_class, 24)
+    kernels = {"lstm_fwd": lstm_fwd_kernel, "lstm_bwd": lstm_bwd_kernel,
+               "fused_dropout": fused_dropout_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    lp, acts = visualize.capture_activations(models["kernel"], feats, trans)
+    launches = {n: k.launches for n, k in kernels.items()}
+    ref_lp, ref = visualize.capture_activations(models["plain"], feats, trans)
+    t_out = cfg.output_frames(t)
+    if (list(acts) != VIS_NAMES or list(ref) != VIS_NAMES
+            or lp.shape != (t_out, 1, cfg.num_class)
+            or not all(a.shape[:2] == (1, t_out) for a in acts.values())
+            or not np.isfinite(lp).all()):
+        raise AssertionError(f"[visualize] captured {list(acts)} "
+                             f"{[a.shape for a in acts.values()]}, "
+                             f"log-probs {lp.shape}: not {VIS_NAMES}")
+    errs = {"log-probs": float(np.abs(lp - ref_lp).max())}
+    errs.update({n: float(np.abs(acts[n] - ref[n]).max()) for n in acts})
+    worst = max(errs, key=errs.get)
+    log(f"[visualize] capture_activations, full width, T'={t_out}, 24 "
+        f"canonical phones: {list(acts)}; kernel vs plain LSTM max abs err "
+        f"{errs[worst]:.3e} at {worst} (tol {MODEL_TOL}); launches {launches}"
+        f" ({card})")
+    if not errs[worst] <= MODEL_TOL:
+        raise AssertionError(f"[visualize] kernel and plain captures "
+                             f"differ: {errs}")
+    if launches != {"lstm_fwd": 4, "lstm_bwd": 0, "fused_dropout": 0}:
+        raise AssertionError(f"[visualize] launches {launches}: a layer "
+                             "of the forward bypassed lstm_fwd")
+    out = WORK / "visualize"
+    id2word = {i: f"p{i}" for i in range(cfg.num_class)}
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        try:
+            visualize.visualize_utterance(models["kernel"], feats, trans,
+                                          id2word, str(out))
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise AssertionError(f"[visualize] ImportError without "
+                                     f"matplotlib's name: {e}") from None
+            log(f"[visualize] no matplotlib here: visualize_utterance "
+                f"raises ImportError({e})")
+        else:
+            raise AssertionError("[visualize] visualize_utterance drew "
+                                 "without matplotlib")
+    else:
+        paths = visualize.visualize_utterance(models["kernel"], feats, trans,
+                                              id2word, str(out))
+        small = [p for p in paths if os.path.getsize(p) <= 1000]
+        if len(paths) != 8 or small:
+            raise AssertionError(f"[visualize] {len(paths)} PNGs, "
+                                 f"{small} of 1000 bytes or less")
+        log(f"[visualize] visualize_utterance wrote {len(paths)} PNGs")
+    return launches
 
 
 def write_serving_files(cfg, meta, state) -> dict:
@@ -1458,7 +1578,7 @@ def run_cli(args) -> str:
 
 def phase_train(torch, train, dev) -> tuple:
     """The training path; -> (lstm_fwd launches, lstm_bwd launches, the
-    epoch-2 YAML)."""
+    epoch-2 YAML, the first step's loss)."""
     from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
 
     confs = [write_train_yaml(train, dev, e) for e in (1, 2)]
@@ -1498,7 +1618,7 @@ def phase_train(torch, train, dev) -> tuple:
         raise AssertionError(f"{fwd} forward / {bwd} backward launches for "
                              f"{forwards} forwards / {steps} train steps: a "
                              "layer bypassed the kernels")
-    return fwd, bwd, confs[1]
+    return fwd, bwd, confs[1], first
 
 
 def phase_step_time(torch, conf: str, card: str) -> None:
@@ -1547,6 +1667,189 @@ def phase_step_time(torch, conf: str, card: str) -> None:
                    f"3 train steps at B={BATCH}", card)
 
 
+STRICT_LINE = ("compute_dtype float32 on cuda: cuBLAS allow_tf32=False, "
+               "cuDNN allow_tf32=False")
+STRICT_TIMEOUT_S = 300
+
+
+def phase_train_strict(train, dev, first_in_process: float,
+                       card: str) -> None:
+    """`python -m mdd_tpu_torch train` as a fresh process (nothing of this
+    script has run in it) for one epoch of the training corpus: the
+    Trainer's first line must state both TF32 flags off."""
+    conf = write_train_yaml(train, dev, 1, exp_name="strict_train")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mdd_tpu_torch", "train", "--conf", conf,
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+        timeout=STRICT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[train-strict] train exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    flags = [line for line in proc.stdout.splitlines()
+             if line.startswith("compute_dtype ")]
+    first = float(re.search(r"Epoch = 1, step = 1, total_loss = (\S+?),",
+                            proc.stdout).group(1))
+    log(f"[train-strict] a fresh `train` process, 1 epoch in {wall:.1f} s "
+        f"(start-up included): {flags}; first step loss {first:.6f} vs "
+        f"phase train's in-process {first_in_process:.6f} (difference "
+        f"{abs(first - first_in_process):.3e}, not gating) ({card})")
+    if flags != [STRICT_LINE]:
+        raise AssertionError(f"[train-strict] the trainer printed {flags}, "
+                             f"not [{STRICT_LINE!r}]: TF32 is on")
+
+
+PLATEAU_EPOCHS, PLATEAU_KILL = 6, 3
+# what the plateau machine is fed, by epoch: a dev loss that rises every
+# epoch, so only epoch 1 takes a restore point and each halving (epochs 2,
+# 4 and 6: patience 2 in a band wider than any loss) restores it; a dev
+# acc that peaks at epoch 2, so `best` is a state from before the kill.
+# The corpus's real dev loss falls every epoch, and each halving would
+# then restore the snapshot its own epoch had just taken
+PLATEAU_SEEN_LOSS = {e: 100.0 + e for e in range(1, PLATEAU_EPOCHS + 2)}
+PLATEAU_SEEN_ACC = {1: 0.1, 2: 0.3, 3: 0.2, 4: 0.25, 5: 0.2, 6: 0.1, 7: 0.1}
+PLATEAU_DEV_RTOL = 1e-3   # printed beside the two runs' dev losses, not
+# gating: cuDNN's convolution backward is not bit-deterministic
+
+
+def phase_resume_plateau(torch, train, dev, card: str) -> dict:
+    """`train` through the CLI at full width on the kernels, dropout 0, a
+    halving every second epoch, `latest` every epoch: 6 epochs in one run
+    against 3 and `--resume` to 6; then, its snapshot file deleted as if
+    written before it existed, `--resume` to 7; -> the launches of the
+    four runs by kernel."""
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.train import loop
+    from mdd_tpu_torch.train.checkpoint import load_snapshots
+    from mdd_tpu_torch.train.plateau import PlateauScheduler
+
+    fields = dict(drop_out=0.0, end_adjust_acc=1000.0, plateau_patience=2,
+                  checkpoint_every=1)
+    whole = write_train_yaml(train, dev, PLATEAU_EPOCHS,
+                             exp_name="plateau_whole", **fields)
+    split = [write_train_yaml(train, dev, e, exp_name="plateau_split",
+                              **fields)
+             for e in (PLATEAU_KILL, PLATEAU_EPOCHS, PLATEAU_EPOCHS + 1)]
+    rec = {}
+    run_epoch, step = loop.Trainer.run_epoch, PlateauScheduler.step
+    restore, save = loop.Trainer._restore_snapshot, loop.save_checkpoint
+
+    def run_epoch_rec(self, loader, epoch, train, *a, **k):
+        out = run_epoch(self, loader, epoch, train, *a, **k)
+        if not train:
+            rec["epoch"] = epoch
+            rec["dev"][epoch] = out[1]
+            rec["walls"].append(time.perf_counter())
+        return out
+
+    def step_rec(self, dev_loss, acc):
+        e = rec["epoch"]
+        rec["actions"][e] = step(self, PLATEAU_SEEN_LOSS[e],
+                                 PLATEAU_SEEN_ACC[e])
+        return rec["actions"][e]
+
+    def restore_rec(self, snap):
+        restore(self, snap)
+        rec["installed"].append((rec["epoch"], {
+            k: v.detach().cpu().clone()
+            for k, v in self.model.state_dict().items()}))
+
+    def save_rec(path, tag, *a, **k):
+        t0 = time.perf_counter()
+        out = save(path, tag, *a, **k)
+        files = [out + x for x in (".pt", ".opt.pt", ".snap.pt",
+                                   ".meta.json") if os.path.exists(out + x)]
+        rec["saves"].append((tag, time.perf_counter() - t0,
+                             {f[len(out):]: os.path.getsize(f)
+                              for f in files}))
+        return out
+
+    def run(conf, *flags):
+        rec.update(epoch=None, dev={}, actions={}, installed=[], saves=[],
+                   walls=[time.perf_counter()])
+        out = run_cli(["train", "--conf", conf, "--device", "cuda", *flags])
+        return out, {k: v for k, v in rec.items() if k != "epoch"}
+
+    loop.Trainer.run_epoch, PlateauScheduler.step = run_epoch_rec, step_rec
+    loop.Trainer._restore_snapshot, loop.save_checkpoint = restore_rec, save_rec
+    lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    try:
+        _, w = run(whole)
+        _, first = run(split[0])
+        at_kill = load_snapshots(str(WORK / "ckpt" / "plateau_split"),
+                                 "latest")
+        out, resumed = run(split[1], "--resume")
+        (WORK / "ckpt" / "plateau_split" / "latest.snap.pt").unlink()
+        old_out, _ = run(split[2], "--resume")
+    finally:
+        loop.Trainer.run_epoch, PlateauScheduler.step = run_epoch, step
+        loop.Trainer._restore_snapshot, loop.save_checkpoint = restore, save
+    launches = {"lstm_fwd": lstm_fwd_kernel.launches,
+                "lstm_bwd": lstm_bwd_kernel.launches}
+    epochs = 2 * PLATEAU_EPOCHS + 1
+    steps = -(-TRAIN_UTTS // BATCH) * epochs
+    forwards = steps + -(-DEV_UTTS // BATCH) * epochs
+    if f"resumed from epoch {PLATEAU_KILL}" not in out:
+        raise AssertionError("[resume-plateau] the second run did not resume")
+    old = [line for line in old_out.splitlines()
+           if "resumed from" in line or "no plateau snapshots" in line]
+    if (len(old) != 2 or f"resumed from epoch {PLATEAU_EPOCHS}" not in old[1]
+            or f"Epoch {PLATEAU_EPOCHS + 1} Valid done" not in old_out):
+        raise AssertionError(f"[resume-plateau] a latest without its "
+                             f"snapshot file: {old}")
+    actions = {e: str(a) for e, a in w["actions"].items()}
+    split_actions = {e: str(a) for e, a in {**first["actions"],
+                                            **resumed["actions"]}.items()}
+    installs = [e for e, _ in resumed["installed"]]
+    snap = at_kill["snapshot"][0] if at_kill and at_kill["snapshot"] else None
+    if snap is None or not installs or installs[0] != PLATEAU_KILL + 1:
+        raise AssertionError(f"[resume-plateau] latest at epoch "
+                             f"{PLATEAU_KILL} held no snapshot, or the "
+                             f"resumed run restored at epochs {installs}")
+    got = resumed["installed"][0][1]
+    same = got.keys() == snap.keys() and all(torch.equal(got[k], snap[k])
+                                             for k in snap)
+    dev_w = [w["dev"][e] for e in sorted(w["dev"])]
+    dev_s = [{**first["dev"], **resumed["dev"]}[e] for e in sorted(w["dev"])]
+    dev_rel = max(abs(a - b) / abs(b) for a, b in zip(dev_s, dev_w))
+    epoch_s = [round(b - a, 3) for run_rec in (w, first, resumed)
+               for a, b in zip(run_rec["walls"], run_rec["walls"][1:])]
+    latest = [(sec, sizes) for run_rec in (w, first, resumed)
+              for tag, sec, sizes in run_rec["saves"] if tag == "latest"]
+    log(f"[resume-plateau] {PLATEAU_EPOCHS} epochs vs {PLATEAU_KILL} + "
+        f"--resume to {PLATEAU_EPOCHS}, dropout 0, latest every epoch: the "
+        f"epoch-{installs[0]} restore installs latest's epoch-"
+        f"{PLATEAU_KILL} snapshot {'bit for bit' if same else 'NOT EQUAL'} "
+        f"({len(snap)} tensors); plateau actions by epoch {actions} vs "
+        f"{split_actions}; a latest without its snapshot file resumes to "
+        f"epoch {PLATEAU_EPOCHS + 1}: {old}")
+    log(f"[resume-plateau] dev loss by epoch, uninterrupted "
+        f"{[round(v, 6) for v in dev_w]} vs killed + resumed "
+        f"{[round(v, 6) for v in dev_s]}: max rel {dev_rel:.2e} (expected "
+        f"within {PLATEAU_DEV_RTOL}, not gating: cuDNN's backward is not "
+        f"bit-deterministic); launches {launches} over {steps} train steps "
+        f"and {forwards} forwards")
+    log(f"[resume-plateau] epoch walls (s; each saves latest, the first of "
+        f"a run includes its set-up) {epoch_s}; latest's writes on the save "
+        f"thread {[round(sec, 3) for sec, _ in latest]} s, "
+        f"{sum(latest[-1][1].values())} bytes each, by file "
+        f"{latest[-1][1]} ({card})")
+    if not same:
+        raise AssertionError("[resume-plateau] the first restore after the "
+                             "resume did not install latest's snapshot")
+    if actions != split_actions:
+        raise AssertionError("[resume-plateau] the runs took other plateau "
+                             "actions")
+    if not all(math.isfinite(v) for v in dev_w + dev_s):
+        raise AssertionError(f"[resume-plateau] dev losses {dev_w} {dev_s}")
+    if launches["lstm_bwd"] != 4 * steps or launches["lstm_fwd"] < 4 * forwards:
+        raise AssertionError(f"[resume-plateau] launches {launches} for "
+                             f"{forwards} forwards / {steps} train steps: "
+                             "a layer bypassed the kernels")
+    return launches
+
+
 FWD_TIMING_BATCHES = (1, 16, 64)   # serving, serving groups, train/evaluate
 # train at B=16 and 64; the quality recipe's 256 and bench.py's 512
 BWD_TIMING_BATCHES = (16, 64, 256, 512)
@@ -1555,6 +1858,9 @@ BWD_TIMING_BATCHES = (16, 64, 256, 512)
 def phase_timing(torch, card: str) -> tuple:
     """lstm_fwd at the batches of the main paths, then lstm_bwd at the
     training batches; -> ({B: forward timing}, {B: backward timing})."""
+    from mdd_tpu_torch.utils.precision import strict_float32
+
+    strict_float32("cuda", "float32")   # torch.nn.LSTM's cuDNN yardstick
     g = torch.Generator().manual_seed(SEED)
     fwd = {b: timing_fwd(torch, 80, b, g, card) for b in FWD_TIMING_BATCHES}
     return fwd, {b: timing_bwd(torch, 80, b, g, card)
@@ -2565,8 +2871,6 @@ RANK_BOOT = r"""
 import json, os, sys, time
 sys.path.insert(0, os.environ["SMOKE_ROOT"])
 import torch
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 from mdd_tpu_torch import cli
 from mdd_tpu_torch.evals import evaluate
 from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
@@ -2865,8 +3169,12 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    torch.backends.cuda.matmul.allow_tf32 = False   # float32 means float32
-    torch.backends.cudnn.allow_tf32 = False
+    from mdd_tpu_torch.utils.precision import tf32_flags
+
+    # nothing here sets the flags for the whole process: a phase that
+    # builds a model outside Trainer / EvalSession applies the port's
+    # float32 rule itself
+    log(f"[precision] at start: {tf32_flags()} (torch's defaults)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2877,6 +3185,7 @@ def main() -> int:
     worst = phase_kernel(torch)
     worst_bwd = phase_kernel_bwd(torch)
     cfg, meta, state = phase_model(torch)
+    vis = phase_visualize(torch, cfg, state, card)
     files = write_serving_files(cfg, meta, state)
     launches, engine = phase_serve(files, card)
     lexicon = phase_lexicon(torch, files, card)
@@ -2885,7 +3194,9 @@ def main() -> int:
     train = write_corpus("train", TRAIN_UTTS, SEED + 2)
     dev = write_corpus("dev", DEV_UTTS, SEED + 3)
     phase_model_grad(torch, cfg, state, dev)
-    train_fwd, train_bwd, conf = phase_train(torch, train, dev)
+    train_fwd, train_bwd, conf, first_loss = phase_train(torch, train, dev)
+    phase_train_strict(train, dev, first_loss, card)
+    plateau = phase_resume_plateau(torch, train, dev, card)
     phase_step_time(torch, conf, card)
     timing, timing_bwd = phase_timing(torch, card)
     dropout_err = phase_kernel_dropout(torch)
@@ -2906,14 +3217,17 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_fwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
-        "launches": (launches + sum(lexicon.values())
+        "launches": (launches + vis["lstm_fwd"] + sum(lexicon.values())
                      + sum(product.values()) + train_fwd
+                     + plateau["lstm_fwd"]
                      + fused["lstm_fwd"] + bf16["lstm_fwd"]
                      + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd
                      + ddp["train-ddp"]["lstm_fwd"]
                      + ddp["evaluate-ddp"]["lstm_fwd"]),
-        "launches_by_path": {"serve": launches, **lexicon, **product,
+        "launches_by_path": {"visualize": vis["lstm_fwd"],
+                             "serve": launches, **lexicon, **product,
                              "train": train_fwd,
+                             "resume-plateau": plateau["lstm_fwd"],
                              "train-fused": fused["lstm_fwd"],
                              "train-bf16": bf16["lstm_fwd"],
                              "train-cached": cached["lstm_fwd"],
@@ -2931,10 +3245,13 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
-        "launches": (train_bwd + fused["lstm_bwd"] + bf16["lstm_bwd"]
+        "launches": (train_bwd + plateau["lstm_bwd"] + vis["lstm_bwd"]
+                     + fused["lstm_bwd"] + bf16["lstm_bwd"]
                      + cached["lstm_bwd"] + ddp["train-ddp"]["lstm_bwd"]
                      + ddp["evaluate-ddp"]["lstm_bwd"]),
-        "launches_by_path": {"train": train_bwd,
+        "launches_by_path": {"visualize": vis["lstm_bwd"],
+                             "train": train_bwd,
+                             "resume-plateau": plateau["lstm_bwd"],
                              "train-fused": fused["lstm_bwd"],
                              "train-bf16": bf16["lstm_bwd"],
                              "train-cached": cached["lstm_bwd"],
@@ -2949,10 +3266,12 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/dropout.cu",
         "replaces": "mdd_tpu/ops/dropout_pallas.py:53",
-        "launches": (fused["fused_dropout"] + bf16["fused_dropout"]
+        "launches": (vis["fused_dropout"] + fused["fused_dropout"]
+                     + bf16["fused_dropout"]
                      + ddp["train-ddp"]["fused_dropout"]
                      + ddp["evaluate-ddp"]["fused_dropout"]),
-        "launches_by_path": {"train-fused": fused["fused_dropout"],
+        "launches_by_path": {"visualize": vis["fused_dropout"],
+                             "train-fused": fused["fused_dropout"],
                              "train-bf16": bf16["fused_dropout"],
                              "train-ddp": ddp["train-ddp"]["fused_dropout"],
                              "evaluate-ddp":

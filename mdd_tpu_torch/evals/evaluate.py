@@ -50,6 +50,7 @@ from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
 from mdd_tpu_torch.parallel import mesh
 from mdd_tpu_torch.train.loop import exact_output_sizes
+from mdd_tpu_torch.utils.precision import strict_float32
 
 
 @dataclass
@@ -220,12 +221,7 @@ class EvalSession:
         self.device_frontend = device_frontend
         self.left_ctx, self.right_ctx = left_ctx, right_ctx
         self.n_skip_frame, self.n_downsample = n_skip_frame, n_downsample
-        if model_cfg.compute_dtype == "float32" and self.device.type == "cuda":
-            # float32 means float32 here, as in mdd_tpu: cuDNN convolutions
-            # default to TF32 (about 3 decimal digits), which would move the
-            # log-probs off the reference by far more than fp32 rounding
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        strict_float32(self.device, model_cfg.compute_dtype)
         self.model = CTCAttentionModel(model_cfg)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()

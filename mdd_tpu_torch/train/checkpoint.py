@@ -3,8 +3,12 @@
 A checkpoint `<directory>/<name>` is `<name>.pt`, the model's state_dict
 written by `torch.save`, and `<name>.meta.json`, the same metadata mdd_tpu
 bundles (its `model_config` rebuilds the model); a resumable one (the
-trainer's `latest`) adds `<name>.opt.pt`, the optimizer's state_dict.  An
-mdd_tpu (orbax) checkpoint becomes one through convert.flax_to_torch.
+trainer's `latest`) adds `<name>.opt.pt`, the optimizer's state_dict, and
+`<name>.snap.pt`, the plateau machine's two snapshots (the restore point of
+every halving and the best-acc state that becomes `best`), each a (model
+state, optimizer state) pair or None.  mdd_tpu's `latest` has no snapshot
+file: a resume there restores nothing until the dev loss improves again.
+An mdd_tpu (orbax) checkpoint becomes one through convert.flax_to_torch.
 """
 
 from __future__ import annotations
@@ -30,22 +34,31 @@ def _to_cpu(obj):
 def save_checkpoint(directory: str, name: str,
                     state_dict: Dict[str, torch.Tensor],
                     meta: Dict[str, Any],
-                    optimizer_state: Optional[Dict[str, Any]] = None) -> str:
+                    optimizer_state: Optional[Dict[str, Any]] = None,
+                    snapshots: Optional[Dict[str, Any]] = None) -> str:
     """Write `<name>.pt`, `<name>.meta.json` and, given an optimizer state,
-    `<name>.opt.pt`; returns the path prefix.
+    `<name>.opt.pt`, given the plateau snapshots, `<name>.snap.pt`;
+    returns the path prefix.
 
     Each file is written under a temporary name and renamed into place, so
-    an interrupted save never leaves a truncated file behind."""
+    an interrupted save never leaves a truncated file behind.  The renames
+    go one file after another with the meta last: a save killed half way
+    leaves at worst a meta older than its files, never a new meta beside
+    old weights or old snapshots."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.abspath(os.path.join(directory, name))
     tmp = f"{path}.tmp-{os.getpid()}"
     torch.save(_to_cpu(dict(state_dict)), tmp + ".pt")
-    suffixes = [".pt", ".meta.json"]
+    suffixes = [".pt"]
     if optimizer_state is not None:
         torch.save(_to_cpu(optimizer_state), tmp + ".opt.pt")
         suffixes.append(".opt.pt")
+    if snapshots is not None:
+        torch.save(_to_cpu(snapshots), tmp + ".snap.pt")
+        suffixes.append(".snap.pt")
     with open(tmp + ".meta.json", "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=2, default=str)
+    suffixes.append(".meta.json")
     for suffix in suffixes:
         os.replace(tmp + suffix, path + suffix)
     return path
@@ -66,3 +79,13 @@ def load_optimizer_state(directory: str, name: str) -> Dict[str, Any]:
     path = os.path.abspath(os.path.join(directory, name))
     return torch.load(path + ".opt.pt", map_location="cpu",
                       weights_only=True)
+
+
+def load_snapshots(directory: str, name: str) -> Optional[Dict[str, Any]]:
+    """The plateau snapshots of a resumable checkpoint, on the CPU:
+    {"snapshot": pair or None, "best_acc_state": pair or None}; None for
+    a checkpoint written without them."""
+    path = os.path.abspath(os.path.join(directory, name)) + ".snap.pt"
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)

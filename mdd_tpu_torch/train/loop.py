@@ -3,14 +3,16 @@
 The reference recipe (train_ctc.py): CTCLoss(sum) / true batch size, Adam
 with coupled L2 weight decay over every parameter, greedy train-WER each
 step, and the plateau learning-rate machine with best-state snapshot and
-restore (train_ctc.py:215-268), with resumable `best` + `latest`
-checkpoints.  A step is forward (the acoustic recurrence on the
-hand-written LSTM kernels when the config asks for them), CTC loss,
-backward, Adam update and the WER counts, all on the device; the metrics
-accumulate in a device tensor that the host reads at print boundaries
-only.  A batch of the device-resident corpus (data/device_cache.py) is
-gathered from the corpus tensor and masked on the device before the same
-step.
+restore (train_ctc.py:215-268), with `best` and a resumable `latest`
+(the model, the optimizer and, unlike mdd_tpu's, the plateau machine's two
+snapshots, so a resumed run restores what an uninterrupted one would).
+A float32 trainer on a card runs strict float32 (utils/precision.py).
+A step is forward (the acoustic recurrence on the hand-written LSTM
+kernels when the config asks for them), CTC loss, backward, Adam update
+and the WER counts, all on the device; the metrics accumulate in a
+device tensor that the host reads at print boundaries only.  A batch of
+the device-resident corpus (data/device_cache.py) is gathered from the
+corpus tensor and masked on the device before the same step.
 
 Data parallel (a process group of N ranks, parallel/mesh.py), mdd_tpu's
 one program over the global batch: every rank holds the same parameters
@@ -48,8 +50,9 @@ from mdd_tpu_torch.ops.wer import greedy_wer_counts
 from mdd_tpu_torch.parallel import mesh
 from mdd_tpu_torch.train.checkpoint import (load_checkpoint,
                                             load_optimizer_state,
-                                            save_checkpoint)
+                                            load_snapshots, save_checkpoint)
 from mdd_tpu_torch.train.plateau import PlateauAction, PlateauScheduler
+from mdd_tpu_torch.utils.precision import strict_float32, tf32_flags
 
 
 RANK_SEED_STRIDE = 0x9E3779B1   # odd, so ranks' dropout seeds never meet
@@ -96,6 +99,7 @@ class Trainer:
                              f"divisible by the splice context {ctx}")
         self.rank, self.world = mesh.process_index(), mesh.process_count()
         self.weight_noise_std = weight_noise_std
+        strict_float32(self.device, model_cfg.compute_dtype)
         self.model = CTCAttentionModel(model_cfg)
         self.model.init_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
@@ -289,10 +293,25 @@ class Trainer:
     def _restore_snapshot(self, snap) -> None:
         """Install a snapshot by copy: the plateau machine may restore the
         same snapshot several times (train_ctc.py:258-265), and the
-        optimizer would otherwise update the snapshot's own tensors."""
+        optimizer would otherwise update the snapshot's own tensors.  So
+        nothing ever writes to a snapshot's tensors once it is taken."""
         model_state, opt_state = snap
         self.model.load_state_dict(model_state)
         self.optimizer.load_state_dict(copy.deepcopy(opt_state))
+
+    def _to_device(self, snap):
+        """A snapshot read from disk, placed as _device_snapshot places
+        one: its tensors on the trainer's device, but Adam's `step`
+        counters on the CPU, where the optimizer keeps them."""
+        if snap is None:
+            return None
+        model_state, opt_state = snap
+        for per_param in opt_state["state"].values():
+            for k, v in per_param.items():
+                if k != "step" and isinstance(v, torch.Tensor):
+                    per_param[k] = v.to(self.device)
+        return ({k: v.to(self.device) for k, v in model_state.items()},
+                opt_state)
 
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
@@ -325,9 +344,11 @@ class Trainer:
         N epochs, and always on the final epoch."""
         sched = self.scheduler
         epoch = 0
+        log(f"compute_dtype {self.model_cfg.compute_dtype} on "
+            f"{self.device.type}: {tf32_flags()}")
         if resume and checkpoint_dir and os.path.exists(
                 os.path.join(checkpoint_dir, exp_name, "latest.pt")):
-            epoch = self.restore(checkpoint_dir, exp_name, "latest")
+            epoch = self.restore(checkpoint_dir, exp_name, "latest", log)
             # continue the loaders' augmentation / shuffle sequence
             for ld in (train_loader, dev_loader):
                 set_ep = getattr(ld, "set_epoch", None)
@@ -394,17 +415,25 @@ class Trainer:
             "scheduler": dataclasses.asdict(self.scheduler),
         }
 
+    def _snapshots(self) -> Dict[str, Any]:
+        """The plateau machine's two snapshots, as `latest` carries them."""
+        return {"snapshot": self._snapshot,
+                "best_acc_state": self._best_acc_state}
+
     def save(self, directory: str, exp_name: str, tag: str,
              epoch: int) -> str:
         """Synchronous save (rank 0 writes; the others only wait for an
-        earlier save); `latest` carries the optimizer state."""
+        earlier save); `latest` carries the optimizer state and the
+        plateau snapshots."""
         self.join_saves()
         path = os.path.join(directory, exp_name)
         if self.rank == 0:
+            latest = tag == "latest"
             save_checkpoint(
                 path, tag, self.model.state_dict(), self._save_meta(epoch),
-                optimizer_state=(self.optimizer.state_dict()
-                                 if tag == "latest" else None))
+                optimizer_state=(self.optimizer.state_dict() if latest
+                                 else None),
+                snapshots=self._snapshots() if latest else None)
         return path
 
     def save_async(self, directory: str, exp_name: str, tag: str,
@@ -419,10 +448,15 @@ class Trainer:
         model_state, opt_state = self._device_snapshot()
         meta = self._save_meta(epoch)
         path = os.path.join(directory, exp_name)
+        latest = tag == "latest"
+        # the snapshots go to the thread uncloned: nothing writes to a
+        # snapshot's tensors (_restore_snapshot installs by copy), and a
+        # new snapshot replaces the pair, not its tensors
         self._save_thread = threading.Thread(
             target=save_checkpoint, daemon=True,
             args=(path, tag, model_state, meta,
-                  opt_state if tag == "latest" else None))
+                  opt_state if latest else None,
+                  self._snapshots() if latest else None))
         self._save_thread.start()
 
     def join_saves(self) -> None:
@@ -432,15 +466,25 @@ class Trainer:
             self._save_thread = None
 
     def restore(self, directory: str, exp_name: str,
-                tag: str = "latest") -> int:
-        """Load params, BN statistics, the optimizer state (`latest`), the
-        scheduler and the loss histories; -> the epoch to continue from."""
+                tag: str = "latest", log=print) -> int:
+        """Load params, BN statistics, the optimizer state and the plateau
+        snapshots (`latest`), the scheduler and the loss histories; -> the
+        epoch to continue from.  Every rank reads the same files."""
         path = os.path.join(directory, exp_name)
         state, meta = load_checkpoint(path, tag)
         self.model.load_state_dict(state)
         mesh.broadcast_module(self.model)     # rank 0's weights everywhere
         if tag == "latest":
             self.optimizer.load_state_dict(load_optimizer_state(path, tag))
+            snaps = load_snapshots(path, tag)
+            if snaps is None:
+                log(f"{tag} has no plateau snapshots (written before "
+                    "they were saved): no halving restores a state until "
+                    "the dev loss improves again")
+            else:
+                self._snapshot = self._to_device(snaps["snapshot"])
+                self._best_acc_state = self._to_device(
+                    snaps["best_acc_state"])
         for k, v in meta.get("scheduler", {}).items():
             if hasattr(self.scheduler, k):
                 setattr(self.scheduler, k, v)

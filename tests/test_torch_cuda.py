@@ -12,6 +12,7 @@ import torch
 
 from mdd_tpu_torch.ops import dropout_cuda, lstm_cuda
 from mdd_tpu_torch.ops.lstm import bilstm
+from mdd_tpu_torch.utils.precision import strict_float32
 
 pytestmark = pytest.mark.cuda
 
@@ -20,7 +21,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    strict_float32("cuda", "float32")
     return torch.device("cuda")
 
 
@@ -324,3 +325,25 @@ def test_dropout_backward_regenerates_the_forward_mask(cuda):
     assert abs(mask.float().mean().item() - 0.8) < 4 * (0.16 / x.numel()) ** 0.5
     other = dropout_cuda.fused_dropout(x, 0.2, gen)
     assert not torch.equal(other != 0, mask)
+
+
+def test_trainer_in_float32_on_the_card_turns_tf32_off(cuda):
+    """train's float32 rule: a Trainer built on the card with
+    compute_dtype float32 leaves cuBLAS and cuDNN without TF32, whatever
+    the process had set before."""
+    from mdd_tpu_torch.models.ctc_model import ModelConfig
+    from mdd_tpu_torch.train.loop import Trainer
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        Trainer(ModelConfig(input_dim=24, num_class=8, rnn_hidden_size=8,
+                            rnn_layers=1, text_embed_size=8),
+                device="cuda")
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

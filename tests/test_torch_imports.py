@@ -137,3 +137,47 @@ def test_scale_out_slice_modules_are_checked(module):
         ".__init__", "")
     importlib.import_module(name)
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("module", [
+    "utils/precision.py", "utils/visualize.py", "train/loop.py",
+    "train/checkpoint.py", "evals/evaluate.py"])
+def test_last_slice_modules_are_checked(module):
+    """The modules of the last slice (the float32 rule, the plateau
+    snapshots in `latest`, the visualizer) exist and are among the checked
+    sources; none imports triton or matplotlib at module level, so the
+    port imports on a machine without them (the card's has no
+    matplotlib)."""
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    top_level = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            top_level |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top_level.add(node.module.split(".")[0])
+    assert not top_level & {"triton", "matplotlib"}
+
+
+# mdd_tpu's Pallas kernels are the port's CUDA wrappers; every other
+# module keeps its path
+PALLAS_TO_CUDA = {"ops/lstm_pallas.py": "ops/lstm_cuda.py",
+                  "ops/dropout_pallas.py": "ops/dropout_cuda.py"}
+JAX_MODULES = sorted(p.relative_to(ROOT / "mdd_tpu").as_posix()
+                     for p in (ROOT / "mdd_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_mdd_tpu_module_has_its_port(module):
+    """Nothing of mdd_tpu is left to port: each of its modules has its
+    counterpart at the same path under mdd_tpu_torch/ (a module added to
+    mdd_tpu later shows up here)."""
+    port = ROOT / "mdd_tpu_torch" / PALLAS_TO_CUDA.get(module, module)
+    assert port.exists(), f"mdd_tpu/{module} has no port"
+
+
+def test_the_module_map_covers_the_pallas_files():
+    assert len(JAX_MODULES) > 40
+    assert set(PALLAS_TO_CUDA) <= set(JAX_MODULES)
+    assert not [m for m in JAX_MODULES
+                if "pallas" in m and m not in PALLAS_TO_CUDA]
