@@ -12,13 +12,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             ark_io.cc (the mmap ark reader).
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
             serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
-            {16, 80, 128}) and at B=24, 256 and 512 (two unit groups a
-            block, four and eight launches), float32 and bfloat16.
+            {16, 80, 128}), at B=24, 256 and 512 (two unit groups a
+            block, four and eight launches) and at phase benchmark's
+            (B, T') of BENCH_SHAPES, float32 and bfloat16.
 3. kernel-bwd  lstm_bwd against its plain version at the training shapes
-            (H=384, B in {1, 4, 16, 24, 64}, T' in {16, 80, 128}) and at
+            (H=384, B in {1, 4, 16, 24, 64}, T' in {16, 80, 128}), at
             B=256, 300 and 512 (each as several recurrence launches, 300
-            with a ragged last one; the same bits twice), float32 and
-            bfloat16.
+            with a ragged last one; the same bits twice) and at
+            BENCH_SHAPES, float32 and bfloat16.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -137,10 +138,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             shipped recipes' dtype) and use_fused_dropout=True, through the
             entry points of phase 14 for one epoch: losses finite and
             falling, every layer of every step on the kernels, the step
-            median; then one Trainer step of the full-width model at
-            bench.py's cell, B=512 x 160 input frames (T'=80, 48 canonical
-            phones) in bfloat16: loss finite, one lstm_bwd count a layer
-            (its recurrence in several launches), the step time.
+            median; then 3 steps of that model at bench.py's cell (B=512 x
+            160 frames, the largest batch a train step gives the dropout
+            kernel): losses finite, fused_dropout 12 and lstm_bwd 4 counts
+            a step, the step times.
 16. train-cached  the training path on the device-resident corpus: a
             hard-profile corpus (512 / 64 / 64 utterances of 16-40 phones,
             the recovered 41-unit inventory) from `python -m
@@ -199,6 +200,23 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             two cards or more, (a) as 2 ranks x 32 over two cards (nccl),
             with four also 4 x 16 over four; else a line that says it was
             not run.
+21. benchmark  `python -m mdd_tpu_torch benchmark` in-process at its full
+            sizes (mdd_tpu_torch/bench.py, the port of bench.py): the train
+            step at B=512 x 160 frames in bfloat16 (5 + 30 steps), the
+            device beam at 512 x 80, K=10, fbank / MFCC on 128 x 3 s and
+            `feat` over 900 wavs, `evaluate` over 900 utterances streaming
+            and cached, epochs over 5,496 utterances cached and streaming.
+            Exactly one JSON line on stdout with bench.py's metric, unit
+            and every `extra` key of bench.py (read from its source) and
+            the port's `card` and `peak_flops`; value > 0, 0 < mfu <= 1
+            against the listed bf16 peak, 900 utterances in every
+            evaluation pass; lstm_fwd 4 counts a forward and lstm_bwd 4 a
+            train step over the phase (every Trainer step and evaluation
+            forward counted apart), fused_dropout 0 (bench.py leaves it
+            off); the B=512 backward's recurrence plan, the line, the
+            phase's wall time and peak device memory logged; then, not
+            gating, torch.profiler over 3 steps of the train section's
+            cell: device busy share and the ops that take the time.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits 2 without a CUDA device, or when run
@@ -246,6 +264,9 @@ ZERO_ULPS = 64     # a tensor whose plain gradient stays within this many
 # feeds a train-mode BatchNorm, which subtracts the batch mean): its
 # relative error is noise, so both runs' gradients are held below that
 TRAIN_UTTS, DEV_UTTS, BATCH = 512, 64, 64
+# (B, T') the recurrence takes in phase benchmark: the train section's step,
+# the epoch's and the cached evaluation's batch, the streaming evaluation's
+BENCH_SHAPES = [(512, 80), (256, 80), (128, 112)]
 FUSED_EPOCHS = 3
 PER_GAP = 5.0      # beam (with and without the LM) vs greedy PER, percentage
 # points: the LM trained on the corpus's near-uniform phone strings acts as
@@ -253,9 +274,10 @@ PER_GAP = 5.0      # beam (with and without the LM) vs greedy PER, percentage
 # 3 epochs mostly outweighs
 BEAM_MATCH = 0.95  # device beam vs host beam, share of identical sequences
 # (float32 against float64 scores can reorder near-tied prefixes)
-# H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W
+# H100 SXM published peaks (NVIDIA data sheet), dense, at 700 W; the FLOP/s
+# by dtype are mdd_tpu_torch.bench's table, which main() reads
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS: dict = {}
 # the 41-unit inventory that regenerates mdd_tpu's hard-profile test split
 HARD_UNITS = ROOT / "results" / "synthetic_full_hard_torch" / "units"
 UNITS = ["sil", "err", "aa", "ae", "ah", "ao", "aw", "ay", "b", "ch", "d",
@@ -356,7 +378,7 @@ def phase_kernel(torch) -> dict:
         # the serving and training shapes, then a batch the kernel splits
         # over two unit groups a block and two that take several launches
         cases = [(b, t) for b in (1, 4, 16, 64) for t in (16, 80, 128)]
-        for b, t in cases + [(24, 16), (256, 16), (512, 4)]:
+        for b, t in cases + [(24, 16), (256, 16), (512, 4)] + BENCH_SHAPES:
             x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
                       ).to("cuda", dt)
             w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
@@ -394,12 +416,13 @@ def phase_kernel_bwd(torch) -> dict:
     g = torch.Generator().manual_seed(SEED + 1)
     worst = {}
     # the training shapes, then batches whose recurrence runs as several
-    # launches (300: a ragged last one; 512: bench.py's batch)
+    # launches (300: a ragged last one; 512: bench.py's batch), then the
+    # benchmark's own
     cases = [(b, t) for b in (1, 4, 16, 24, 64) for t in (16, 80, 128)]
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         worst[dtype] = 0.0
-        for b, t in cases + [(256, 16), (300, 8), (512, 8)]:
+        for b, t in cases + [(256, 16), (300, 8), (512, 8)] + BENCH_SHAPES:
             x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
                       ).to("cuda", dt)
             w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
@@ -2190,8 +2213,8 @@ def compare_dropout_steps(torch, cfg, vocab, card: str) -> None:
 
 def phase_train_bf16(torch, train, dev, card: str) -> dict:
     """One epoch of the flagship recipe in bfloat16 with use_fused_dropout
-    through the entry points `train` uses, its step time, then one step at
-    bench.py's cell; -> the launch counts of the epoch."""
+    through the entry points `train` uses, then its step time; -> the
+    launch counts of the epoch."""
     from mdd_tpu_torch import cli
     from mdd_tpu_torch.data.dataset import pad_batch_to
     from mdd_tpu_torch.data.vocab import Vocab
@@ -2255,56 +2278,48 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
     log(f"[train-bf16] step time at B={BATCH}: median "
         f"{statistics.median(secs) * 1e3:.2f} ms over {len(secs)} steps "
         f"(min {min(secs) * 1e3:.2f}, max {max(secs) * 1e3:.2f}) ({card})")
-    bench_cell_step(torch, trainer.model_cfg, card)
+    bench_cell_fused_step(torch, trainer.model_cfg, card)
     return {"fused_dropout": drops, "lstm_fwd": fwd, "lstm_bwd": bwd}
 
 
-def bench_cell_step(torch, model_cfg, card: str) -> None:
-    """Trainer steps of the full-width model at bench.py's cell (B=512 x
-    160 spliced input frames, T'=80, 48 canonical phones, bfloat16, the
-    kernels and fused dropout) on seeded random batches: the first step's
-    loss finite and one lstm_bwd count a layer, then the step time."""
+def bench_cell_fused_step(torch, model_cfg, card: str) -> None:
+    """Trainer steps of the full-width bfloat16 model with fused dropout
+    at bench.py's cell (B=512 x 160 frames, T'=80, 48 canonical phones, the
+    benchmark's seeded batch), the largest batch a train step gives the
+    dropout kernel: each step's loss finite, fused_dropout 12 counts and
+    lstm_bwd one a layer a step."""
+    from mdd_tpu_torch import bench
+    from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
     from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel
     from mdd_tpu_torch.train.loop import Trainer
 
-    b, frames, labels = 512, 160, 48
+    if not model_cfg.use_fused_dropout:
+        raise AssertionError("the bench-cell step needs use_fused_dropout")
     tr = Trainer(model_cfg, device="cuda", device_frontend=False)
-    g = torch.Generator().manual_seed(SEED + 8)
-    n_class = model_cfg.num_class
-    arrays = (torch.randn((b, frames, model_cfg.input_dim), generator=g),
-              torch.ones(b),
-              torch.randint(2, n_class, (b, labels), generator=g),
-              torch.full((b,), labels),
-              torch.randint(2, n_class, (b, labels), generator=g),
-              torch.full((b,), labels), torch.ones(b, dtype=torch.bool))
-    arrays = tuple(a.cuda() for a in arrays)
-    plan = lstm_bwd_kernel.plan(model_cfg.output_frames(frames), b,
-                                model_cfg.rnn_hidden_size, torch.bfloat16)
-    torch.cuda.reset_peak_memory_stats()
-    before = lstm_bwd_kernel.launches
-    acc = tr.train_step(arrays, torch.zeros(4, device="cuda"))
-    torch.cuda.synchronize()
-    made = lstm_bwd_kernel.launches - before
-    loss = acc[0].item()
-    secs = []
+    arrays = tr.batch_arrays(bench.train_batch(
+        model_cfg, bench.BATCH, bench.FRAMES, bench.LABEL_LEN))
+    kernels = (fused_dropout_kernel, lstm_bwd_kernel)
+    before = [k.launches for k in kernels]
+    losses, secs = [], []
     for _ in range(3):
         t0 = time.perf_counter()
-        acc = tr.train_step(arrays, acc)
+        acc = tr.train_step(arrays, torch.zeros(4, device="cuda"))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-    log(f"[train-bf16] bench.py's cell, B={b} x {frames} frames (T'="
-        f"{model_cfg.output_frames(frames)}), {labels} canonical phones, "
-        f"bfloat16: first step loss {loss:.4f}; lstm_bwd counts {made} for "
-        f"{model_cfg.rnn_layers} layers, its recurrence in "
-        f"{plan['launches']} launch(es) of {plan['chunk_rows']} rows; step "
-        f"time {' / '.join(f'{v * 1e3:.1f}' for v in secs)} ms; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
-        f"({card})")
-    if not math.isfinite(loss) or loss >= 1e29:
-        raise AssertionError(f"bench-cell step loss {loss}")
-    if made != model_cfg.rnn_layers:
-        raise AssertionError(f"{made} lstm_bwd counts for "
-                             f"{model_cfg.rnn_layers} layers")
+        losses.append(acc[0].item())
+    drops, bwd = (k.launches - b for k, b in zip(kernels, before))
+    log(f"[train-bf16] bench.py's cell with fused dropout, B={bench.BATCH} "
+        f"x {bench.FRAMES} frames (T'={model_cfg.output_frames(bench.FRAMES)}"
+        f"), bfloat16: step losses {' / '.join(f'{v:.4f}' for v in losses)}"
+        f"; fused_dropout {drops}, lstm_bwd {bwd} launches over "
+        f"{len(secs)} steps; step time "
+        f"{' / '.join(f'{v * 1e3:.1f}' for v in secs)} ms ({card})")
+    if not all(math.isfinite(v) and 0 < v < 1e29 for v in losses):
+        raise AssertionError(f"bench-cell fused-dropout step losses {losses}")
+    if drops != 12 * len(secs) or bwd != model_cfg.rnn_layers * len(secs):
+        raise AssertionError(
+            f"{drops} fused_dropout / {bwd} lstm_bwd launches for "
+            f"{len(secs)} steps of {model_cfg.rnn_layers} layers")
 
 
 def write_eval_yaml(conf: str, name: str, split: tuple, lm: str,
@@ -3155,6 +3170,134 @@ def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
     return launches
 
 
+BENCH_PORT_KEYS = {"card", "peak_flops", "decode_lm", "eval_lm",
+                   "eval_n_utts"}   # the port's additions to bench.py's line
+
+
+def bench_py_line_fields() -> tuple:
+    """(metric, unit, extra keys) of the repo-root bench.py's line, read
+    from its source (an f-string key once a front-end name)."""
+    src = (ROOT / "bench.py").read_text()
+    field = lambda f: re.search(rf'"{f}": "([^"]+)"', src).group(1)
+    keys = set(re.findall(r'extra: dict = \{"([^"]+)"', src))
+    for fstr, key in re.findall(r'extra\[(f?)"([^"]+)"\]', src):
+        keys |= ({key.format(name=n) for n in ("fbank", "mfcc")} if fstr
+                 else {key})
+    return field("metric"), field("unit"), keys
+
+
+def phase_benchmark(torch, card: str) -> dict:
+    """`python -m mdd_tpu_torch benchmark` in-process at its full sizes,
+    its stdout captured, every Trainer step and evaluation forward
+    counted; -> the launch counts of the phase."""
+    from mdd_tpu_torch import bench, cli
+    from mdd_tpu_torch.evals.evaluate import EvalSession
+    from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.train.loop import Trainer
+
+    cfg = bench.flagship_config("cuda")
+    t_out = cfg.output_frames(bench.FRAMES)
+    plan = lstm_bwd_kernel.plan(t_out, bench.BATCH, cfg.rnn_hidden_size,
+                                torch.bfloat16)
+    ran = {"steps": 0, "forwards": 0}
+    step, forward = Trainer.train_step, EvalSession._forward
+
+    def counted_step(self, *args):
+        ran["steps"] += 1
+        return step(self, *args)
+
+    def counted_forward(self, *args):
+        ran["forwards"] += 1
+        return forward(self, *args)
+
+    kernels = (lstm_fwd_kernel, lstm_bwd_kernel, fused_dropout_kernel)
+    for k in kernels:
+        k.launches = 0
+    out = io.StringIO()
+    Trainer.train_step, EvalSession._forward = counted_step, counted_forward
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["benchmark"])
+        torch.cuda.synchronize()
+    finally:
+        Trainer.train_step, EvalSession._forward = step, forward
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fwd, bwd, drops = (k.launches for k in kernels)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[benchmark] {line}")
+    log(f"[benchmark] `benchmark` in {wall:.1f} s, rc {rc}, {len(lines)} "
+        f"stdout line(s); {ran['steps']} Trainer steps, {ran['forwards']} "
+        f"evaluation forwards; lstm_fwd {fwd}, lstm_bwd {bwd}, "
+        f"fused_dropout {drops}; lstm_bwd's recurrence at B={bench.BATCH}, "
+        f"T'={t_out} in {plan['launches']} launch(es) of "
+        f"{plan['chunk_rows']} rows; peak device memory {peak_gib:.1f} GiB "
+        f"({card})")
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"benchmark returned {rc} with {len(lines)} "
+                             "stdout lines, not one JSON line")
+    got = json.loads(lines[0])
+    metric, unit, keys = bench_py_line_fields()
+    extra = got["extra"]
+    missing = sorted((keys | BENCH_PORT_KEYS) - set(extra))
+    if got["metric"] != metric or got["unit"] != unit or missing:
+        raise AssertionError(f"metric {got['metric']!r} / unit "
+                             f"{got['unit']!r} (bench.py: {metric!r} / "
+                             f"{unit!r}); extra keys missing: {missing}")
+    if extra["peak_flops"] != PEAK_FLOPS["bfloat16"]:
+        raise AssertionError(f"peak_flops {extra['peak_flops']}, not the "
+                             f"bf16 peak {PEAK_FLOPS['bfloat16']}")
+    if not (got["value"] > 0 and extra["mfu"] is not None
+            and 0 < extra["mfu"] <= 1):
+        raise AssertionError(f"value {got['value']}, mfu {extra['mfu']}")
+    if extra["eval_n_utts"] != 900:
+        raise AssertionError(f"{extra['eval_n_utts']} evaluated utterances "
+                             "a pass, not 900")
+    layers = cfg.rnn_layers
+    if not (ran["steps"] > bench.WARMUP_STEPS + bench.BENCH_STEPS
+            and ran["forwards"] > 0 and bwd == layers * ran["steps"]
+            and fwd == layers * (ran["steps"] + ran["forwards"])
+            and drops == 0):
+        raise AssertionError(
+            f"{fwd} lstm_fwd / {bwd} lstm_bwd / {drops} fused_dropout "
+            f"launches for {ran['steps']} steps and {ran['forwards']} "
+            f"evaluation forwards of {layers} layers: a layer bypassed its "
+            "kernel, or dropout ran fused")
+    profile_bench_step(torch, cfg, card)
+    return {"lstm_fwd": fwd, "lstm_bwd": bwd, "fused_dropout": drops}
+
+
+def profile_bench_step(torch, cfg, card: str) -> None:
+    """torch.profiler over 3 steps of the train section's cell (after 2
+    warm ones): device busy share and the ops that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch import bench
+    from mdd_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, device="cuda")
+    arrays = trainer.batch_arrays(bench.train_batch(
+        cfg, bench.BATCH, bench.FRAMES, bench.LABEL_LEN))
+    acc = torch.zeros(4, device="cuda")
+    for _ in range(2):
+        acc = trainer.train_step(arrays, acc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            acc = trainer.train_step(arrays, acc)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, "benchmark",
+                   f"3 train steps at B={bench.BATCH} x {bench.FRAMES} "
+                   f"frames, {cfg.compute_dtype}", card)
+
+
 def main() -> int:
     try:
         import torch
@@ -3169,7 +3312,10 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from mdd_tpu_torch import bench
     from mdd_tpu_torch.utils.precision import tf32_flags
+
+    PEAK_FLOPS.update(bench.PEAK_FLOPS[bench.H100_SXM])
 
     # nothing here sets the flags for the whole process: a phase that
     # builds a model outside Trainer / EvalSession applies the port's
@@ -3180,6 +3326,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     card = smi
+    started = time.perf_counter()
 
     phase_build()
     worst = phase_kernel(torch)
@@ -3207,6 +3354,7 @@ def main() -> int:
     eval_cached_fwd = phase_evaluate_cached(torch, cached, card)
     phase_profile_evaluate(torch, conf, train, card)
     ddp = phase_distributed(torch, conf, train, dev, card)
+    benchmark = phase_benchmark(torch, card)
     dropout_timing = phase_timing_dropout(torch, card)
     shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3223,7 +3371,8 @@ def main() -> int:
                      + fused["lstm_fwd"] + bf16["lstm_fwd"]
                      + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd
                      + ddp["train-ddp"]["lstm_fwd"]
-                     + ddp["evaluate-ddp"]["lstm_fwd"]),
+                     + ddp["evaluate-ddp"]["lstm_fwd"]
+                     + benchmark["lstm_fwd"]),
         "launches_by_path": {"visualize": vis["lstm_fwd"],
                              "serve": launches, **lexicon, **product,
                              "train": train_fwd,
@@ -3234,7 +3383,8 @@ def main() -> int:
                              "evaluate": eval_fwd,
                              "evaluate-cached": eval_cached_fwd,
                              "train-ddp": ddp["train-ddp"]["lstm_fwd"],
-                             "evaluate-ddp": ddp["evaluate-ddp"]["lstm_fwd"]},
+                             "evaluate-ddp": ddp["evaluate-ddp"]["lstm_fwd"],
+                             "benchmark": benchmark["lstm_fwd"]},
         "max_abs_err": max(worst["float32"],
                            *(timing[b]["timing_err"] for b in timing)),
         "shape": f"T'=80 B=16 H={H} float32",
@@ -3248,7 +3398,8 @@ def main() -> int:
         "launches": (train_bwd + plateau["lstm_bwd"] + vis["lstm_bwd"]
                      + fused["lstm_bwd"] + bf16["lstm_bwd"]
                      + cached["lstm_bwd"] + ddp["train-ddp"]["lstm_bwd"]
-                     + ddp["evaluate-ddp"]["lstm_bwd"]),
+                     + ddp["evaluate-ddp"]["lstm_bwd"]
+                     + benchmark["lstm_bwd"]),
         "launches_by_path": {"visualize": vis["lstm_bwd"],
                              "train": train_bwd,
                              "resume-plateau": plateau["lstm_bwd"],
@@ -3256,7 +3407,8 @@ def main() -> int:
                              "train-bf16": bf16["lstm_bwd"],
                              "train-cached": cached["lstm_bwd"],
                              "train-ddp": ddp["train-ddp"]["lstm_bwd"],
-                             "evaluate-ddp": ddp["evaluate-ddp"]["lstm_bwd"]},
+                             "evaluate-ddp": ddp["evaluate-ddp"]["lstm_bwd"],
+                             "benchmark": benchmark["lstm_bwd"]},
         "max_abs_err": worst_bwd["float32_abs"],
         "shape": f"T'=80 B={BATCH} H={H} float32",
         **timing_bwd[BATCH],
@@ -3281,6 +3433,7 @@ def main() -> int:
         **dropout_timing["conv0"]["float32"],
         "by_site": dropout_timing,
     }]
+    log(f"[time] every phase in {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@
                                 [--warmup [SECONDS]] [--max-batch N]
                                 [--socket HOST:PORT|PATH] [--[no-]denoise]
                                 [--device cuda|cpu] [--decode-type Greedy|Beam]
+  python -m mdd_tpu_torch benchmark [--device cuda|cpu]
 
 `prepare-timit`, `prepare-l2arctic`, `merge` and `units` write the
 Kaldi-style data dirs and the unit inventory (data/prepare.py).  `feat`
@@ -62,6 +63,9 @@ lexicon: the CMUdict files of `--dict-dir` (else MDD_DICT_DIR) and the
 ECDICT csv of `--ecdict-csv`, and both denoise every wav with the native
 denoiser unless given `--no-denoise`; where the denoiser does not build
 they fail (mdd_tpu warns and goes on without it).
+`benchmark` measures mdd_tpu's bench.py sections on one card (bench.py):
+the train step's audio-s/s and MFU, the device beam, the front end,
+`evaluate` and whole epochs, and prints one JSON line.
 The checkpoint is the port's format (train/checkpoint.py): by default
 `<checkpoint_dir>/<exp_name>/best.pt` + `best.meta.json` of the config.
 """
@@ -449,6 +453,13 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    from mdd_tpu_torch import bench
+
+    bench.main(device=args.device)
+    return 0
+
+
 def _add_lexicon_args(q) -> None:
     """The flags `infer` and `serve` share: model, lexicon and display."""
     q.add_argument("--conf", required=True)
@@ -615,6 +626,12 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--quiet", action="store_true",
                    help="no per-request log lines on stderr")
     q.set_defaults(fn=cmd_serve)
+
+    q = sub.add_parser("benchmark", help="training-throughput benchmark "
+                                         "(one JSON line)")
+    q.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    q.set_defaults(fn=cmd_benchmark)
     return p
 
 

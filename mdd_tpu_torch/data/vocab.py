@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Iterable, List, Sequence
 
+import numpy as np
+
 BLANK = "blank"
 UNK = "UNK"
 BLANK_ID = 0
@@ -41,6 +43,18 @@ class Vocab:
                     vocab.add_word(t)
         return vocab
 
+    @classmethod
+    def from_label_file(cls, path: str) -> "Vocab":
+        """Build by scanning a training `phn_text` (uttid phones...) file —
+        the semantics of steps/get_model_units.py + Vocab combined."""
+        vocab = cls()
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                fields = line.strip().split(" ")
+                for t in fields[1:]:
+                    vocab.add_word(t)
+        return vocab
+
     def add_word(self, word: str) -> None:
         if word not in self.word2index:
             self.word2index[word] = self.n_words
@@ -53,5 +67,17 @@ class Vocab:
     def encode(self, phones: Sequence[str]) -> List[int]:
         return [self.word2index.get(p, UNK_ID) for p in phones]
 
+    def encode_array(self, phones: Sequence[str]) -> np.ndarray:
+        return np.asarray(self.encode(phones), dtype=np.int32)
+
     def decode(self, ids: Sequence[int]) -> List[str]:
         return [self.index2word[int(i)] for i in ids]
+
+    def units(self) -> List[str]:
+        """The phone list excluding blank/UNK, in id order."""
+        return [self.index2word[i] for i in range(2, self.n_words)]
+
+    def save_units(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            for u in self.units():
+                f.write(u + "\n")

@@ -30,3 +30,10 @@ def collapse_ctc(ids: np.ndarray, length: int, blank: int = 0) -> List[int]:
         elif ids[j] != ids[j - 1]:
             out.append(int(ids[j]))
     return out
+
+
+def greedy_decode(log_probs, lengths) -> List[List[int]]:
+    """(T, B, C) log-probs (a tensor, on its device, or an array) + (B,)
+    frame counts -> list of id sequences."""
+    ids = best_path(torch.as_tensor(log_probs))
+    return [collapse_ctc(ids[b], int(lengths[b])) for b in range(ids.shape[0])]

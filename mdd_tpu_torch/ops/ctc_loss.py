@@ -12,6 +12,12 @@ so PyTorch's operator carries it.  Two conventions differ and are matched:
     gradient at the logits of a log_softmax, where mdd_tpu returns
     -posterior at the log-probs; the two agree at the logits, which is
     where the model's gradient is taken.
+
+`ctc_loss_scan` is mdd_tpu's plain version: the log-space alpha recursion
+over the extended (blank-interleaved) labels, one step a frame, with
+gradients from autograd (-posterior at the log-probs).  It is kept to
+cross-check `ctc_loss`, as mdd_tpu keeps its own to cross-check its
+custom VJP; no training path runs it.
 """
 
 from __future__ import annotations
@@ -46,6 +52,55 @@ def ctc_loss(log_probs: torch.Tensor, input_lengths: torch.Tensor,
                      blank=blank, reduction="none", zero_infinity=True)
     bad = infeasible(labels.long(), input_lengths, label_lengths)
     return nll + (-LOG_EPS) * bad.to(nll.dtype)
+
+
+def _logsumexp3(a, b, c):
+    """log(e^a + e^b + e^c), LOG_EPS where all three are at the floor (the
+    max is held constant, so the gradient is the softmax of the three)."""
+    stacked = torch.stack([a, b, c])
+    m = stacked.max(dim=0).values.detach()
+    out = m + torch.log(torch.exp(stacked - m).sum(dim=0))
+    return torch.where(m <= LOG_EPS / 2, torch.full_like(out, LOG_EPS), out)
+
+
+def ctc_loss_scan(log_probs: torch.Tensor, input_lengths: torch.Tensor,
+                  labels: torch.Tensor, label_lengths: torch.Tensor,
+                  blank: int = 0) -> torch.Tensor:
+    """Per-sample negative log likelihood by the alpha recursion
+    (mdd_tpu's `ctc_loss_scan`): the arguments of `ctc_loss`; -> (B,).
+    A row no alignment fits has nll 1e30 (-LOG_EPS) and zero gradient."""
+    t_max, b, _ = log_probs.shape
+    dev = log_probs.device
+    labels = labels.long()
+    input_lengths = input_lengths.long().to(dev)
+    label_lengths = label_lengths.long().to(dev)
+    s = 2 * labels.shape[1] + 1
+    ext = torch.full((b, s), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels
+    pos = torch.arange(s, device=dev)[None, :]
+    valid_s = pos < (2 * label_lengths[:, None] + 1)
+    ext_m2 = F.pad(ext, (2, 0), value=blank)[:, :s]
+    can_skip = (ext != blank) & (ext != ext_m2) & (pos >= 2)
+    emit = log_probs.gather(2, ext[None].expand(t_max, b, s))   # (T, B, S)
+    floor = torch.full((b, s), LOG_EPS, dtype=log_probs.dtype, device=dev)
+    first = (pos == 0) | ((pos == 1) & (label_lengths[:, None] > 0))
+    alpha = torch.where(first, emit[0], floor)
+    for t in range(1, t_max):
+        a_m1 = F.pad(alpha, (1, 0), value=LOG_EPS)[:, :s]
+        a_m2 = F.pad(alpha, (2, 0), value=LOG_EPS)[:, :s]
+        a_m2 = torch.where(can_skip, a_m2, floor)
+        new = torch.where(valid_s, _logsumexp3(alpha, a_m1, a_m2) + emit[t],
+                          floor)
+        # a row whose input has ended keeps its alpha
+        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
+    end = 2 * label_lengths
+    last = alpha.gather(1, end[:, None])[:, 0]
+    second = alpha.gather(1, (end - 1).clamp_min(0)[:, None])[:, 0]
+    second = torch.where(end >= 1, second, torch.full_like(second, LOG_EPS))
+    m = torch.maximum(last, second).detach()
+    ll = m + torch.log(torch.exp(last - m) + torch.exp(second - m))
+    ll = torch.where(m <= LOG_EPS / 2, torch.full_like(ll, LOG_EPS), ll)
+    return -ll
 
 
 def ctc_loss_sum_mean(log_probs: torch.Tensor, input_lengths: torch.Tensor,

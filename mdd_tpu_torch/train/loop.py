@@ -64,6 +64,14 @@ def exact_output_sizes(model_frames, out_len: int, total_frames: int):
     return (model_frames * out_len) // total_frames
 
 
+def make_optimizer(params, lr: float, weight_decay: float):
+    """Adam with coupled L2 weight decay (mdd_tpu's `make_optimizer`, the
+    reference's torch.optim.Adam(weight_decay=..), train_ctc.py:187):
+    torch's Adam adds wd * param to the gradient before the moments, as
+    mdd_tpu's add_decayed_weights -> scale_by_adam does."""
+    return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
+
+
 class Trainer:
     def __init__(
         self,
@@ -104,11 +112,8 @@ class Trainer:
         self.model.init_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         mesh.broadcast_module(self.model)
-        # torch's Adam(weight_decay) adds wd * param to the gradient before
-        # the moments: mdd_tpu's add_decayed_weights -> scale_by_adam
-        self.optimizer = torch.optim.Adam(self.model.parameters(),
-                                          lr=init_lr,
-                                          weight_decay=weight_decay)
+        self.optimizer = make_optimizer(self.model.parameters(), init_lr,
+                                        weight_decay)
         self.scheduler = PlateauScheduler(
             init_lr=init_lr, decay=lr_decay, end_adjust_acc=end_adjust_acc,
             patience=plateau_patience, max_adjust_times=max_adjust_times)

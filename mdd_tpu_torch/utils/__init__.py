@@ -1,1 +1,3 @@
 """Configuration."""
+
+from mdd_tpu_torch.utils.config import Config, load_config

@@ -1,8 +1,11 @@
 """The port stands alone: no module of mdd_tpu_torch, and not chip_smoke.py,
-imports JAX, flax, orbax or anything of mdd_tpu (checked on the AST, so
-an import inside a function counts too), and no file of mdd_tpu_torch
-names the repository's C++ directory `native/`: the port builds its host
-libraries from its own copies in `mdd_tpu_torch/csrc/`."""
+imports JAX, flax, orbax, anything of mdd_tpu or the repo-root bench.py
+and tools/ (checked on the AST, so an import inside a function counts
+too), and no file of mdd_tpu_torch names the repository's C++ directory
+`native/`: the port builds its host libraries from its own copies in
+`mdd_tpu_torch/csrc/`.  And nothing of mdd_tpu is left to port: every
+module, CLI subcommand and public name has its counterpart, apart from
+the JAX-only names listed with their reasons."""
 
 import ast
 import pathlib
@@ -11,7 +14,10 @@ import re
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mdd_tpu"}
+# `bench` and `tools` are the repo-root bench.py and tools/ (the port's
+# own tools are mdd_tpu_torch.tools)
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mdd_tpu", "bench",
+             "tools"}
 SOURCES = sorted((ROOT / "mdd_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -181,3 +187,150 @@ def test_the_module_map_covers_the_pallas_files():
     assert set(PALLAS_TO_CUDA) <= set(JAX_MODULES)
     assert not [m for m in JAX_MODULES
                 if "pallas" in m and m not in PALLAS_TO_CUDA]
+
+
+@pytest.mark.parametrize("module", [
+    "bench.py", "cli.py", "decode/__init__.py", "decode/greedy.py",
+    "data/vocab.py", "ops/ctc_loss.py", "train/loop.py"])
+def test_benchmark_slice_modules_are_checked(module):
+    """The modules of the benchmark slice (bench.py and the last public
+    names) exist, are among the checked sources, import neither triton
+    nor a repo-root module at module level, and importing one builds no
+    kernel and joins no process group."""
+    import importlib
+
+    import torch.distributed as dist
+
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    top_level = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            top_level |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top_level.add(node.module.split(".")[0])
+    assert not top_level & {"triton", "bench", "tools"}
+    name = "mdd_tpu_torch." + module[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    importlib.import_module(name)
+    assert not dist.is_initialized()
+
+
+def _subcommands(parser) -> set:
+    import argparse
+
+    return {name for action in parser._actions
+            if isinstance(action, argparse._SubParsersAction)
+            for name in action.choices}
+
+
+def test_every_mdd_tpu_subcommand_has_its_port():
+    from mdd_tpu.cli import build_parser as jax_parser
+    from mdd_tpu_torch.cli import build_parser
+
+    theirs, ours = _subcommands(jax_parser()), _subcommands(build_parser())
+    assert len(theirs) == 12 and "benchmark" in theirs
+    assert theirs <= ours
+
+
+# mdd_tpu's public names with no port of the same name: JAX-only by
+# nature, each with the port's design in its place
+JAX_ONLY = {
+    "data/device_cache.py": {
+        "make_cache_assemble": "a jitted batch assembly; the port gathers "
+                               "in DeviceFeatureCache.gather on the device",
+    },
+    "frontend/augment.py": {
+        "spec_augment_jax": "jax.random masks; the port masks on the "
+                            "device from host geometry "
+                            "(apply_spec_augment_masks)",
+    },
+    "native/__init__.py": {
+        "ensure_built": "silent pass-through when a build fails; the port "
+                        "builds at first use and raises (ROADMAP §3)",
+        "native_available": "the same pass-through's probe",
+    },
+    "parallel/mesh.py": {
+        name: "a jax.sharding mesh helper; the port runs one process a "
+              "rank over torch.distributed"
+        for name in ("make_mesh", "make_local_mesh", "batch_sharding",
+                     "replicated", "shard_batch")},
+    "parallel/__init__.py": {
+        name: "re-export of the mesh helper of the same name"
+        for name in ("make_mesh", "batch_sharding", "replicated",
+                     "shard_batch")},
+    "train/loop.py": {
+        "TrainState": "flax's train state; the port's Trainer holds the "
+                      "model and the torch optimizer",
+    },
+    "train/__init__.py": {
+        "TrainState": "re-export of train/loop.py's TrainState",
+    },
+}
+# a name a package of the port does not re-export, and why
+NOT_REEXPORTED = {
+    "ops/__init__.py": {
+        "ctc_loss": "the re-export would hide the module ops.ctc_loss "
+                    "(`from mdd_tpu_torch.ops import ctc_loss` is the "
+                    "module); the function is ops.ctc_loss.ctc_loss",
+    },
+}
+# a Pallas wrapper's name in its CUDA counterpart
+RENAMED = {"ops/lstm_pallas.py": {"bilstm_pallas": "bilstm_cuda"}}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    """Top-level functions, classes (and their public methods) and
+    assignments not starting with `_`; for a package's __init__ also the
+    names it re-exports from its own package.  Other imports are not a
+    module's API."""
+    names = set()
+    init = path.name == "__init__.py"
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            names |= {f"{node.name}.{sub.name}" for sub in node.body
+                      if isinstance(sub, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            names.add(node.target.id)
+        elif (init and isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module.split(".")[0] in ("mdd_tpu", "mdd_tpu_torch")):
+            names |= {a.asname or a.name for a in node.names}
+    return {n for n in names if not n.split(".")[-1].startswith("_")}
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_public_name_of_mdd_tpu_has_its_port(module):
+    port = ROOT / "mdd_tpu_torch" / PALLAS_TO_CUDA.get(module, module)
+    renamed = RENAMED.get(module, {})
+    want = {renamed.get(n, n)
+            for n in _public_names(ROOT / "mdd_tpu" / module)}
+    missing = (want - _public_names(port) - set(JAX_ONLY.get(module, {}))
+               - set(NOT_REEXPORTED.get(module, {})))
+    assert not missing, f"mdd_tpu/{module}: no port of {sorted(missing)}"
+
+
+def test_the_jax_only_list_names_real_gaps():
+    """Every listed name is public in mdd_tpu and absent from the port,
+    so the list shrinks when a name is ported; `ops.ctc_loss` stays a
+    module."""
+    import types
+
+    from mdd_tpu_torch import ops
+
+    assert isinstance(ops.ctc_loss, types.ModuleType)
+    for module, names in {**JAX_ONLY, **NOT_REEXPORTED}.items():
+        port = ROOT / "mdd_tpu_torch" / module
+        assert set(names) <= _public_names(ROOT / "mdd_tpu" / module)
+        assert not set(names) & _public_names(port), module
+        assert all(reason for reason in names.values())
+    for module, names in RENAMED.items():
+        assert set(names) <= _public_names(ROOT / "mdd_tpu" / module)
+        assert set(names.values()) <= _public_names(
+            ROOT / "mdd_tpu_torch" / PALLAS_TO_CUDA[module])
