@@ -200,12 +200,32 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             two cards or more, (a) as 2 ranks x 32 over two cards (nccl),
             with four also 4 x 16 over four; else a line that says it was
             not run.
+20a. trained  the committed trained model `checkpoints/syn_full/best`,
+            mdd_tpu's orbax checkpoint, read by the port's reader with no
+            conversion: (a) the read timed, its 53 leaves held to the
+            SHA-256 that orbax's own restore gives (SYN_FULL_SHA256); (b)
+            the corpus it was trained on regenerated by `python -m
+            mdd_tpu_torch.tools.synthetic_corpus` (easy profile, 5,496 /
+            897 / 900, 16-40 phones, the 41 units), then `evaluate
+            --checkpoint checkpoints/syn_full/best` on the test split with
+            conf/synthetic_full.yaml's decode (beam 10, no LM): at least
+            99% of the 900 decodes identical to mdd_tpu's own decode of
+            the split (results/syn_full_best_mdd_tpu_cpu/) and PER within
+            0.10 points of its; lstm_fwd launched 4 times a forward; then
+            `evaluate --cached` (its agreement printed, not gating: the
+            cache pads by bucket); utts/s of both; (c) `serve --checkpoint
+            checkpoints/syn_full/best` in-process on phase 5's request
+            lines: every answer ok and equal to the answers from a port
+            `.pt` checkpoint that save_checkpoint wrote from the same state
+            dict, lstm_fwd 4 times a forward.
 21. benchmark  `python -m mdd_tpu_torch benchmark` in-process at its full
             sizes (mdd_tpu_torch/bench.py, the port of bench.py): the train
             step at B=512 x 160 frames in bfloat16 (5 + 30 steps), the
             device beam at 512 x 80, K=10, fbank / MFCC on 128 x 3 s and
             `feat` over 900 wavs, `evaluate` over 900 utterances streaming
-            and cached, epochs over 5,496 utterances cached and streaming.
+            and cached on the trained model (`eval_checkpoint` must read
+            "syn_full/best"), epochs over 5,496 utterances cached and
+            streaming.
             Exactly one JSON line on stdout with bench.py's metric, unit
             and every `extra` key of bench.py (read from its source) and
             the port's `card` and `peak_flops`; value > 0, 0 < mfu <= 1
@@ -227,6 +247,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -638,14 +659,18 @@ def request(files, i, rid=None) -> str:
                        "canonical": files["canonical"][i]})
 
 
-def check_ok(resps, n) -> None:
+def check_ok(resps, n, lowest: int = 0) -> None:
+    """n answers, each ok with its fields and a score of lowest..100
+    (word_score's formula goes down to -10 where insertions pile onto a
+    word whose every phone is wrong)."""
     if len(resps) != n:
         raise AssertionError(f"{len(resps)} responses to {n} requests")
     for r in resps:
         if r.get("status") != "ok" or not {
                 "score", "canonical_row", "ops_row", "decoded_row",
                 "insertion_faults", "substitution_faults",
-                "deletion_faults"} <= r.keys() or not 0 <= r["score"] <= 100:
+                "deletion_faults"} <= r.keys() or not (
+                    lowest <= r["score"] <= 100):
             raise AssertionError(f"bad response {r}")
 
 
@@ -3170,6 +3195,200 @@ def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
     return launches
 
 
+SYN_FULL = ROOT / "checkpoints" / "syn_full"
+GOLDEN = ROOT / "results" / "syn_full_best_mdd_tpu_cpu"
+# leaves_sha256 of checkpoints/syn_full/best as orbax restores it, from the
+# repo root where JAX and orbax are installed:
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+#   from mdd_tpu.train.checkpoint import load_checkpoint;
+#   from chip_smoke import leaves_sha256;
+#   print(leaves_sha256(load_checkpoint('checkpoints/syn_full', 'best')[0]))"
+SYN_FULL_SHA256 = (
+    "ba17a57ec0bb2ae7241172df16ae16f13a3b1cb91358a18228896ac42300770d")
+TRAINED_MATCH = 0.99    # share of the 900 decodes identical to mdd_tpu's
+TRAINED_PER_GAP = 0.10  # PER points from mdd_tpu's own decode of the split
+# the benchmark's evaluation on seeded random weights, as PERF.md records
+# it (H100 80GB HBM3 at 700 W), for the trained model's rates to stand by
+RANDOM_WEIGHT_EVAL = ("336-415 utts/s streaming, 457-619 cached (random "
+                      "weights, the benchmark's eval section; PERF.md)")
+
+
+def leaves_sha256(tree) -> str:
+    """SHA-256 over the array leaves of a nested dict in sorted key order:
+    each leaf's path, dtype, shape and bytes."""
+    import numpy as np
+
+    digest = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], path + (str(key),))
+            return
+        a = np.ascontiguousarray(node)
+        digest.update(f"{'/'.join(path)}|{a.dtype.str}|{a.shape}|".encode())
+        digest.update(a.tobytes())
+
+    walk(tree, ())
+    return digest.hexdigest()
+
+
+def phase_trained(torch, files, card: str) -> dict:
+    """mdd_tpu's trained checkpoint through the port's entry points, read
+    straight from its orbax files; -> the lstm_fwd launches by path."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.evals.evaluate import EvalSession
+    from mdd_tpu_torch.evals.wer import read_trn
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
+    from mdd_tpu_torch.tools import synthetic_corpus
+    from mdd_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                save_checkpoint)
+    from mdd_tpu_torch.train.orbax_format import read_orbax_checkpoint
+
+    started = time.perf_counter()
+    # (a) the read, its bits against orbax's
+    t0 = time.perf_counter()
+    tree = read_orbax_checkpoint(str(SYN_FULL / "best"))
+    read_s = time.perf_counter() - t0
+    digest = leaves_sha256(tree)
+    n_leaves = sum(1 for _ in _leaves(tree))
+    t0 = time.perf_counter()
+    state, meta = load_checkpoint(str(SYN_FULL), "best")
+    load_s = time.perf_counter() - t0
+    log(f"[trained] read {SYN_FULL / 'best'} (orbax, OCDBT + zarr, "
+        f"{sum(v.numel() for v in state.values()):,} parameters) in "
+        f"{read_s:.3f} s; read + bridge to a state dict {load_s:.3f} s; "
+        f"{n_leaves} leaves, SHA-256 {digest} (orbax's: "
+        f"{SYN_FULL_SHA256}) ({card})")
+    if digest != SYN_FULL_SHA256 or n_leaves != 53 or len(state) != 53:
+        raise AssertionError("the port's read of checkpoints/syn_full/best "
+                             "differs from orbax's")
+
+    # (b) evaluate on the regenerated test split, against mdd_tpu's decode
+    corpus = WORK / "syn_full"
+    t0 = time.perf_counter()
+    synthetic_corpus.cli([str(corpus), "5496", "897", "900",
+                          "--min-phones", "16", "--max-phones", "40",
+                          "--units", str(HARD_UNITS)])
+    log(f"[trained] corpus 5,496 / 897 / 900 (easy profile) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    conf = WORK / "syn_full.yaml"
+    conf.write_text((ROOT / "conf" / "synthetic_full.yaml").read_text()
+                    .replace("data/synthetic_full/", f"{corpus}/"))
+    golden = parse_report((GOLDEN / "eval.log").read_text())
+    want = read_trn(str(GOLDEN / "decode_seq.log"))
+    forward = EvalSession._forward
+    ran = {"forwards": 0}
+
+    def counted_forward(self, *args):
+        ran["forwards"] += 1
+        return forward(self, *args)
+
+    launches = {}
+    EvalSession._forward = counted_forward
+    try:
+        for kind, flags in (("evaluate", []), ("evaluate-cached",
+                                               ["--cached"])):
+            dump = WORK / f"trained_{kind}"
+            ran["forwards"] = 0
+            lstm_fwd_kernel.launches = 0
+            t0 = time.perf_counter()
+            text = run_cli(["evaluate", "--conf", str(conf), "--checkpoint",
+                            str(SYN_FULL / "best"), "--device", "cuda",
+                            "--dump-dir", str(dump)] + flags)
+            wall = time.perf_counter() - t0
+            launches[kind] = lstm_fwd_kernel.launches
+            got = parse_report(text)
+            decode_min = float(re.search(
+                r"time used for decode \d+ sentences: (\S+) minutes",
+                text).group(1))
+            mine = read_trn(str(dump / "decode_seq.log"))
+            same = sum(mine.get(u) == v for u, v in want.items())
+            log(f"[trained] {kind}: {same} / {len(want)} decodes identical "
+                f"to mdd_tpu's; PER {got['per']:.4f} ({got['errors']} / "
+                f"{got['tokens']}) vs mdd_tpu's {golden['per']:.4f} "
+                f"({golden['errors']} / {golden['tokens']}); TA {got['TA']} "
+                f"FR {got['FR']} FA {got['FA']} TR {got['TR']} (mdd_tpu: TA "
+                f"{golden['TA']} FR {golden['FR']} FA {golden['FA']} TR "
+                f"{golden['TR']}); F1 {got['f1']:.2f}; "
+                f"{900 / (decode_min * 60):.1f} utts/s by the report's "
+                f"decode time, {wall:.2f} s of command with set-up; lstm_fwd "
+                f"{launches[kind]} launches over {ran['forwards']} forwards "
+                f"({card}); random weights: {RANDOM_WEIGHT_EVAL}")
+            if got["utts"] != 900 or launches[kind] != 4 * ran["forwards"] \
+                    or ran["forwards"] < -(-900 // 256):
+                raise AssertionError(
+                    f"{kind}: {got['utts']} utterances, {launches[kind]} "
+                    f"lstm_fwd launches for {ran['forwards']} forwards")
+            if kind == "evaluate" and (
+                    same < TRAINED_MATCH * len(want)
+                    or abs(got["per"] - golden["per"]) > TRAINED_PER_GAP):
+                raise AssertionError(
+                    f"the trained model's decodes are not mdd_tpu's: {same} "
+                    f"of {len(want)} identical (bar {TRAINED_MATCH}), PER "
+                    f"{got['per']} vs {golden['per']}")
+    finally:
+        EvalSession._forward = forward
+    shutil.rmtree(corpus, ignore_errors=True)
+
+    # (c) serve from the orbax directory and from a .pt of the same weights
+    pt_dir = WORK / "trained_pt"
+    save_checkpoint(str(pt_dir), "best", state, meta)
+    serve_yaml = WORK / "trained_serve.yaml"
+    serve_yaml.write_text(re.sub(r"vocab_file: .*",
+                                 f"vocab_file: {HARD_UNITS}",
+                                 (WORK / "serve.yaml").read_text()))
+    lines = [request(files, i % len(files["paths"]), rid=i)
+             for i in range(2 * len(files["paths"]))]
+    answers = {}
+    for kind, ckpt in (("serve", SYN_FULL / "best"), ("serve-pt", pt_dir)):
+        args = list(files["args"])
+        args[args.index("--conf") + 1] = str(serve_yaml)
+        args[args.index("--checkpoint") + 1] = str(ckpt)
+        lstm_fwd_kernel.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        stdin = sys.stdin
+        sys.stdin = io.StringIO("\n".join(lines) + "\n")
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(args + ["--quiet"])
+        finally:
+            sys.stdin = stdin
+        if rc != 0:
+            raise AssertionError(f"{kind} exited {rc}: {err.getvalue()}")
+        resps = [json.loads(l) for l in out.getvalue().splitlines()]
+        # the trained model hears the seeded tones as nothing it knows:
+        # every phone wrong plus insertions, down to word_score's floor
+        check_ok(resps, len(lines), lowest=-10)
+        tail = err.getvalue().strip().splitlines()[-1]
+        forwards = int(tail.split(" in ")[1].split()[0])
+        launches[kind] = lstm_fwd_kernel.launches
+        if launches[kind] != 4 * forwards:
+            raise AssertionError(f"{kind}: {launches[kind]} lstm_fwd "
+                                 f"launches for {forwards} forwards")
+        answers[kind] = [{k: v for k, v in r.items()
+                          if k not in ("seconds", "amortized_seconds")}
+                         for r in resps]
+        log(f"[trained] {kind} --checkpoint {ckpt}: "
+            f"{len(lines)} requests ok; {tail}")
+    if answers["serve"] != answers["serve-pt"]:
+        raise AssertionError("serve answers from the orbax checkpoint differ "
+                             "from those of its .pt")
+    log(f"[trained] serve: the {len(lines)} answers from the orbax directory "
+        f"equal those from the .pt; phase trained in "
+        f"{time.perf_counter() - started:.1f} s")
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 BENCH_PORT_KEYS = {"card", "peak_flops", "decode_lm", "eval_lm",
                    "eval_n_utts"}   # the port's additions to bench.py's line
 
@@ -3257,6 +3476,15 @@ def phase_benchmark(torch, card: str) -> dict:
     if extra["eval_n_utts"] != 900:
         raise AssertionError(f"{extra['eval_n_utts']} evaluated utterances "
                              "a pass, not 900")
+    log(f"[benchmark] evaluation of {extra['eval_checkpoint']}: "
+        f"{extra['eval_utts_per_s']} utts/s streaming "
+        f"({extra['eval_utts_per_s_min']}-{extra['eval_utts_per_s_max']}), "
+        f"{extra['eval_utts_per_s_cached']} cached (max "
+        f"{extra['eval_utts_per_s_cached_max']}) ({card}); random weights: "
+        f"{RANDOM_WEIGHT_EVAL}")
+    if extra["eval_checkpoint"] != "syn_full/best":
+        raise AssertionError(f"benchmark evaluated {extra['eval_checkpoint']}"
+                             ", not the trained syn_full/best")
     layers = cfg.rnn_layers
     if not (ran["steps"] > bench.WARMUP_STEPS + bench.BENCH_STEPS
             and ran["forwards"] > 0 and bwd == layers * ran["steps"]
@@ -3338,6 +3566,7 @@ def main() -> int:
     lexicon = phase_lexicon(torch, files, card)
     product = phase_product(torch, files, card)
     phase_profile(torch, engine, files, card)
+    trained = phase_trained(torch, files, card)
     train = write_corpus("train", TRAIN_UTTS, SEED + 2)
     dev = write_corpus("dev", DEV_UTTS, SEED + 3)
     phase_model_grad(torch, cfg, state, dev)
@@ -3372,9 +3601,11 @@ def main() -> int:
                      + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd
                      + ddp["train-ddp"]["lstm_fwd"]
                      + ddp["evaluate-ddp"]["lstm_fwd"]
-                     + benchmark["lstm_fwd"]),
+                     + sum(trained.values()) + benchmark["lstm_fwd"]),
         "launches_by_path": {"visualize": vis["lstm_fwd"],
                              "serve": launches, **lexicon, **product,
+                             **{f"trained-{k}": v
+                                for k, v in trained.items()},
                              "train": train_fwd,
                              "resume-plateau": plateau["lstm_fwd"],
                              "train-fused": fused["lstm_fwd"],

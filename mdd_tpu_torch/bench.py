@@ -29,9 +29,12 @@ Where it differs from mdd_tpu's bench.py, on purpose:
     lexicon.phones.CANONICAL_UNITS_41 (that file's units in its order),
     so the head always has the flagship's 43 classes; mdd_tpu falls back
     to a 23-phone synthetic set (a 25-class head);
-  * evaluation weights: seeded random ones (convert.random_flax_variables
-    -> flax_to_torch), `eval_checkpoint: "random_init"`, mdd_tpu's own
-    fallback; the port reads no orbax checkpoint;
+  * evaluation weights: both take the committed trained model
+    `checkpoints/syn_full/best` where it is present and its head fits the
+    units (`eval_checkpoint: "syn_full/best"`), else seeded random ones
+    (`"random_init"`); the port reads the orbax files itself and raises
+    on a read error, where bench.py falls back to random weights in a
+    bare `except`;
   * one process on one card: `n_chips` is 1, and a run under torchrun
     with WORLD_SIZE > 1 raises SystemExit.
 The LM is read only from the reference recipe's data directory, as
@@ -74,6 +77,9 @@ FRONTEND_ROUNDS = 20
 FEAT_UTTS = 900       # the reference's test-set scale
 EVAL_UTTS = 900       # result/train.log:55
 EVAL_PASSES = 3
+# the trained model bench.py evaluates, in the repo beside the package
+EVAL_CHECKPOINT_DIR = str(Path(__file__).resolve().parents[1]
+                          / "checkpoints" / "syn_full")
 EPOCH_UTTS = 5496     # the reference's training-set scale, train.log:54
 EPOCHS = 3
 LOADER_WORKERS = 8
@@ -391,22 +397,50 @@ def _timed_passes(run, passes: int, n_utts: int) -> List[float]:
     return times
 
 
+def trained_eval_state(cfg, vocab, device: str,
+                       checkpoint_dir: str = EVAL_CHECKPOINT_DIR):
+    """(state_dict, model config, tag) of bench.py's rule: the trained
+    `best` of `checkpoint_dir` where it is present and its head has the
+    vocabulary's classes, so the beam's blank skip fires as on real
+    posteriors; else seeded random weights for `cfg` ("random_init",
+    the case where the skip rarely fires).  A read error raises."""
+    import dataclasses
+
+    from mdd_tpu_torch.convert import flax_to_torch, random_flax_variables
+    from mdd_tpu_torch.models.ctc_model import model_config_from_meta
+    from mdd_tpu_torch.train.checkpoint import (checkpoint_format,
+                                                load_checkpoint)
+
+    if checkpoint_format(checkpoint_dir, "best") is not None:
+        state, meta = load_checkpoint(checkpoint_dir, "best")
+        model_cfg = model_config_from_meta(meta)
+        if model_cfg.num_class == vocab.n_words:
+            model_cfg = dataclasses.replace(
+                model_cfg,
+                use_pallas_lstm=torch.device(device).type == "cuda")
+            return (state, model_cfg,
+                    os.path.basename(os.path.normpath(checkpoint_dir))
+                    + "/best")
+    return flax_to_torch(*random_flax_variables(cfg, seed=0)), cfg, \
+        "random_init"
+
+
 def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
                batch: int = 128, cached_batch: int = 256,
                passes: int = EVAL_PASSES, beam_width: int = BEAM_WIDTH,
-               workers: int = LOADER_WORKERS) -> None:
-    """`evaluate` end to end over `n_utts` seeded utterances: loader,
-    device splice, forward, the device beam (the reference LM where
-    there is one), the scorer thread, on seeded random weights
-    (mdd_tpu's fallback: the beam's blank skip rarely fires on them).  First through the streaming
-    loader (raw bfloat16 wire, prefetch), then with the split resident on
-    the device (attach_cache + CachedLoader); one warm pass and `passes`
-    timed each."""
+               workers: int = LOADER_WORKERS,
+               checkpoint_dir: str = EVAL_CHECKPOINT_DIR) -> None:
+    """`evaluate` end to end over `n_utts` seeded utterances (the syn_full
+    test split where `n_utts` is 900): loader, device splice, forward,
+    the device beam (the reference LM where there is one), the scorer
+    thread, with the weights of `trained_eval_state`.  First through the
+    streaming loader (raw bfloat16 wire, prefetch), then with the split
+    resident on the device (attach_cache + CachedLoader); one warm pass
+    and `passes` timed each."""
     from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
     from mdd_tpu_torch.data.device_cache import (CachedLoader,
                                                  DeviceFeatureCache)
     from mdd_tpu_torch.data.prefetch import ThreadedLoader
-    from mdd_tpu_torch.convert import flax_to_torch, random_flax_variables
     from mdd_tpu_torch.data.vocab import Vocab
     from mdd_tpu_torch.evals.evaluate import EvalSession, evaluate_model
     from mdd_tpu_torch.tools.synthetic_corpus import make_split
@@ -419,10 +453,12 @@ def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
         make_split(out, "test", n_utts, seed=2, min_phones=16, max_phones=40,
                    phones=phones)
         vocab = Vocab(phones)
+        state, model_cfg, tag = trained_eval_state(cfg, vocab, device,
+                                                   checkpoint_dir)
         session = EvalSession(
-            cfg, flax_to_torch(*random_flax_variables(cfg, seed=0)), vocab,
-            decode_type="beam", beam_width=beam_width, lm_path=lm_path,
-            lm_alpha=0.5, device=device, device_frontend=True)
+            model_cfg, state, vocab, decode_type="beam",
+            beam_width=beam_width, lm_path=lm_path, lm_alpha=0.5,
+            device=device, device_frontend=True)
         ds = SpeechDataset(vocab, str(out / "test.scp"),
                            str(out / "test_phn_text"),
                            str(out / "test_transcript_phn_text"),
@@ -438,7 +474,7 @@ def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
 
         times = _timed_passes(streaming, passes, n_utts)
         elapsed = float(np.mean(times))
-        extra["eval_checkpoint"] = "random_init"
+        extra["eval_checkpoint"] = tag
         extra["eval_lm"] = lm_path
         extra["eval_n_utts"] = n_utts
         extra["eval_utts_per_s"] = round(n_utts / elapsed, 1)

@@ -66,8 +66,10 @@ they fail (mdd_tpu warns and goes on without it).
 `benchmark` measures mdd_tpu's bench.py sections on one card (bench.py):
 the train step's audio-s/s and MFU, the device beam, the front end,
 `evaluate` and whole epochs, and prints one JSON line.
-The checkpoint is the port's format (train/checkpoint.py): by default
-`<checkpoint_dir>/<exp_name>/best.pt` + `best.meta.json` of the config.
+The checkpoint is `best` under `<checkpoint_dir>/<exp_name>/` of the
+config, or under `--checkpoint`: the port's `best.pt` + `best.meta.json`
+(train/checkpoint.py), or mdd_tpu's orbax directory `best/` beside
+`best.meta.json`, read without JAX (train/orbax_format.py).
 """
 
 from __future__ import annotations
@@ -307,11 +309,18 @@ def cmd_train_lm(args) -> int:
 
 
 def _load_best(cfg, checkpoint: Optional[str]):
-    """-> (state_dict, ModelConfig) of the experiment's `best`."""
+    """-> (state_dict, ModelConfig) of the experiment's `best`, the port's
+    or mdd_tpu's (orbax).  `checkpoint` is the directory that holds it, as
+    in mdd_tpu, or `best` itself (`checkpoints/syn_full/best`)."""
     from mdd_tpu_torch.models.ctc_model import model_config_from_meta
-    from mdd_tpu_torch.train.checkpoint import load_checkpoint
+    from mdd_tpu_torch.train.checkpoint import (checkpoint_format,
+                                                load_checkpoint)
 
     ckpt_dir = checkpoint or os.path.join(cfg.checkpoint_dir, cfg.exp_name)
+    head, tail = os.path.split(os.path.normpath(ckpt_dir))
+    if (tail == "best" and checkpoint_format(ckpt_dir, "best") is None
+            and checkpoint_format(head, "best") is not None):
+        ckpt_dir = head
     state, meta = load_checkpoint(ckpt_dir, "best")
     return state, model_config_from_meta(meta)
 
@@ -464,8 +473,9 @@ def _add_lexicon_args(q) -> None:
     """The flags `infer` and `serve` share: model, lexicon and display."""
     q.add_argument("--conf", required=True)
     q.add_argument("--checkpoint",
-                   help="directory holding best.pt + best.meta.json "
-                        "(default: <checkpoint_dir>/<exp_name>)")
+                   help="directory holding best (the port's best.pt + "
+                        "best.meta.json or mdd_tpu's orbax best/), or that "
+                        "best/ itself (default: <checkpoint_dir>/<exp_name>)")
     q.add_argument("--cmvn", required=True)
     q.add_argument("--dict-dir",
                    help="directory of cmudict.dict and cmudict-0.7b-ipa.txt "
@@ -556,8 +566,9 @@ def build_parser() -> argparse.ArgumentParser:
     q = sub.add_parser("evaluate", help="MDD evaluation on the test set")
     q.add_argument("--conf", required=True)
     q.add_argument("--checkpoint",
-                   help="directory holding best.pt + best.meta.json "
-                        "(default: <checkpoint_dir>/<exp_name>)")
+                   help="directory holding best (the port's best.pt + "
+                        "best.meta.json or mdd_tpu's orbax best/), or that "
+                        "best/ itself (default: <checkpoint_dir>/<exp_name>)")
     q.add_argument("--dump-dir",
                    help="write decode_seq.log, human_seq.log and "
                         "transcribe.log here (mdd-result's inputs)")

@@ -5,11 +5,12 @@ laid out by flax module path (`rnn0/w_ih_fwd`, `conv/bn0/mean`, ...).
 The port's modules carry the same paths as their names, so the bridge is
 a renaming ('/' -> '.') plus one layout change: convolution kernels go
 from flax HWIO to torch OIHW.  Every leaf must map and none may be left
-over; the port never reads orbax itself, so the caller loads the
-checkpoint (in a process that has orbax) and hands over numpy arrays.
+over.  The numpy arrays come from the port's own reader of mdd_tpu's
+orbax files (train/orbax_format.py, which needs no JAX or orbax), or
+from orbax itself in a process that has it.
 
 `random_flax_variables` makes seeded weights in the same flax layout, so
-a full-width model can be run where the checkpoint cannot be read.
+a full-width model can be run without a trained checkpoint.
 """
 
 from __future__ import annotations

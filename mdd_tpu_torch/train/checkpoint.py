@@ -8,7 +8,9 @@ trainer's `latest`) adds `<name>.opt.pt`, the optimizer's state_dict, and
 every halving and the best-acc state that becomes `best`), each a (model
 state, optimizer state) pair or None.  mdd_tpu's `latest` has no snapshot
 file: a resume there restores nothing until the dev loss improves again.
-An mdd_tpu (orbax) checkpoint becomes one through convert.flax_to_torch.
+`load_checkpoint` also reads mdd_tpu's own checkpoint, the orbax directory
+`<name>/` beside `<name>.meta.json` (train/orbax_format.py); the optimizer
+state and the snapshots are read from the port's files only.
 """
 
 from __future__ import annotations
@@ -64,10 +66,32 @@ def save_checkpoint(directory: str, name: str,
     return path
 
 
+def checkpoint_format(directory: str, name: str) -> Optional[str]:
+    """"torch" where `<name>.pt` exists, "orbax" where `<name>/` is an
+    orbax directory (it holds `_METADATA` or `manifest.ocdbt`), else None."""
+    path = os.path.abspath(os.path.join(directory, name))
+    if os.path.exists(path + ".pt"):
+        return "torch"
+    if any(os.path.exists(os.path.join(path, f))
+           for f in ("_METADATA", "manifest.ocdbt")):
+        return "orbax"
+    return None
+
+
 def load_checkpoint(directory: str, name: str
                     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """-> (state_dict on the CPU, meta dict)."""
+    """-> (state_dict on the CPU, meta dict) of the port's checkpoint or,
+    where there is none, of mdd_tpu's orbax checkpoint of that name."""
     path = os.path.abspath(os.path.join(directory, name))
+    kind = checkpoint_format(directory, name)
+    if kind == "orbax":
+        from mdd_tpu_torch.train.orbax_format import load_mdd_tpu_checkpoint
+
+        return load_mdd_tpu_checkpoint(directory, name)
+    if kind is None:
+        raise FileNotFoundError(
+            f"no checkpoint {path}: neither the port's {path}.pt nor "
+            f"mdd_tpu's orbax directory {path}/ (with _METADATA)")
     state = torch.load(path + ".pt", map_location="cpu", weights_only=True)
     with open(path + ".meta.json", "r", encoding="utf-8") as f:
         meta = json.load(f)

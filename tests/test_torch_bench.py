@@ -121,7 +121,10 @@ def test_section_writes_its_keys(section):
         assert got > 0 and extra["mfu"] is None and extra["peak_flops"] is None
         assert extra["train_batch"] == 4
     if section == "bench_eval":
-        assert extra["eval_checkpoint"] == "random_init"
+        # bench.py's rule: the committed trained model where it is present
+        trained = (ROOT / "checkpoints" / "syn_full" / "best").exists()
+        assert extra["eval_checkpoint"] == ("syn_full/best" if trained
+                                            else "random_init")
         assert extra["eval_n_utts"] == 10 and extra["eval_lm"] is None
     if section == "bench_epoch":
         assert extra["epoch_model_num_class"] == 43
@@ -129,6 +132,32 @@ def test_section_writes_its_keys(section):
     for k, v in extra.items():
         if isinstance(v, float):
             assert np.isfinite(v) and v >= 0, (k, v)
+
+
+def test_eval_without_the_trained_checkpoint_runs_random_weights(tmp_path):
+    """bench.py's fallback: no `best` in the checkpoint directory (here an
+    empty one) -> seeded random weights at the section's own config."""
+    extra = {}
+    bench.bench_eval(ModelConfig(**SMALL), extra, "cpu",
+                     checkpoint_dir=str(tmp_path), **SMALL_SIZES["bench_eval"])
+    assert extra["eval_checkpoint"] == "random_init"
+    assert extra["eval_utts_per_s"] > 0
+
+
+def test_eval_takes_the_trained_checkpoint_only_for_its_units():
+    """The trained `best` for a vocabulary of its 43 classes, random
+    weights for any other; the kernels on a card only."""
+    from mdd_tpu_torch.data.vocab import Vocab
+
+    cfg = ModelConfig(**SMALL)
+    state, model_cfg, tag = bench.trained_eval_state(
+        cfg, Vocab(CANONICAL_UNITS_41), "cpu")
+    assert tag == "syn_full/best" and model_cfg.rnn_hidden_size == 384
+    assert model_cfg.compute_dtype == "float32"
+    assert not model_cfg.use_pallas_lstm and len(state) == 53
+    _, model_cfg, tag = bench.trained_eval_state(
+        cfg, Vocab(CANONICAL_UNITS_41[:-1]), "cuda")
+    assert tag == "random_init" and model_cfg is cfg
 
 
 def test_train_section_mfu_against_the_listed_peak(monkeypatch):

@@ -334,3 +334,31 @@ def test_the_jax_only_list_names_real_gaps():
         assert set(names) <= _public_names(ROOT / "mdd_tpu" / module)
         assert set(names.values()) <= _public_names(
             ROOT / "mdd_tpu_torch" / PALLAS_TO_CUDA[module])
+
+
+# the card's machine has none of these; orbax and tensorstore appear in
+# tests/test_torch_orbax.py only, as the reader's reference
+ORBAX_READER_FORBIDDEN = {"jax", "orbax", "tensorstore", "zstandard",
+                          "numcodecs", "ml_dtypes"}
+
+
+@pytest.mark.parametrize("module", ["train/orbax_format.py",
+                                    "train/checkpoint.py", "bench.py",
+                                    "convert.py"])
+def test_orbax_reader_needs_none_of_jax_orbax_or_a_codec_package(module):
+    """The modules that read mdd_tpu's orbax checkpoints import none of
+    jax, orbax, tensorstore, zstandard, numcodecs or ml_dtypes, anywhere
+    in the file; the reader's own imports at module level are the
+    standard library's and numpy."""
+    path = ROOT / "mdd_tpu_torch" / module
+    assert path in SOURCES
+    assert not set(_imported_roots(path)) & ORBAX_READER_FORBIDDEN
+    if module == "train/orbax_format.py":
+        top = set()
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                top.add(node.module.split(".")[0])
+        assert top == {"__future__", "ctypes", "functools", "json", "os",
+                       "typing", "numpy"}
