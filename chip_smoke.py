@@ -20,6 +20,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             B=256, 300 and 512 (each as several recurrence launches, 300
             with a ragged last one; the same bits twice) and at
             BENCH_SHAPES, float32 and bfloat16.
+3a. kernel-staging  both LSTM kernels launched 200 times each at B=1
+            while a thread puts small host arrays on the card, as
+            evaluate's staging thread does: every launch's bits equal the
+            first's, and the thread's tensors hold what it put there
+            (the barrier counters stay a launch's own until it is
+            enqueued).
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -107,6 +113,22 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             Printed: the two runs' dev losses by epoch
             (within 1e-3, not gating), the epoch walls and each
             `latest`'s write time and bytes by file.
+10c. resume-mdd_tpu  an mdd_tpu run handed to the port at full width:
+            resume-plateau's `.pt` `latest` (epoch 6, dropout 0) written
+            in mdd_tpu's orbax format by save_mdd_tpu_checkpoint (its
+            seconds and bytes, and the `.pt` write's) and read back with
+            read_orbax_checkpoint (the leaves' SHA-256 equal to the tree
+            written); two fresh Trainers on the card restored from the
+            `.pt` and from the orbax directory agree bit for bit (weights,
+            BatchNorm statistics, Adam's moments and steps, the rate, the
+            scheduler, the histories); `train --resume` in-process on the
+            orbax directory for 2 epochs (and on the `.pt` for 1): the log
+            names the epoch and the format, the first resumed step's loss
+            within 1e-3 of the `.pt` resume's; then `latest/` and `best/`
+            are orbax with no `.pt`, the meta and `latest.snap.pt` at the
+            new epoch, and `latest/` read back through the Adam map equal
+            to the trainer's last `latest` bit for bit; the launch
+            counters cover every layer of every step.
 11. profile-train  torch.profiler over 3 train steps: device busy share and
             the ops that take the device time.
 12. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
@@ -257,6 +279,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -482,6 +505,62 @@ def phase_kernel_bwd(torch) -> dict:
         f"rel err {worst['float32']:.3e} (tol {BWD_TOL['float32']}), "
         f"bfloat16 {worst['bfloat16']:.3e} (tol {BWD_TOL['bfloat16']})")
     return worst
+
+
+def phase_kernel_staging(torch) -> None:
+    """Both LSTM kernels launched over and over at B=1, T'=16 while a
+    thread stages small host arrays on the card (what evaluate's staging
+    thread does between two forwards): the same bits every launch, and
+    nothing written into the thread's tensors.  The thread's arrays have
+    the barrier counters' size, so that they take the blocks the wrappers
+    free."""
+    import numpy as np
+
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.utils.precision import strict_float32
+
+    strict_float32("cuda", "float32")
+    g = torch.Generator().manual_seed(SEED + 4)
+    t, b, launches = 16, 1, 200
+    x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5).cuda()
+    w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1) / H ** 0.5
+            ).cuda()
+    dhs = torch.randn((t, 2, b, H), generator=g).cuda()
+    hs, cs = lstm_fwd_kernel(x_proj, w_hh)
+    runs = {"lstm_fwd": lambda: lstm_fwd_kernel(x_proj, w_hh),
+            "lstm_bwd": lambda: lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs)}
+    host = np.arange(2 * 32, dtype=np.int32)
+    for name, run in runs.items():
+        first = run()
+        stop, staged = threading.Event(), []
+
+        def stage():
+            while not stop.is_set():
+                staged.append(torch.as_tensor(host).to("cuda",
+                                                       non_blocking=True))
+
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        thread = threading.Thread(target=stage)
+        thread.start()
+        try:
+            outs = [run() for _ in range(launches)]
+        finally:
+            stop.set()
+            thread.join()
+            sys.setswitchinterval(interval)
+        differ = sum(not (torch.equal(o[0], first[0])
+                          and torch.equal(o[1], first[1])) for o in outs)
+        want = torch.as_tensor(host, device="cuda")
+        written = int((torch.stack(staged) != want).any(dim=1).sum())
+        log(f"[kernel-staging] {name} B={b} T'={t}: {launches} launches "
+            f"beside a staging thread's {len(staged)} copies: {differ} "
+            f"launches off the first's bits, {written} of the thread's "
+            "tensors written to")
+        if differ or written:
+            raise AssertionError(f"{name} and a staging thread disturb "
+                                 f"each other: {differ} launches differ, "
+                                 f"{written} staged tensors changed")
 
 
 def phase_model(torch):
@@ -1898,6 +1977,223 @@ def phase_resume_plateau(torch, train, dev, card: str) -> dict:
     return launches
 
 
+HANDOVER_EPOCHS = 2     # phase resume-mdd_tpu: epochs the port trains on
+HANDOVER_RTOL = 1e-3    # the first resumed step's loss, orbax vs `.pt`
+# resume: the card's training is not bit-deterministic (resume-plateau)
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_resume_mdd_tpu(torch, train, dev, card: str) -> dict:
+    """An mdd_tpu run handed to the port at full width (the module
+    docstring's 10c); -> the launches of the resumed runs by kernel."""
+    from mdd_tpu_torch import cli
+    from mdd_tpu_torch.convert import torch_adam_to_optax, torch_to_flax
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.train import loop
+    from mdd_tpu_torch.train.checkpoint import (checkpoint_format,
+                                                load_checkpoint,
+                                                load_optimizer_state,
+                                                load_snapshots,
+                                                save_checkpoint)
+    from mdd_tpu_torch.train.orbax_format import (read_orbax_checkpoint,
+                                                  save_mdd_tpu_checkpoint)
+    from mdd_tpu_torch.utils.config import load_config
+
+    began = time.perf_counter()
+    # (a) resume-plateau's uninterrupted run's `latest`, dropout 0
+    src = str(WORK / "ckpt" / "plateau_whole")
+    state, meta = load_checkpoint(src, "latest")
+    opt_state = load_optimizer_state(src, "latest")
+    start = meta["epoch"]
+    fields = dict(drop_out=0.0, end_adjust_acc=1000.0, plateau_patience=2,
+                  checkpoint_every=1)
+    conf = write_train_yaml(train, dev, start + HANDOVER_EPOCHS,
+                            exp_name="handover", **fields)
+    conf_pt = write_train_yaml(train, dev, start + 1,
+                               exp_name="handover_pt", **fields)
+    cfg = load_config(conf)
+    vocab = Vocab.from_units_file(cfg.vocab_file)
+    orbax_dir = WORK / "ckpt" / "handover"
+    pt_dir = WORK / "ckpt" / "handover_pt"
+    model = cli.build_trainer(cfg, vocab, "cuda").model   # for its names
+
+    # (b) mdd_tpu's format, written and read back; the `.pt` beside it
+    t0 = time.perf_counter()
+    params, stats = torch_to_flax(state)
+    tree = {"params": params, "batch_stats": stats,
+            "opt_state": torch_adam_to_optax(opt_state, model)}
+    map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_mdd_tpu_checkpoint(str(orbax_dir), "latest", state, meta,
+                            opt_state, model)
+    write_s = time.perf_counter() - t0
+    orbax_bytes = dir_bytes(orbax_dir / "latest")
+    t0 = time.perf_counter()
+    back = read_orbax_checkpoint(str(orbax_dir / "latest"))
+    read_s = time.perf_counter() - t0
+    sha = leaves_sha256(tree)
+    if leaves_sha256(back) != sha:
+        raise AssertionError("[resume-mdd_tpu] the orbax latest reads back "
+                             "other leaves than were written")
+    t0 = time.perf_counter()
+    save_checkpoint(str(pt_dir), "latest", state, meta, opt_state,
+                    load_snapshots(src, "latest"))
+    pt_write_s = time.perf_counter() - t0
+    pt_bytes = {p.name: p.stat().st_size for p in sorted(pt_dir.iterdir())}
+    del tree, back
+
+    # (c) two fresh Trainers on the card, from the `.pt` and from orbax
+    restored = {}
+    for kind, path in (("torch", pt_dir), ("orbax", orbax_dir)):
+        tr = cli.build_trainer(cfg, vocab, "cuda")
+        t0 = time.perf_counter()
+        epoch = tr.restore(str(path.parent), path.name, "latest",
+                           log=lambda *_: None)
+        torch.cuda.synchronize()
+        restored[kind] = dict(
+            seconds=time.perf_counter() - t0, epoch=epoch,
+            kind=tr.checkpoint_kind, model=tr.model.state_dict(),
+            opt=tr.optimizer.state_dict(),
+            scheduler=dataclasses.asdict(tr.scheduler),
+            histories=(tr.loss_results, tr.dev_loss_results,
+                       tr.dev_acc_results))
+    a, b = restored["torch"], restored["orbax"]
+    same = (a["epoch"] == b["epoch"] == start
+            and (a["kind"], b["kind"]) == ("torch", "orbax")
+            and a["model"].keys() == b["model"].keys()
+            and all(torch.equal(a["model"][k], b["model"][k])
+                    for k in a["model"])
+            and a["opt"]["state"].keys() == b["opt"]["state"].keys()
+            and all(x.keys() == b["opt"]["state"][i].keys()
+                    and all(torch.equal(v, b["opt"]["state"][i][k])
+                            for k, v in x.items())
+                    for i, x in a["opt"]["state"].items())
+            and a["opt"]["param_groups"] == b["opt"]["param_groups"]
+            and a["scheduler"] == b["scheduler"]
+            and a["histories"] == b["histories"])
+    n_opt = sum(len(x) for x in a["opt"]["state"].values())
+    adam_step = int(next(iter(opt_state["state"].values()))["step"])
+    log(f"[resume-mdd_tpu] epoch-{start} latest at full width "
+        f"({sum(v.numel() for v in state.values())} weights and "
+        f"statistics, Adam step {adam_step}): "
+        f"mapped to mdd_tpu's trees in {map_s:.3f} s; written in its orbax "
+        f"format in {write_s:.3f} s, {orbax_bytes} bytes; read back in "
+        f"{read_s:.3f} s, SHA-256 {sha[:16]} equal to the tree written; "
+        f"the port's .pt of it (with the snapshots) in {pt_write_s:.3f} s, "
+        f"{pt_bytes} bytes; restored on the card from the .pt in "
+        f"{a['seconds']:.3f} s, from orbax in {b['seconds']:.3f} s: "
+        f"{'bit for bit' if same else 'NOT EQUAL'} ({len(a['model'])} "
+        f"model tensors, {n_opt} optimizer tensors, lr "
+        f"{b['opt']['param_groups'][0]['lr']}, scheduler, histories) "
+        f"({card})")
+    if not same:
+        raise AssertionError("[resume-mdd_tpu] the orbax and .pt restores "
+                             "differ")
+    del restored, a, b
+
+    # (d) `train --resume` on the orbax directory, and on the `.pt`
+    rec = {"first": None, "latest": None, "saves": []}
+    train_step, save = loop.Trainer.train_step, loop.save_checkpoint
+
+    def train_step_rec(self, arrays, acc):
+        out = train_step(self, arrays, acc)
+        if rec["first"] is None:
+            rec["first"] = (out[0] - acc[0]).item()
+        return out
+
+    def save_rec(path, tag, state_dict, meta, optimizer_state=None,
+                 snapshots=None, kind="torch", model=None):
+        t0 = time.perf_counter()
+        out = save(path, tag, state_dict, meta, optimizer_state, snapshots,
+                   kind, model)
+        rec["saves"].append((os.path.basename(path), tag, kind,
+                             round(time.perf_counter() - t0, 3)))
+        if tag == "latest" and out == str(orbax_dir / "latest"):
+            rec["latest"] = (state_dict, optimizer_state)
+        return out
+
+    loop.Trainer.train_step, loop.save_checkpoint = train_step_rec, save_rec
+    lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    try:
+        t0 = time.perf_counter()
+        out = run_cli(["train", "--conf", conf, "--device", "cuda",
+                       "--resume"])
+        wall = time.perf_counter() - t0
+        first = rec["first"]
+        rec["first"] = None
+        out_pt = run_cli(["train", "--conf", conf_pt, "--device", "cuda",
+                          "--resume"])
+        first_pt = rec["first"]
+    finally:
+        loop.Trainer.train_step, loop.save_checkpoint = train_step, save
+    launches = {"lstm_fwd": lstm_fwd_kernel.launches,
+                "lstm_bwd": lstm_bwd_kernel.launches}
+    epochs = HANDOVER_EPOCHS + 1
+    steps = -(-TRAIN_UTTS // BATCH) * epochs
+    forwards = steps + -(-DEV_UTTS // BATCH) * epochs
+    resumed = [line for line in out.splitlines() if "resumed from" in line]
+    loss_rel = abs(first - first_pt) / abs(first_pt)
+
+    # (e) what the run left
+    end = start + HANDOVER_EPOCHS
+    names = sorted(os.listdir(orbax_dir))
+    meta_end = json.loads((orbax_dir / "latest.meta.json").read_text())
+    snap_epoch = load_snapshots(str(orbax_dir), "latest")["epoch"]
+    want_state, want_opt = rec["latest"]
+    got_state, _ = load_checkpoint(str(orbax_dir), "latest")
+    got_opt = load_optimizer_state(str(orbax_dir), "latest", model,
+                                   cfg.weight_decay)
+    lr32 = torch.tensor(want_opt["param_groups"][0]["lr"],
+                        dtype=torch.float32).item()
+    final_same = (
+        got_state.keys() == want_state.keys()
+        and all(torch.equal(got_state[k], want_state[k].cpu())
+                for k in want_state)
+        and got_opt["state"].keys() == want_opt["state"].keys()
+        and all(torch.equal(v, want_opt["state"][i][k].cpu())
+                for i, x in got_opt["state"].items() for k, v in x.items())
+        and got_opt["param_groups"][0]["lr"] == lr32)
+    log(f"[resume-mdd_tpu] train --resume on the orbax directory to epoch "
+        f"{end} in {wall:.1f} s: {resumed}; first resumed step's loss "
+        f"{first!r} vs the .pt resume's {first_pt!r} (rel {loss_rel:.2e}, "
+        f"limit {HANDOVER_RTOL}); saves (exp, tag, format, s on their "
+        f"thread) {rec['saves']}; left {names}, meta epoch "
+        f"{meta_end['epoch']}, snapshot file epoch {snap_epoch}; latest/ "
+        f"read back through the map "
+        f"{'equals' if final_same else 'DIFFERS FROM'} the trainer's last "
+        f"latest bit for bit; launches {launches} over {steps} train steps "
+        f"and {forwards} forwards; the phase in "
+        f"{time.perf_counter() - began:.1f} s ({card})")
+    if not (len(resumed) == 1 and f"resumed from epoch {start} (" in
+            resumed[0] and resumed[0].endswith("mdd_tpu's orbax latest/")
+            and f"resumed from epoch {start} (" in out_pt
+            and "of the port's latest.pt" in out_pt):
+        raise AssertionError(f"[resume-mdd_tpu] resume lines {resumed}")
+    if not loss_rel <= HANDOVER_RTOL:
+        raise AssertionError(f"[resume-mdd_tpu] first resumed step's loss "
+                             f"{first} vs {first_pt}")
+    if not (names == ["best", "best.meta.json", "latest", "latest.meta.json",
+                      "latest.snap.pt"]
+            and checkpoint_format(str(orbax_dir), "latest") == "orbax"
+            and checkpoint_format(str(orbax_dir), "best") == "orbax"
+            and meta_end["epoch"] == snap_epoch == end):
+        raise AssertionError(f"[resume-mdd_tpu] the run left {names}, meta "
+                             f"epoch {meta_end['epoch']}, snapshots of "
+                             f"epoch {snap_epoch}")
+    if not final_same:
+        raise AssertionError("[resume-mdd_tpu] latest/ does not hold the "
+                             "trainer's last state")
+    if launches["lstm_bwd"] != 4 * steps or launches["lstm_fwd"] < 4 * forwards:
+        raise AssertionError(f"[resume-mdd_tpu] launches {launches} for "
+                             f"{forwards} forwards / {steps} train steps: "
+                             "a layer bypassed the kernels")
+    return launches
+
+
 FWD_TIMING_BATCHES = (1, 16, 64)   # serving, serving groups, train/evaluate
 # train at B=16 and 64; the quality recipe's 256 and bench.py's 512
 BWD_TIMING_BATCHES = (16, 64, 256, 512)
@@ -3214,8 +3510,8 @@ RANDOM_WEIGHT_EVAL = ("336-415 utts/s streaming, 457-619 cached (random "
 
 
 def leaves_sha256(tree) -> str:
-    """SHA-256 over the array leaves of a nested dict in sorted key order:
-    each leaf's path, dtype, shape and bytes."""
+    """SHA-256 over the leaves of nested dicts (in sorted key order) and
+    lists: each array's path, dtype, shape and bytes, each None's path."""
     import numpy as np
 
     digest = hashlib.sha256()
@@ -3224,6 +3520,13 @@ def leaves_sha256(tree) -> str:
         if isinstance(node, dict):
             for key in sorted(node):
                 walk(node[key], path + (str(key),))
+            return
+        if isinstance(node, list):
+            for i, value in enumerate(node):
+                walk(value, path + (str(i),))
+            return
+        if node is None:
+            digest.update(f"{'/'.join(path)}|None|".encode())
             return
         a = np.ascontiguousarray(node)
         digest.update(f"{'/'.join(path)}|{a.dtype.str}|{a.shape}|".encode())
@@ -3559,6 +3862,7 @@ def main() -> int:
     phase_build()
     worst = phase_kernel(torch)
     worst_bwd = phase_kernel_bwd(torch)
+    phase_kernel_staging(torch)
     cfg, meta, state = phase_model(torch)
     vis = phase_visualize(torch, cfg, state, card)
     files = write_serving_files(cfg, meta, state)
@@ -3573,6 +3877,7 @@ def main() -> int:
     train_fwd, train_bwd, conf, first_loss = phase_train(torch, train, dev)
     phase_train_strict(train, dev, first_loss, card)
     plateau = phase_resume_plateau(torch, train, dev, card)
+    handover = phase_resume_mdd_tpu(torch, train, dev, card)
     phase_step_time(torch, conf, card)
     timing, timing_bwd = phase_timing(torch, card)
     dropout_err = phase_kernel_dropout(torch)
@@ -3596,7 +3901,7 @@ def main() -> int:
         "replaces": "mdd_tpu/ops/lstm_pallas.py:61",
         "launches": (launches + vis["lstm_fwd"] + sum(lexicon.values())
                      + sum(product.values()) + train_fwd
-                     + plateau["lstm_fwd"]
+                     + plateau["lstm_fwd"] + handover["lstm_fwd"]
                      + fused["lstm_fwd"] + bf16["lstm_fwd"]
                      + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd
                      + ddp["train-ddp"]["lstm_fwd"]
@@ -3608,6 +3913,7 @@ def main() -> int:
                                 for k, v in trained.items()},
                              "train": train_fwd,
                              "resume-plateau": plateau["lstm_fwd"],
+                             "resume-mdd_tpu": handover["lstm_fwd"],
                              "train-fused": fused["lstm_fwd"],
                              "train-bf16": bf16["lstm_fwd"],
                              "train-cached": cached["lstm_fwd"],
@@ -3626,7 +3932,8 @@ def main() -> int:
         "route": "cuda",
         "source": "mdd_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "mdd_tpu/ops/lstm_pallas.py:141",
-        "launches": (train_bwd + plateau["lstm_bwd"] + vis["lstm_bwd"]
+        "launches": (train_bwd + plateau["lstm_bwd"]
+                     + handover["lstm_bwd"] + vis["lstm_bwd"]
                      + fused["lstm_bwd"] + bf16["lstm_bwd"]
                      + cached["lstm_bwd"] + ddp["train-ddp"]["lstm_bwd"]
                      + ddp["evaluate-ddp"]["lstm_bwd"]
@@ -3634,6 +3941,7 @@ def main() -> int:
         "launches_by_path": {"visualize": vis["lstm_bwd"],
                              "train": train_bwd,
                              "resume-plateau": plateau["lstm_bwd"],
+                             "resume-mdd_tpu": handover["lstm_bwd"],
                              "train-fused": fused["lstm_bwd"],
                              "train-bf16": bf16["lstm_bwd"],
                              "train-cached": cached["lstm_bwd"],

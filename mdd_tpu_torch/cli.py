@@ -550,7 +550,11 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--resume", action="store_true",
                    help="continue from the experiment's 'latest' "
                         "checkpoint (params, optimizer, LR scheduler and "
-                        "loss histories are restored)")
+                        "loss histories are restored): the port's "
+                        "latest.pt, or mdd_tpu's orbax latest/, whose "
+                        "optax Adam state becomes torch's and whose format "
+                        "the run's later latest and best keep; without a "
+                        "latest the run starts afresh")
     q.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
     q.add_argument("--distributed", action="store_true",

@@ -146,7 +146,15 @@ _ROWS_TILE = 16
 
 
 def _barrier_counters(b: int, device) -> torch.Tensor:
-    """Zeroed counters for every (direction, batch group) there can be."""
+    """Zeroed counters for every (direction, batch group) there can be.
+
+    The caller holds the tensor until the launch is enqueued: freed any
+    earlier (`_barrier_counters(...).data_ptr()` frees it at once), its
+    block can go to an allocation of another thread whose copy lands
+    before the kernel runs, and the kernel then starts from counts that
+    are not zero (its barriers open early) and adds its counts to that
+    thread's tensor.  After the launch the allocator's stream order makes
+    the free safe."""
     return torch.zeros(2 * -(-b // _ROWS_TILE) * _COUNTER_STRIDE,
                        dtype=torch.int32, device=device)
 
@@ -181,9 +189,10 @@ class LstmFwdKernel(_LstmBinding):
         dev = x_proj.device
         hs = torch.empty((t, 2, b, h), dtype=x_proj.dtype, device=dev)
         cs = torch.empty_like(hs)
+        counters = _barrier_counters(b, dev)   # held until enqueued
         self._launch(dev, x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-                     cs.data_ptr(), _barrier_counters(b, dev).data_ptr(),
-                     t, b, h, _DTYPE_CODES[x_proj.dtype])
+                     cs.data_ptr(), counters.data_ptr(), t, b, h,
+                     _DTYPE_CODES[x_proj.dtype])
         return hs, cs
 
 
@@ -256,11 +265,12 @@ class LstmBwdKernel(_LstmBinding):
         time the launches one by one."""
         t, b, h = self._check(x_proj, w_hh, hs, cs, dhs)
         dxp, dw, z, dw_partial, exchange = buffers
+        counters = _barrier_counters(b, x_proj.device)  # held until enqueued
         self._launch(x_proj.device, x_proj.data_ptr(), w_hh.data_ptr(),
                      hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
                      dxp.data_ptr(), dw.data_ptr(), z.data_ptr(),
                      dw_partial.data_ptr(), exchange.data_ptr(),
-                     _barrier_counters(b, x_proj.device).data_ptr(), t, b, h,
+                     counters.data_ptr(), t, b, h,
                      _DTYPE_CODES[x_proj.dtype], parts)
 
     def __call__(self, x_proj, w_hh, hs, cs, dhs):

@@ -6,6 +6,10 @@ step, and the plateau learning-rate machine with best-state snapshot and
 restore (train_ctc.py:215-268), with `best` and a resumable `latest`
 (the model, the optimizer and, unlike mdd_tpu's, the plateau machine's two
 snapshots, so a resumed run restores what an uninterrupted one would).
+A run resumed from mdd_tpu's orbax `latest` (optax's Adam state mapped
+to torch's, convert.py) goes on writing its `latest` and `best` in that
+format, so that the run's files stay what its meta describes and mdd_tpu
+can take the run back; any other run writes the port's `.pt`.
 A float32 trainer on a card runs strict float32 (utils/precision.py).
 A step is forward (the acoustic recurrence on the hand-written LSTM
 kernels when the config asks for them), CTC loss, backward, Adam update
@@ -48,7 +52,8 @@ from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
 from mdd_tpu_torch.ops.ctc_loss import ctc_loss
 from mdd_tpu_torch.ops.wer import greedy_wer_counts
 from mdd_tpu_torch.parallel import mesh
-from mdd_tpu_torch.train.checkpoint import (load_checkpoint,
+from mdd_tpu_torch.train.checkpoint import (checkpoint_format,
+                                            load_checkpoint,
                                             load_optimizer_state,
                                             load_snapshots, save_checkpoint)
 from mdd_tpu_torch.train.plateau import PlateauAction, PlateauScheduler
@@ -127,6 +132,9 @@ class Trainer:
         self.noise_generator = torch.Generator(device=self.device)
         self.noise_generator.manual_seed(seed + 2)
         self._save_thread = None   # an asynchronous save in flight
+        # the format the checkpoints are written in: the port's, or
+        # mdd_tpu's where the run was restored from an orbax `latest`
+        self.checkpoint_kind = "torch"
         self._snapshot = None      # plateau restore point
         self._best_acc_state = None
         self.loss_results: list = []
@@ -351,16 +359,18 @@ class Trainer:
         epoch = 0
         log(f"compute_dtype {self.model_cfg.compute_dtype} on "
             f"{self.device.type}: {tf32_flags()}")
-        if resume and checkpoint_dir and os.path.exists(
-                os.path.join(checkpoint_dir, exp_name, "latest.pt")):
+        if resume and checkpoint_dir and checkpoint_format(
+                os.path.join(checkpoint_dir, exp_name), "latest"):
             epoch = self.restore(checkpoint_dir, exp_name, "latest", log)
             # continue the loaders' augmentation / shuffle sequence
             for ld in (train_loader, dev_loader):
                 set_ep = getattr(ld, "set_epoch", None)
                 if set_ep is not None:
                     set_ep(epoch)
+            read = {"torch": "the port's latest.pt",
+                    "orbax": "mdd_tpu's orbax latest/"}[self.checkpoint_kind]
             log(f"resumed from epoch {epoch} "
-                f"(lr {sched.learning_rate:.5f})")
+                f"(lr {sched.learning_rate:.5f}) of {read}")
         start = time.time()
         while not sched.stopped and epoch < num_epochs:
             epoch += 1
@@ -420,16 +430,16 @@ class Trainer:
             "scheduler": dataclasses.asdict(self.scheduler),
         }
 
-    def _snapshots(self) -> Dict[str, Any]:
+    def _snapshots(self, epoch: int) -> Dict[str, Any]:
         """The plateau machine's two snapshots, as `latest` carries them."""
-        return {"snapshot": self._snapshot,
+        return {"epoch": epoch, "snapshot": self._snapshot,
                 "best_acc_state": self._best_acc_state}
 
     def save(self, directory: str, exp_name: str, tag: str,
              epoch: int) -> str:
         """Synchronous save (rank 0 writes; the others only wait for an
-        earlier save); `latest` carries the optimizer state and the
-        plateau snapshots."""
+        earlier save) in the run's format; `latest` carries the optimizer
+        state and the plateau snapshots."""
         self.join_saves()
         path = os.path.join(directory, exp_name)
         if self.rank == 0:
@@ -438,7 +448,8 @@ class Trainer:
                 path, tag, self.model.state_dict(), self._save_meta(epoch),
                 optimizer_state=(self.optimizer.state_dict() if latest
                                  else None),
-                snapshots=self._snapshots() if latest else None)
+                snapshots=self._snapshots(epoch) if latest else None,
+                kind=self.checkpoint_kind, model=self.model)
         return path
 
     def save_async(self, directory: str, exp_name: str, tag: str,
@@ -456,12 +467,14 @@ class Trainer:
         latest = tag == "latest"
         # the snapshots go to the thread uncloned: nothing writes to a
         # snapshot's tensors (_restore_snapshot installs by copy), and a
-        # new snapshot replaces the pair, not its tensors
+        # new snapshot replaces the pair, not its tensors.  The model is
+        # read for its parameters' names only
         self._save_thread = threading.Thread(
             target=save_checkpoint, daemon=True,
             args=(path, tag, model_state, meta,
                   opt_state if latest else None,
-                  self._snapshots() if latest else None))
+                  self._snapshots(epoch) if latest else None,
+                  self.checkpoint_kind, self.model))
         self._save_thread.start()
 
     def join_saves(self) -> None:
@@ -473,19 +486,29 @@ class Trainer:
     def restore(self, directory: str, exp_name: str,
                 tag: str = "latest", log=print) -> int:
         """Load params, BN statistics, the optimizer state and the plateau
-        snapshots (`latest`), the scheduler and the loss histories; -> the
-        epoch to continue from.  Every rank reads the same files."""
+        snapshots (`latest`), the scheduler and the loss histories, from
+        the port's files or mdd_tpu's orbax ones, whose format the later
+        saves then keep; -> the epoch to continue from.  Every rank reads
+        the same files.  A checkpoint that cannot be read or mapped
+        raises: nothing starts afresh."""
         path = os.path.join(directory, exp_name)
+        kind = checkpoint_format(path, tag)
         state, meta = load_checkpoint(path, tag)
+        epoch = int(meta.get("epoch", 0))
         self.model.load_state_dict(state)
         mesh.broadcast_module(self.model)     # rank 0's weights everywhere
         if tag == "latest":
-            self.optimizer.load_state_dict(load_optimizer_state(path, tag))
+            self.optimizer.load_state_dict(load_optimizer_state(
+                path, tag, self.model,
+                self.optimizer.param_groups[0]["weight_decay"]))
             snaps = load_snapshots(path, tag)
-            if snaps is None:
-                log(f"{tag} has no plateau snapshots (written before "
-                    "they were saved): no halving restores a state until "
-                    "the dev loss improves again")
+            if snaps is None or snaps.get("epoch") != epoch:
+                # mdd_tpu writes no snapshot file, and leaves the port's
+                # of an older epoch behind when it saves in this directory
+                log(f"{tag} has no plateau snapshots of its epoch {epoch} "
+                    "(written before they were saved, or by mdd_tpu): no "
+                    "halving restores a state until the dev loss improves "
+                    "again")
             else:
                 self._snapshot = self._to_device(snaps["snapshot"])
                 self._best_acc_state = self._to_device(
@@ -493,7 +516,11 @@ class Trainer:
         for k, v in meta.get("scheduler", {}).items():
             if hasattr(self.scheduler, k):
                 setattr(self.scheduler, k, v)
+        # the group's rate is the scheduler's, as fit sets it every epoch
+        # (optax keeps it in float32)
+        self._set_lr(self.scheduler.learning_rate)
         self.loss_results = list(meta.get("loss_results", []))
         self.dev_loss_results = list(meta.get("dev_loss_results", []))
         self.dev_acc_results = list(meta.get("dev_acc_results", []))
-        return int(meta.get("epoch", 0))
+        self.checkpoint_kind = kind
+        return epoch

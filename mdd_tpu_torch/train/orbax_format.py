@@ -1,11 +1,18 @@
-"""mdd_tpu's orbax checkpoints, read without JAX, orbax or tensorstore.
+"""mdd_tpu's orbax checkpoints, read and written without JAX, orbax or
+tensorstore.
 
 mdd_tpu saves `<directory>/<name>/` with orbax's StandardCheckpointer
 (mdd_tpu/train/checkpoint.py) and restores it with the same class.
 `load_mdd_tpu_checkpoint` is the port's counterpart of that restore: it
 reads the files with numpy, and with the system's zstd library through
-ctypes, and bridges them with convert.flax_to_torch.  Everything here
-runs on the host; the weights reach the card through load_state_dict.
+ctypes, and bridges them with convert.flax_to_torch.
+`save_mdd_tpu_checkpoint` is the counterpart of the save: it bridges
+back with convert.torch_to_flax (and torch_adam_to_optax for the
+optimizer) and `write_orbax_checkpoint` writes the layout below, one
+that orbax and this reader both read back bit for bit (not orbax's own
+bytes: one OCDBT version, one b-tree leaf, one data file).  Everything
+here runs on the host; the weights reach the card through
+load_state_dict.
 
 The format, layer by layer.  Each field was read from the bytes and held
 against tensorstore's and orbax's own reads (tests/test_torch_orbax.py
@@ -76,6 +83,17 @@ zarr v2.  An array `<name>` is the JSON `<name>/.zarray` (zarr_format 2,
   array ends inside it.  orbax writes every chunk, so a missing one is an
   error.  The zstd frames of the chunks do not record their size: the
   buffer is sized from `.zarray`.
+
+The writer's choices.  `_METADATA` and `_CHECKPOINT_METADATA` as orbax
+  writes them (an empty node is value_type "None", "Dict" or "List" with
+  skip_deserialize true; optax's EmptyState, a NamedTuple without fields,
+  is "None" there too).  The manifest's config is orbax's
+  (max_inline_value_bytes 1024, max_decoded_node_bytes 100,000,000,
+  arity log2 4, zstd at level 0); the manifest and the one leaf node are
+  zstd frames, the leaf holds every key, values of up to 1024 bytes
+  inline and the rest in one data file `d/<32 hex digits>` that ends with
+  the leaf.  Arrays are zarr v2 with `"compressor": {"id": "zstd",
+  "level": 1}` and one chunk an array.
 """
 
 from __future__ import annotations
@@ -84,6 +102,8 @@ import ctypes
 import functools
 import json
 import os
+import shutil
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -103,6 +123,20 @@ _DTYPES = {"<f4": np.float32, "<f2": np.float16, "<i4": np.int32,
            "<i8": np.int64, "|u1": np.uint8, "|b1": np.bool_,
            "bfloat16": np.uint16}
 _EMPTY_TYPES = {"None": None, "Dict": dict, "List": list}
+# numpy dtype -> zarr v2 dtype, for the writer
+_ZARR_DTYPES = {np.dtype(np.float32): "<f4", np.dtype(np.float16): "<f2",
+                np.dtype(np.int32): "<i4", np.dtype(np.int64): "<i8",
+                np.dtype(np.uint8): "|u1", np.dtype(np.bool_): "|b1"}
+
+# the OCDBT config orbax writes: values of up to this many bytes sit in
+# the leaf node, a node decodes to at most this many, zstd at level 0
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+NODE_ZSTD_LEVEL = 0
+CHUNK_ZSTD_LEVEL = 1      # zarr's compressor, as orbax sets it
+CHECKPOINT_HANDLER = ("orbax.checkpoint._src.handlers."
+                      "standard_checkpoint_handler.StandardCheckpointHandler")
 
 
 class OrbaxFormatError(ValueError):
@@ -131,7 +165,27 @@ def _libzstd(name: str) -> ctypes.CDLL:
     lib.ZSTD_getErrorName.restype = ctypes.c_char_p
     lib.ZSTD_getErrorCode.argtypes = [size_t]
     lib.ZSTD_getErrorCode.restype = ctypes.c_int
+    lib.ZSTD_compressBound.argtypes = [size_t]
+    lib.ZSTD_compressBound.restype = size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_void_p, size_t, ctypes.c_void_p,
+                                  size_t, ctypes.c_int]
+    lib.ZSTD_compress.restype = size_t
     return lib
+
+
+def zstd_compress(data, level: int) -> bytes:
+    """One zstd frame (with its content size) of the bytes of `data`, a
+    bytes object or a C-contiguous numpy array."""
+    lib = _libzstd(LIBZSTD)
+    src = np.frombuffer(data, np.uint8) if isinstance(data, bytes) \
+        else data.reshape(-1).view(np.uint8)
+    out = np.empty(lib.ZSTD_compressBound(src.size), np.uint8)
+    got = lib.ZSTD_compress(out.ctypes.data, out.size, src.ctypes.data,
+                            src.size, level)
+    if lib.ZSTD_isError(got):
+        raise OrbaxFormatError(
+            "zstd: " + lib.ZSTD_getErrorName(got).decode())
+    return out[:got].tobytes()
 
 
 def zstd_decompress(frame: bytes, size: Optional[int] = None,
@@ -485,10 +539,14 @@ def read_zarr_array(store: OcdbtStore, name: str) -> np.ndarray:
 
 # ----------------------------------------------------------------- orbax
 
-def read_orbax_checkpoint(path: str) -> Dict[str, Any]:
+def read_orbax_checkpoint(path: str,
+                          only: Optional[Tuple[str, ...]] = None
+                          ) -> Dict[str, Any]:
     """The tree that orbax's StandardCheckpointer().restore(path) gives
     without a target: nested dicts (lists for sequences) of numpy arrays,
-    bfloat16 widened to float32."""
+    bfloat16 widened to float32.  `only` names the top-level entries to
+    read (all where None): a resumable checkpoint's `opt_state` is twice
+    the size of its weights."""
     path = os.path.abspath(path)
     meta_path = os.path.join(path, "_METADATA")
     try:
@@ -505,6 +563,8 @@ def read_orbax_checkpoint(path: str) -> Dict[str, Any]:
     sequences = set()
     for entry in meta["tree_metadata"].values():
         keys = entry["key_metadata"]
+        if only is not None and keys[0]["key"] not in only:
+            continue
         value_type = entry["value_metadata"]["value_type"]
         node = root
         for depth, k in enumerate(keys):
@@ -536,6 +596,214 @@ def read_orbax_checkpoint(path: str) -> Dict[str, Any]:
     return build(root)
 
 
+# ---------------------------------------------------------------- writer
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _frame(magic: int, payload: bytes) -> bytes:
+    """An OCDBT frame of `payload`, zstd-compressed: the inverse of
+    _unframe."""
+    body = (_varint(0) + _varint(1)
+            + zstd_compress(payload, NODE_ZSTD_LEVEL))
+    head = magic.to_bytes(4, "big") + (12 + len(body) + 4).to_bytes(
+        8, "little")
+    data = head + body
+    return data + crc32c(data).to_bytes(4, "little")
+
+
+def _file_table(paths: List[str]) -> bytes:
+    """A data file table of `paths` (each with base path "")."""
+    raw = [p.encode("utf-8") for p in paths]
+    prefix = [len(os.path.commonprefix([a, b]))
+              for a, b in zip(raw, raw[1:])]
+    suffix = [len(p) - q for p, q in zip(raw, [0] + prefix)]
+    return (_varint(len(raw)) + _varints(prefix) + _varints(suffix)
+            + _varints([0] * len(raw))
+            + b"".join(p[q:] for p, q in zip(raw, [0] + prefix)))
+
+
+def _tree_entries(tree, keys=()):
+    """-> [(key_metadata, value)] of `tree`'s leaves and empty nodes in
+    orbax's order: dict keys and NamedTuple-like dicts as key_type 2,
+    sequence indices as key_type 1."""
+    if isinstance(tree, dict) and tree:
+        items = [(str(k), 2, v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)) and tree:
+        items = [(str(i), 1, v) for i, v in enumerate(tree)]
+    else:
+        return [(list(keys), tree)]
+    out = []
+    for key, key_type, value in items:
+        out += _tree_entries(value, keys + ({"key": key,
+                                             "key_type": key_type},))
+    return out
+
+
+def _zarr_array(name: str, value) -> Dict[bytes, bytes]:
+    """The store's keys and values of one array: `.zarray` and one chunk."""
+    a = np.asarray(value)
+    if a.dtype not in _ZARR_DTYPES:
+        raise OrbaxFormatError(f"{name}: dtype {a.dtype} (supported: "
+                               f"{sorted(str(d) for d in _ZARR_DTYPES)})")
+    a = a.astype(a.dtype.newbyteorder("<"), order="C", copy=False)
+    zarray = {"chunks": list(a.shape),
+              "compressor": {"id": "zstd", "level": CHUNK_ZSTD_LEVEL},
+              "dimension_separator": ".", "dtype": _ZARR_DTYPES[a.dtype],
+              "fill_value": None, "filters": None, "order": "C",
+              "shape": list(a.shape), "zarr_format": 2}
+    out = {f"{name}/.zarray".encode(): json.dumps(
+        zarray, sort_keys=True, separators=(",", ":")).encode()}
+    if a.size:
+        chunk = ".".join("0" for _ in a.shape) or "0"
+        out[f"{name}/{chunk}".encode()] = zstd_compress(a, CHUNK_ZSTD_LEVEL)
+    return out
+
+
+def _leaf_node(entries: Dict[bytes, bytes], data_file: str
+               ) -> Tuple[bytes, List[bytes]]:
+    """A b-tree leaf (height 0) of every key -> (its payload, the values
+    it keeps in `data_file`, to be written there in order from offset
+    0)."""
+    keys = sorted(entries)
+    prefix = [len(os.path.commonprefix([a, b]))
+              for a, b in zip(keys, keys[1:])]
+    values = [entries[k] for k in keys]
+    kinds = bytes(int(len(v) > MAX_INLINE_VALUE_BYTES) for v in values)
+    offsets, indirect, at = [], [], 0
+    for v, kind in zip(values, kinds):
+        if kind:
+            offsets.append(at)
+            indirect.append(v)
+            at += len(v)
+    payload = (b"\x00" + _file_table([data_file] if indirect else [])
+               + _varint(len(keys)) + _varints(prefix)
+               + _varints(len(k) - q for k, q in zip(keys, [0] + prefix))
+               + b"".join(k[q:] for k, q in zip(keys, [0] + prefix))
+               + _varints(len(v) for v in values) + kinds
+               + _varints([0] * len(offsets)) + _varints(offsets)
+               + b"".join(v for v, kind in zip(values, kinds) if not kind))
+    if len(payload) > MAX_DECODED_NODE_BYTES:
+        raise OrbaxFormatError(f"the leaf node would decode to "
+                               f"{len(payload)} bytes, over "
+                               f"{MAX_DECODED_NODE_BYTES}")
+    return payload, indirect
+
+
+def write_orbax_checkpoint(path: str, tree: Dict[str, Any]) -> None:
+    """Write `tree` (nested dicts and lists of numpy arrays, None and
+    empty dicts / lists) as the checkpoint directory `path`, which must
+    not exist: what orbax's StandardCheckpointer().save(path, tree)
+    writes, in the layout of this module's docstring."""
+    path = os.path.abspath(path)
+    init_ns = time.time_ns()
+    tree_meta, entries = {}, {}
+    for keys, value in _tree_entries(tree):
+        label = str(tuple(k["key"] for k in keys))
+        if value is None or isinstance(value, (dict, list, tuple)):
+            empty = {type(None): "None", dict: "Dict", list: "List",
+                     tuple: "List"}[type(value)]
+            value_meta = {"value_type": empty, "skip_deserialize": True}
+        else:
+            value_meta = {"value_type": "np.ndarray",
+                          "skip_deserialize": False}
+            entries.update(_zarr_array(".".join(k["key"] for k in keys),
+                                       value))
+        tree_meta[label] = {"key_metadata": keys,
+                            "value_metadata": value_meta}
+    if not entries:
+        raise OrbaxFormatError(f"{path}: a tree without arrays")
+    os.makedirs(path)
+    data_file = f"d/{os.urandom(16).hex()}"
+    payload, indirect = _leaf_node(entries, data_file)
+    node = _frame(NODE_MAGIC, payload)
+    indirect_bytes = sum(map(len, indirect))
+    os.makedirs(os.path.join(path, "d"))
+    with open(os.path.join(path, data_file), "wb") as f:
+        for value in indirect:
+            f.write(value)
+        f.write(node)
+    manifest = (os.urandom(16) + _varint(0)
+                + _varint(MAX_INLINE_VALUE_BYTES)
+                + _varint(MAX_DECODED_NODE_BYTES)
+                + bytes([VERSION_TREE_ARITY_LOG2])
+                + _varint(1) + NODE_ZSTD_LEVEL.to_bytes(4, "little")
+                + _file_table([data_file])
+                # one version: generation 1, a root leaf in file 0
+                + _varint(1) + _varint(1) + b"\x00" + _varint(0)
+                + _varint(indirect_bytes) + _varint(len(node))
+                + _varint(len(entries)) + _varint(len(node))
+                + _varint(indirect_bytes)
+                + time.time_ns().to_bytes(8, "little")
+                + _varint(0))                   # no version tree nodes
+    with open(os.path.join(path, "manifest.ocdbt"), "wb") as f:
+        f.write(_frame(MANIFEST_MAGIC, manifest))
+    with open(os.path.join(path, "_METADATA"), "w", encoding="utf-8") as f:
+        json.dump({"tree_metadata": tree_meta, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, f)
+    with open(os.path.join(path, "_CHECKPOINT_METADATA"), "w",
+              encoding="utf-8") as f:
+        json.dump({"item_handlers": CHECKPOINT_HANDLER, "metrics": {},
+                   "performance_metrics": {},
+                   "init_timestamp_nsecs": init_ns,
+                   "commit_timestamp_nsecs": time.time_ns(),
+                   "custom_metadata": {}}, f)
+
+
+def save_mdd_tpu_checkpoint(directory: str, name: str,
+                            state_dict: Dict[str, Any],
+                            meta: Dict[str, Any], optimizer=None,
+                            model=None) -> str:
+    """mdd_tpu's save_checkpoint (mdd_tpu/train/checkpoint.py) for the
+    port's state: `<directory>/<name>/` holds {params, batch_stats} and,
+    given a torch Adam or its state_dict, `opt_state` (which needs
+    `model` for the parameters' names); `<name>.meta.json` holds `meta`.
+    Returns the checkpoint's path.
+
+    As mdd_tpu's: the checkpoint is written to a temporary sibling with
+    its meta, then swapped in, so an interrupted save never destroys the
+    previous checkpoint."""
+    from mdd_tpu_torch.convert import torch_adam_to_optax, torch_to_flax
+
+    params, batch_stats = torch_to_flax(state_dict)
+    tree: Dict[str, Any] = {"params": params, "batch_stats": batch_stats}
+    if optimizer is not None:
+        if model is None:
+            raise ValueError("writing the optimizer state needs the model "
+                             "(its parameters' names)")
+        tree["opt_state"] = torch_adam_to_optax(optimizer, model)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.abspath(os.path.join(directory, name))
+    tmp = f"{path}.tmp-{os.getpid()}"
+    old = f"{path}.old-{os.getpid()}"
+    for p in (tmp, old):
+        if os.path.exists(p):
+            shutil.rmtree(p)
+    write_orbax_checkpoint(tmp, tree)
+    with open(tmp + ".meta.json", "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=2, default=str)
+    # swap: retire the old checkpoint only after the new one is complete
+    if os.path.exists(path):
+        os.rename(path, old)
+    os.rename(tmp, path)
+    os.replace(tmp + ".meta.json", path + ".meta.json")
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    return path
+
+
 def load_mdd_tpu_checkpoint(directory: str, name: str):
     """-> (state_dict on the CPU, meta dict) of mdd_tpu's checkpoint
     `<directory>/<name>/` and its `<name>.meta.json` (an empty meta where
@@ -543,7 +811,7 @@ def load_mdd_tpu_checkpoint(directory: str, name: str):
     from mdd_tpu_torch.convert import flax_to_torch
 
     path = os.path.abspath(os.path.join(directory, name))
-    tree = read_orbax_checkpoint(path)
+    tree = read_orbax_checkpoint(path, only=("params", "batch_stats"))
     state = flax_to_torch(tree["params"], tree["batch_stats"])
     meta: Dict[str, Any] = {}
     if os.path.exists(path + ".meta.json"):

@@ -7,6 +7,10 @@ No JAX here, so the file runs on a GPU machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import sys
+import threading
+
+import numpy as np
 import pytest
 import torch
 
@@ -132,6 +136,52 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, tol, t, b, h):
     assert dxp.dtype == dtype and dw.dtype == torch.float32
     for got, want in ((dxp.float(), ref_dxp.float()), (dw, ref_dw)):
         assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])
+def test_kernels_keep_their_counters_from_a_staging_thread(cuda, kernel):
+    """A thread that puts small host arrays on the card while the kernel
+    is launched over and over (evaluate's staging thread) changes none of
+    the kernel's bits, and the kernel writes nothing into that thread's
+    tensors: the barrier counters stay the launch's own until it is
+    enqueued."""
+    t, b = 16, 1
+    x_proj, w_hh = _inputs(t, b, 384, torch.float32)
+    if kernel == "lstm_fwd":
+        def run():
+            return lstm_cuda.lstm_fwd_kernel(x_proj, w_hh)
+    else:
+        dhs = torch.randn((t, 2, b, 384), device="cuda")
+        hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+
+        def run():
+            return lstm_cuda.lstm_bwd_kernel(x_proj, w_hh, hs, cs, dhs)
+    first = run()
+    # the counters' size at B = 1, so that the thread's tensors take the
+    # blocks a wrapper frees
+    host = np.arange(2 * 32, dtype=np.int32)
+    stop, staged = threading.Event(), []
+
+    def stage():
+        while not stop.is_set():
+            staged.append(torch.as_tensor(host).to("cuda", non_blocking=True))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)      # switch threads between any two lines
+    thread = threading.Thread(target=stage)
+    thread.start()
+    try:
+        outs = [run() for _ in range(200)]
+    finally:
+        stop.set()
+        thread.join()
+        sys.setswitchinterval(interval)
+    assert all(torch.equal(o[0], first[0]) and torch.equal(o[1], first[1])
+               for o in outs)
+    assert staged
+    assert torch.equal(torch.stack(staged),
+                       torch.as_tensor(host, device="cuda").expand(
+                           len(staged), -1))
 
 
 def test_backward_kernel_is_the_same_from_run_to_run(cuda):
@@ -347,3 +397,44 @@ def test_trainer_in_float32_on_the_card_turns_tf32_off(cuda):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_orbax_latest_restores_alike_on_the_card_and_the_cpu(cuda, tmp_path):
+    """An mdd_tpu-format `latest` (optax's Adam state, written by the
+    port's orbax writer after one Adam step) restored by a Trainer on the
+    card and by one on the CPU: every weight, BatchNorm statistic and Adam
+    tensor has the same bits, `step` stays on the CPU in both."""
+    from mdd_tpu_torch.models.ctc_model import ModelConfig
+    from mdd_tpu_torch.train.loop import Trainer
+
+    cfg = ModelConfig(input_dim=24, num_class=8, rnn_hidden_size=8,
+                      rnn_layers=2, text_embed_size=8, dropout=0.0)
+    src = Trainer(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for p in src.model.parameters():
+        p.grad = torch.randn(p.shape, generator=g)
+    src.optimizer.step()
+    src.checkpoint_kind = "orbax"
+    src.save(str(tmp_path), "exp", "latest", epoch=1)
+    assert (tmp_path / "exp" / "latest" / "manifest.ocdbt").exists()
+    got = {}
+    for device in ("cuda", "cpu"):
+        t = Trainer(cfg, device=device, seed=5)
+        assert t.restore(str(tmp_path), "exp", "latest",
+                         log=lambda *_: None) == 1
+        assert t.checkpoint_kind == "orbax"
+        opt = t.optimizer.state_dict()
+        assert all(s["step"].device.type == "cpu" and s["step"].item() == 1
+                   for s in opt["state"].values())
+        assert all(s["exp_avg"].device.type == device
+                   for s in opt["state"].values())
+        got[device] = ({k: v.cpu() for k, v in t.model.state_dict().items()},
+                       {(i, k): v.cpu() for i, s in opt["state"].items()
+                        for k, v in s.items()})
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+    want = src.optimizer.state_dict()["state"]
+    for (i, k), v in got["cuda"][1].items():
+        assert torch.equal(v, want[i][k]), (i, k)

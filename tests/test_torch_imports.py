@@ -361,4 +361,4 @@ def test_orbax_reader_needs_none_of_jax_orbax_or_a_codec_package(module):
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 top.add(node.module.split(".")[0])
         assert top == {"__future__", "ctypes", "functools", "json", "os",
-                       "typing", "numpy"}
+                       "shutil", "time", "typing", "numpy"}

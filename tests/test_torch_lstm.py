@@ -2,6 +2,8 @@
 Pallas forward (interpret mode on the CPU), the plain scan against the
 lax.scan path, and the CPU dispatch of the kernel wrapper."""
 
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,3 +128,44 @@ def test_kernel_binding_refuses_cpu_tensors():
         lstm_cuda.lstm_fwd_kernel(torch.from_numpy(x_proj),
                                   torch.from_numpy(w_hh))
     assert lstm_cuda.lstm_fwd_kernel.launches == 0
+
+
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])
+def test_wrappers_hold_their_barrier_counters_until_the_launch(monkeypatch,
+                                                               kernel):
+    """The zeroed barrier counters a launch gets are alive, and zero, when
+    the launch is enqueued: freed any earlier, their block can go to an
+    allocation of another thread (evaluate's staging thread) whose copy
+    lands before the kernel runs.  The launch itself is stubbed here; the
+    race runs on the card in test_torch_cuda.py."""
+    made, seen = [], []
+    fresh = lstm_cuda._barrier_counters
+
+    def counters(b, device):
+        c = fresh(b, device)
+        made.append(weakref.ref(c))
+        return c
+
+    def launch(self, device, *args):
+        c = made[-1]()
+        seen.append(c is not None and c.data_ptr() == args[self.n_pointers - 1]
+                    and not c.any())
+
+    monkeypatch.setattr(lstm_cuda, "_barrier_counters", counters)
+    monkeypatch.setattr(lstm_cuda, "_check_lstm_inputs",
+                        lambda x, w, units: (x.shape[0], x.shape[2],
+                                             x.shape[3] // 4))
+    monkeypatch.setattr(lstm_cuda._LstmBinding, "_launch", launch)
+    t, b, h = 3, 2, 8
+    x_proj, w_hh = (torch.from_numpy(a) for a in _seq_inputs(9, t, b, h))
+    if kernel == "lstm_fwd":
+        lstm_cuda.LstmFwdKernel()(x_proj, w_hh)
+    else:
+        hs, cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
+        buffers = (torch.empty_like(x_proj), torch.empty((2, h, 4 * h)),
+                   torch.empty((t, 2, b, 4 * h)), torch.empty((1, 2, h, 4 * h)),
+                   torch.empty(1))
+        k = lstm_cuda.LstmBwdKernel()
+        k.run_parts(x_proj, w_hh, hs, cs, torch.ones((t, 2, b, h)), buffers,
+                    k.ALL)
+    assert seen == [True]

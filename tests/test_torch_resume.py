@@ -115,7 +115,8 @@ def _best(root, name):
 def test_resumed_run_equals_uninterrupted_run(runs):
     root, whole, first, resumed, _ = runs
     (s_whole, a_whole, _, _), (s_res, a_res, _, lines) = whole, resumed
-    assert f"resumed from epoch {KILL} (lr 0.00150)" in lines
+    assert (f"resumed from epoch {KILL} (lr 0.00150) of the port's "
+            "latest.pt") in lines
     # the schedule halves and restores at epochs 2, 4 and 6; only epoch 1
     # takes a restore point, and `best` is epoch 2's state
     restore, snap = PlateauAction.DECAY_AND_RESTORE, PlateauAction.SNAPSHOT_LOSS
@@ -172,7 +173,7 @@ def test_latest_without_snapshots_still_resumes(tmp_path):
     _fit(cfg, 2)
     (tmp_path / "ckpt" / "old" / "latest.snap.pt").unlink()
     summary, actions, _, lines = _fit(cfg, 3, resume=True)
-    assert "resumed from epoch 2 (lr 0.00150)" in lines
+    assert "resumed from epoch 2 (lr 0.00150) of the port's latest.pt" in lines
     assert sum("has no plateau snapshots" in line for line in lines) == 1
     assert summary["epochs"] == 3 and len(summary["loss_results"]) == 3
     assert list(actions) == [3]
