@@ -240,6 +240,25 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             lines: every answer ok and equal to the answers from a port
             `.pt` checkpoint that save_checkpoint wrote from the same state
             dict, lstm_fwd 4 times a forward.
+20b. local-cards  `train` and `evaluate` over every card of the host
+            from one command, as mdd_tpu's one-process mesh
+            (parallel/launch.py starts a rank a card, each as RANK_BOOT).
+            One card: `train` at data_parallel 0 (the flagship recipe at
+            B=64, one epoch, dropout 0) runs in this process with no
+            process group (the launcher refused), lstm_fwd 4 a forward
+            and lstm_bwd 4 a step; data_parallel 2 raises make_mesh's
+            ValueError before any rank.  Two cards or more: that epoch
+            at data_parallel 1 (one process) against 2 and 0 (every
+            card; nccl, rank r on card r, B=64 shared): the ranks' losses
+            alike, train within 1e-4 and dev within DDP_DEV_RTOL of one
+            card's, the step medians and nccl's gradient all-reduce by
+            rank, the launches on every rank; `evaluate` of
+            checkpoints/syn_full/best (phase trained's split) on every
+            card against phase trained's one-card run: one set of dumps,
+            at least 899 of 900 decodes equal, PER within 0.10; each
+            kernel on cuda:1 with cuda:0 current against its plain
+            version, its barrier counters on cuda:1.  Every other phase
+            runs on one card (ONE_CARD; data_parallel 1 in its YAMLs).
 21. benchmark  `python -m mdd_tpu_torch benchmark` in-process at its full
             sizes (mdd_tpu_torch/bench.py, the port of bench.py): the train
             step at B=512 x 160 frames in bfloat16 (5 + 30 steps), the
@@ -263,6 +282,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Exits 2 without a CUDA device, or when run
 outside a checkout of the repo.
+
+    python3 chip_smoke.py --local-cards   # a host of two cards or more
+
+runs phase local-cards alone, after what it holds the cards to (the build,
+the seeded corpus, the trained model's split and its one-card evaluate),
+then `python -m mdd_tpu_torch benchmark` as a user runs it there, over
+every card: rank 0's one JSON line, n_cards the card count, 0 < mfu <= 1
+over their peak.  Its last line is {"local_cards": {...}}.
 """
 
 from __future__ import annotations
@@ -286,6 +313,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "_smoke"
+# every phase but local-cards (and distributed's own ranks) runs on one
+# card: `evaluate` and `benchmark` take every visible card unless their
+# --device names one, `train` the YAML's data_parallel (1 here)
+ONE_CARD = "cuda:0"
 SEED = 0
 H = 384
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # kernel vs plain, hs and cs:
@@ -1618,7 +1649,8 @@ def write_corpus(split: str, n: int, seed: int) -> tuple:
 def write_train_yaml(train, dev, epochs: int,
                      compute_dtype: str = "float32", **overrides) -> str:
     """The flagship recipe (conf/ctc_config.yaml's, in float32 unless
-    said) on the streaming loader, over the seeded corpus; `overrides`
+    said) on the streaming loader, over the seeded corpus, on one card
+    (`data_parallel: 1`, where the recipe says 0, every card); `overrides`
     replace fields (another experiment, corpus or loader)."""
     fields = {
         "exp_name": "smoke_train", "checkpoint_dir": str(WORK / "ckpt"),
@@ -1637,7 +1669,7 @@ def write_train_yaml(train, dev, epochs: int,
         "end_adjust_acc": 2.0, "lr_decay": 0.5, "batch_size": BATCH,
         "weight_decay": 0.0005, "verbose_step": 1, "max_adjust_times": 8,
         "plateau_patience": 10, "augment_mode": 2, "mutation_prob": 0.1,
-        "num_workers": 4}
+        "num_workers": 4, "data_parallel": 1}
     fields.update(overrides)
     path = WORK / f"{fields['exp_name']}{epochs}_{compute_dtype}.yaml"
     path.write_text("".join(f"{k}: {json.dumps(v)}\n"
@@ -2702,7 +2734,7 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
     reports, wall = {}, {}
     for kind, flags in kinds:
         t0 = time.perf_counter()
-        text = run_cli(["evaluate", "--conf", yaml_path, "--device", "cuda",
+        text = run_cli(["evaluate", "--conf", yaml_path, "--device", ONE_CARD,
                         "--dump-dir", str(dumps[kind])] + flags)
         wall[kind] = time.perf_counter() - t0
         reports[kind] = parse_report(text)
@@ -3089,7 +3121,7 @@ def phase_evaluate_cached(torch, cached: dict, card: str) -> int:
             dump = WORK / f"dump_cached_b{b}_{len(flags)}"
             lstm_fwd_kernel.launches = 0
             t0 = time.perf_counter()
-            text = run_cli(["evaluate", "--conf", conf, "--device", "cuda",
+            text = run_cli(["evaluate", "--conf", conf, "--device", ONE_CARD,
                             "--dump-dir", str(dump)] + flags)
             wall = time.perf_counter() - t0
             if flags:
@@ -3199,8 +3231,9 @@ DDP_DEV_RTOL = 3e-4    # the dev loss after the epoch's 8 Adam steps: the
 # Each rank is `python -c RANK_BOOT <result> <cli args>`: the port's CLI
 # entry point, with the launch counters set to 0 just before it, each
 # train step and gradient all-reduce timed to a synchronize, every
-# accumulator read (the logged losses at full precision) and the
-# evaluation's wall time recorded, and `use_fused_dropout` passed to
+# accumulator read (the logged losses at full precision), the evaluation
+# forwards and wall time and the rank's group (backend, size, card)
+# recorded, and `use_fused_dropout` passed to
 # cli.build_trainer where SMOKE_FUSED is set (no YAML key sets it, in
 # mdd_tpu either).
 RANK_BOOT = r"""
@@ -3213,14 +3246,22 @@ from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
 from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
 from mdd_tpu_torch.train.loop import Trainer
 
-rec = {"steps": [], "reduces": [], "fetches": [], "eval_steps": 0}
+rec = {"steps": [], "reduces": [], "fetches": [], "eval_steps": 0,
+       "forwards": 0}
 if os.environ.get("SMOKE_FUSED"):
     build = cli.build_trainer
     cli.build_trainer = lambda *a, **k: build(*a, use_fused_dropout=True,
                                               **k)
 
+def group():
+    import torch.distributed as dist
+    rec["backend"] = dist.get_backend() if dist.is_initialized() else "none"
+    rec["world"] = dist.get_world_size() if dist.is_initialized() else 1
+    rec["card"] = torch.cuda.current_device()
+
 def timed(fn, key):
     def wrapped(self, *a, **k):
+        group()
         rec["grad_bytes"] = 4 * sum(p.numel()
                                     for p in self.model.parameters())
         torch.cuda.synchronize()
@@ -3246,7 +3287,12 @@ def eval_rec(self, *a):
     rec["eval_steps"] += 1
     return eval_step(self, *a)
 
+def forward_rec(self, *a):
+    rec["forwards"] += 1
+    return forward(self, *a)
+
 def run_eval_rec(*a, **k):
+    group()
     t0 = time.perf_counter()
     rep = run_eval(*a, **k)
     torch.cuda.synchronize()
@@ -3255,6 +3301,8 @@ def run_eval_rec(*a, **k):
 
 Trainer._fetch, Trainer.eval_step = fetch_rec, eval_rec
 evaluate.evaluate_model = run_eval_rec
+forward = evaluate.EvalSession._forward
+evaluate.EvalSession._forward = forward_rec
 kernels = {"lstm_fwd": lstm_fwd_kernel, "lstm_bwd": lstm_bwd_kernel,
            "fused_dropout": fused_dropout_kernel}
 for k in kernels.values():
@@ -3387,7 +3435,8 @@ def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
     for loader, cached in (("streaming", False), ("cached", True)):
         confs = {b: write_train_yaml(
             train, dev, 1, exp_name=f"ddp_{loader}_{b}", batch_size=b,
-            drop_out=0.0, device_cache=cached) for b in (BATCH, half)}
+            drop_out=0.0, device_cache=cached, data_parallel=0)
+            for b in (BATCH, half)}
         one = ddp_train(f"ddp_{loader}_1x{BATCH}", 0, confs[BATCH], one_card)
         two = ddp_train(f"ddp_{loader}_2x{half}", 2, confs[half], one_card)
         for r in one + two:
@@ -3405,7 +3454,7 @@ def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
 
     # (b) the kernels on the path: dropout 0.2 through the fused kernel
     fused_conf = write_train_yaml(train, dev, 1, exp_name="ddp_fused",
-                                  batch_size=half)
+                                  batch_size=half, data_parallel=0)
     fused = ddp_train(f"ddp_fused_2x{half}", 2, fused_conf,
                       {**one_card, "SMOKE_FUSED": "1"})
     for rank, r in enumerate(fused):
@@ -3473,7 +3522,8 @@ def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
         for loader, cached in (("streaming", False), ("cached", True)):
             conf_n = write_train_yaml(
                 train, dev, 1, exp_name=f"ddp_nccl{n}_{loader}",
-                batch_size=BATCH // n, drop_out=0.0, device_cache=cached)
+                batch_size=BATCH // n, drop_out=0.0, device_cache=cached,
+                data_parallel=0)
             recs = ddp_train(f"ddp_nccl{n}_{loader}", n, conf_n, env,
                              backend="nccl")
             for r in recs:
@@ -3536,6 +3586,26 @@ def leaves_sha256(tree) -> str:
     return digest.hexdigest()
 
 
+def write_trained_split() -> Path:
+    """The corpus checkpoints/syn_full/best was trained on, regenerated
+    by the port's tool (easy profile, 5,496 / 897 / 900, 16-40 phones,
+    the 41 units) under WORK/syn_full; -> its YAML
+    (conf/synthetic_full.yaml's)."""
+    from mdd_tpu_torch.tools import synthetic_corpus
+
+    corpus = WORK / "syn_full"
+    t0 = time.perf_counter()
+    synthetic_corpus.cli([str(corpus), "5496", "897", "900",
+                          "--min-phones", "16", "--max-phones", "40",
+                          "--units", str(HARD_UNITS)])
+    log(f"[trained] corpus 5,496 / 897 / 900 (easy profile) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    conf = WORK / "syn_full.yaml"
+    conf.write_text((ROOT / "conf" / "synthetic_full.yaml").read_text()
+                    .replace("data/synthetic_full/", f"{corpus}/"))
+    return conf
+
+
 def phase_trained(torch, files, card: str) -> dict:
     """mdd_tpu's trained checkpoint through the port's entry points, read
     straight from its orbax files; -> the lstm_fwd launches by path."""
@@ -3543,7 +3613,6 @@ def phase_trained(torch, files, card: str) -> dict:
     from mdd_tpu_torch.evals.evaluate import EvalSession
     from mdd_tpu_torch.evals.wer import read_trn
     from mdd_tpu_torch.ops.lstm_cuda import lstm_fwd_kernel
-    from mdd_tpu_torch.tools import synthetic_corpus
     from mdd_tpu_torch.train.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
     from mdd_tpu_torch.train.orbax_format import read_orbax_checkpoint
@@ -3568,16 +3637,7 @@ def phase_trained(torch, files, card: str) -> dict:
                              "differs from orbax's")
 
     # (b) evaluate on the regenerated test split, against mdd_tpu's decode
-    corpus = WORK / "syn_full"
-    t0 = time.perf_counter()
-    synthetic_corpus.cli([str(corpus), "5496", "897", "900",
-                          "--min-phones", "16", "--max-phones", "40",
-                          "--units", str(HARD_UNITS)])
-    log(f"[trained] corpus 5,496 / 897 / 900 (easy profile) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    conf = WORK / "syn_full.yaml"
-    conf.write_text((ROOT / "conf" / "synthetic_full.yaml").read_text()
-                    .replace("data/synthetic_full/", f"{corpus}/"))
+    conf = write_trained_split()
     golden = parse_report((GOLDEN / "eval.log").read_text())
     want = read_trn(str(GOLDEN / "decode_seq.log"))
     forward = EvalSession._forward
@@ -3597,10 +3657,11 @@ def phase_trained(torch, files, card: str) -> dict:
             lstm_fwd_kernel.launches = 0
             t0 = time.perf_counter()
             text = run_cli(["evaluate", "--conf", str(conf), "--checkpoint",
-                            str(SYN_FULL / "best"), "--device", "cuda",
+                            str(SYN_FULL / "best"), "--device", ONE_CARD,
                             "--dump-dir", str(dump)] + flags)
             wall = time.perf_counter() - t0
             launches[kind] = lstm_fwd_kernel.launches
+            (WORK / f"trained_{kind}.log").write_text(text)
             got = parse_report(text)
             decode_min = float(re.search(
                 r"time used for decode \d+ sentences: (\S+) minutes",
@@ -3632,7 +3693,7 @@ def phase_trained(torch, files, card: str) -> dict:
                     f"{got['per']} vs {golden['per']}")
     finally:
         EvalSession._forward = forward
-    shutil.rmtree(corpus, ignore_errors=True)
+    # the corpus stays for phase local-cards
 
     # (c) serve from the orbax directory and from a .pt of the same weights
     pt_dir = WORK / "trained_pt"
@@ -3692,8 +3753,253 @@ def _leaves(tree):
         yield tree
 
 
+LOCAL_TIMEOUT_S = 600   # one command over the local cards, set-up included
+
+
+def local_run(tag: str, args: list) -> tuple:
+    """`python -m mdd_tpu_torch <args>` through cli.main in this process,
+    so that the port's launcher starts the ranks, each as RANK_BOOT; ->
+    (rank 0's output, the ranks' records).  A command that outlives
+    LOCAL_TIMEOUT_S is stopped as Ctrl-C stops it (SIGINT to this
+    process, which the launcher passes to its ranks) and fails the
+    phase."""
+    import signal
+
+    from mdd_tpu_torch.parallel import launch
+
+    for old in WORK.glob(f"{tag}_*.json"):
+        old.unlink()
+    os.environ["SMOKE_ROOT"] = str(ROOT)
+    entry = launch.RANK_ENTRY
+    launch.RANK_ENTRY = (sys.executable, "-c", RANK_BOOT,
+                         str(WORK / f"{tag}_RANK.json"))
+    watchdog = threading.Timer(LOCAL_TIMEOUT_S, os.kill,
+                               (os.getpid(), signal.SIGINT))
+    watchdog.start()
+    try:
+        text = run_cli(args)
+    finally:
+        watchdog.cancel()
+        launch.RANK_ENTRY = entry
+    recs = []
+    while (WORK / f"{tag}_{len(recs)}.json").exists():
+        recs.append(json.loads((WORK / f"{tag}_{len(recs)}.json")
+                               .read_text()))
+    return text, recs
+
+
+def check_local_ranks(tag: str, recs: list, n: int) -> None:
+    """n ranks, one a card (rank r on card r), joined by nccl."""
+    got = [(r.get("world"), r.get("backend"), r.get("card")) for r in recs]
+    if got != [(n, "nccl", r) for r in range(n)]:
+        raise AssertionError(f"[local-cards] {tag}: ranks (size, backend, "
+                             f"card) {got}, not {n} ranks on cards "
+                             f"0-{n - 1} under nccl")
+
+
+def phase_local_cards(torch, train: tuple, dev: tuple, card: str) -> dict:
+    """`train` and `evaluate` over every local card from one command, as
+    mdd_tpu's one-process mesh; -> the lstm_fwd / lstm_bwd /
+    fused_dropout launches of the path (every rank's)."""
+    import torch.distributed as dist
+
+    from mdd_tpu_torch.evals.wer import read_trn
+    from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.parallel import launch, mesh
+    from mdd_tpu_torch.train.loop import Trainer
+
+    started = time.perf_counter()
+    cards = torch.cuda.device_count()
+    kernels = {"lstm_fwd": lstm_fwd_kernel, "lstm_bwd": lstm_bwd_kernel,
+               "fused_dropout": fused_dropout_kernel}
+    launches = dict.fromkeys(kernels, 0)
+    steps = -(-TRAIN_UTTS // BATCH)
+    forwards = steps + -(-DEV_UTTS // BATCH)
+    if cards < 2:
+        # (a) data_parallel 0 on one card: today's one process, no group
+        conf = write_train_yaml(train, dev, 1, exp_name="local_0",
+                                drop_out=0.0, data_parallel=0)
+        seen = []
+        step, spawn = Trainer.train_step, launch.launch_local
+
+        def watched(self, *args):
+            seen.append((dist.is_initialized(), mesh.process_count()))
+            return step(self, *args)
+
+        def refused(*args, **kw):
+            raise AssertionError("[local-cards] the launcher started ranks "
+                                 "on a one-card host")
+        Trainer.train_step, launch.launch_local = watched, refused
+        try:
+            for k in kernels.values():
+                k.launches = 0
+            run_cli(["train", "--conf", conf, "--device", "cuda"])
+            got = {n: k.launches for n, k in kernels.items()}
+            # (b) two cards asked of one: make_mesh's error, no rank
+            wide = write_train_yaml(train, dev, 1, exp_name="local_2",
+                                    data_parallel=2)
+            try:
+                run_cli(["train", "--conf", wide, "--device", "cuda"])
+            except ValueError as e:
+                refusal = str(e)
+            else:
+                raise AssertionError("[local-cards] data_parallel: 2 ran on "
+                                     "a one-card host")
+        finally:
+            Trainer.train_step, launch.launch_local = step, spawn
+        if seen != [(False, 1)] * steps or got != {
+                "lstm_fwd": 4 * forwards, "lstm_bwd": 4 * steps,
+                "fused_dropout": 0}:
+            raise AssertionError(
+                f"[local-cards] data_parallel 0 on one card: steps ran "
+                f"(group, processes) {seen}, launches {got}")
+        if refusal != "requested 2 devices, have 1":
+            raise AssertionError(f"[local-cards] data_parallel: 2 raised "
+                                 f"{refusal!r}, not make_mesh's error")
+        for k in launches:
+            launches[k] += got[k]
+        log(f"[local-cards] one card: data_parallel 0 trained {steps} steps "
+            f"in this process without a process group (launches {got}); "
+            f"data_parallel 2 raised ValueError({refusal!r}) before any "
+            f"rank; the runs over 2+ cards and the kernels on cuda:1: not "
+            f"run, this machine has {cards} card ({card}); phase in "
+            f"{time.perf_counter() - started:.1f} s")
+        shutil.rmtree(WORK / "syn_full", ignore_errors=True)
+        return launches
+
+    # (a) train: data_parallel 1 (one process) against 2 and every card
+    med = lambda xs: statistics.median(xs) * 1e3
+    one = ddp_train("local_1", 0, write_train_yaml(
+        train, dev, 1, exp_name="local_1", drop_out=0.0))
+    check_ddp_launches("local 1", one[0], fused=False)
+    widths = [2] + ([0] if cards > 2 else [])
+    for dp in widths:
+        n = dp or cards
+        tag = f"local_{n}"
+        conf = write_train_yaml(train, dev, 1, exp_name=tag, drop_out=0.0,
+                                data_parallel=dp)
+        text, recs = local_run(tag, ["train", "--conf", conf, "--device",
+                                     "cuda"])
+        check_local_ranks(tag, recs, n)
+        for r in recs:
+            check_ddp_launches(tag, r, fused=False)
+            for k in launches:
+                launches[k] += r["launches"][k]
+        if any(r["fetches"] != recs[0]["fetches"] for r in recs[1:]):
+            raise AssertionError(f"[local-cards] {tag}: the ranks logged "
+                                 "other losses")
+        if "distributed: process 0/" not in text:
+            raise AssertionError(f"[local-cards] {tag}: rank 0's output "
+                                 "did not reach the command's")
+        train_rel, dev_rel = compare_ddp(tag, recs, one)
+        log(f"[local-cards] train data_parallel {dp} = {n} cards (nccl) vs "
+            f"one card, B={BATCH} global ({-(-BATCH // n)} a card), 1 "
+            f"epoch at dropout 0: train losses within {train_rel:.2e} (tol "
+            f"{DDP_TRAIN_RTOL}), dev rel {dev_rel:.2e} (tol {DDP_DEV_RTOL}); "
+            f"step median {[round(med(r['steps']), 2) for r in recs]} ms by "
+            f"rank vs {med(one[0]['steps']):.2f} ms on one card; gradient "
+            f"all-reduce (nccl, {recs[0]['grad_bytes'] / 1e6:.1f} MB) "
+            f"{[round(med(r['reduces']), 3) for r in recs]} ms; launches "
+            f"by rank {[r['launches'] for r in recs]} ({card})")
+
+    # (b) evaluate the trained model on every card against one card
+    conf = WORK / "syn_full.yaml"
+    dump = WORK / "local_evaluate"
+    text, recs = local_run("local_eval", [
+        "evaluate", "--conf", str(conf), "--checkpoint",
+        str(SYN_FULL / "best"), "--device", "cuda", "--dump-dir",
+        str(dump)])
+    check_local_ranks("evaluate", recs, cards)
+    for r in recs:
+        if (r["launches"]["lstm_fwd"] != 4 * r["forwards"]
+                or r["launches"]["lstm_bwd"] or not r["forwards"]):
+            raise AssertionError(f"[local-cards] evaluate: launches "
+                                 f"{r['launches']} for {r['forwards']} "
+                                 "forwards on a rank")
+        for k in launches:
+            launches[k] += r["launches"][k]
+    files = sorted(p.name for p in dump.iterdir())
+    mine = read_trn(str(dump / "decode_seq.log"))
+    want = read_trn(str(WORK / "trained_evaluate" / "decode_seq.log"))
+    same = sum(mine.get(u) == v for u, v in want.items())
+    got = parse_report(text)
+    one_rep = parse_report((WORK / "trained_evaluate.log").read_text())
+    ups = 900 / max(r["eval_s"] for r in recs)
+    log(f"[local-cards] evaluate {SYN_FULL / 'best'} on {cards} cards: "
+        f"{same} / {len(want)} decodes equal to one card's, PER "
+        f"{got['per']:.4f} vs {one_rep['per']:.4f}, {got['utts']} "
+        f"utterances; dumps {files}; {ups:.1f} utts/s; forwards by rank "
+        f"{[r['forwards'] for r in recs]} ({card})")
+    if (files != ["decode_seq.log", "human_seq.log", "transcribe.log"]
+            or got["utts"] != 900 or len(mine) != 900
+            or same < len(want) - 1
+            or abs(got["per"] - one_rep["per"]) > TRAINED_PER_GAP):
+        raise AssertionError("[local-cards] evaluate on every card is not "
+                             "one card's")
+    shutil.rmtree(WORK / "syn_full", ignore_errors=True)
+
+    # (c) the kernels on cuda:1, with cuda:0 current
+    local_cards_kernels(torch, card)
+    log(f"[local-cards] phase in {time.perf_counter() - started:.1f} s")
+    return launches
+
+
+def local_cards_kernels(torch, card: str) -> None:
+    """Each kernel on a tensor of cuda:1 while cuda:0 is current (a rank's
+    tensors on another card than the default): against its plain version
+    on that card, its barrier counters allocated there."""
+    from mdd_tpu_torch.ops import dropout_cuda, lstm_cuda
+
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    made = []
+    counters = lstm_cuda._barrier_counters
+
+    def recorded(b, device):
+        made.append(counters(b, device))
+        return made[-1]
+
+    g = torch.Generator().manual_seed(SEED)
+    t, b = 80, BATCH
+    x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5).to(dev)
+    w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
+            / H ** 0.5).to(dev)
+    dhs = torch.randn((t, 2, b, H), generator=g).to(dev)
+    lstm_cuda._barrier_counters = recorded
+    try:
+        hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+        dxp, dw = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+    finally:
+        lstm_cuda._barrier_counters = counters
+    ref_hs, ref_cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
+    ref_dxp, ref_dw = lstm_cuda.lstm_seq_bwd_reference(x_proj, w_hh, hs, cs,
+                                                       dhs)
+    x = torch.randn((t, b, 2 * H), generator=g).to(dev)
+    seed = torch.tensor([SEED + 1], device=dev)
+    drop = dropout_cuda.fused_dropout_apply(x, seed, 0.2)
+    torch.cuda.synchronize(dev)
+    fwd_err = max((hs - ref_hs).abs().max().item(),
+                  (cs - ref_cs).abs().max().item())
+    bwd_rel = max(rel_err(dxp, ref_dxp), rel_err(dw, ref_dw))
+    drop_same = torch.equal(drop, dropout_cuda.fused_dropout_reference(
+        x, seed, 0.2))
+    where = sorted({str(c.device) for c in made})
+    log(f"[local-cards] kernels on cuda:1 (cuda:0 current), T'={t} B={b} "
+        f"H={H} float32: lstm_fwd max abs err {fwd_err:.2e} (tol "
+        f"{TOL['float32']}), lstm_bwd rel err {bwd_rel:.2e} (tol "
+        f"{BWD_TOL['float32']}), fused_dropout bit for bit "
+        f"{drop_same}; barrier counters on {where} ({card})")
+    if (fwd_err > TOL["float32"] or bwd_rel > BWD_TOL["float32"]
+            or not drop_same or where != ["cuda:1"] or len(made) != 2
+            or torch.cuda.current_device() != 0):
+        raise AssertionError("[local-cards] a kernel on cuda:1 differs from "
+                             "its plain version or its counters are not on "
+                             "its card")
+
+
 BENCH_PORT_KEYS = {"card", "peak_flops", "decode_lm", "eval_lm",
-                   "eval_n_utts"}   # the port's additions to bench.py's line
+                   "eval_n_utts", "n_cards"}   # the port's additions
 
 
 def bench_py_line_fields() -> tuple:
@@ -3742,7 +4048,7 @@ def phase_benchmark(torch, card: str) -> dict:
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            rc = cli.main(["benchmark"])
+            rc = cli.main(["benchmark", "--device", ONE_CARD])
         torch.cuda.synchronize()
     finally:
         Trainer.train_step, EvalSession._forward = step, forward
@@ -3829,6 +4135,69 @@ def profile_bench_step(torch, cfg, card: str) -> None:
                    f"frames, {cfg.compute_dtype}", card)
 
 
+def local_cards_benchmark(cards: int, card: str) -> dict:
+    """`python -m mdd_tpu_torch benchmark` as a user runs it on this host
+    (a rank on every card): rank 0's one JSON line, with bench.py's
+    metric, unit and keys, n_cards the card count, 0 < mfu <= 1 over the
+    cards' peak; -> its `extra`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mdd_tpu_torch", "benchmark"], cwd=ROOT,
+        capture_output=True, text=True, timeout=LOCAL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    (WORK / "local_benchmark.err").write_text(proc.stderr)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"[local-cards] benchmark exited "
+                             f"{proc.returncode} with {len(lines)} stdout "
+                             f"lines:\n{proc.stderr[-3000:]}")
+    got = json.loads(lines[0])
+    metric, unit, keys = bench_py_line_fields()
+    extra = got["extra"]
+    log(f"[local-cards] benchmark on {cards} cards in {wall:.1f} s: "
+        f"{lines[0]}")
+    if (got["metric"] != metric or got["unit"] != unit
+            or (keys | BENCH_PORT_KEYS) - set(extra)
+            or extra["n_cards"] != cards or not got["value"] > 0
+            or extra["mfu"] is None or not 0 < extra["mfu"] <= 1
+            or extra["eval_n_utts"] != 900):
+        raise AssertionError(f"[local-cards] benchmark on {cards} cards: "
+                             f"{lines[0]}")
+    return extra
+
+
+def local_cards_main(torch, card: str) -> int:
+    """`python3 chip_smoke.py --local-cards` on a host of two cards or
+    more: phase local-cards alone, with what it holds the cards to (the
+    trained model's evaluate on one card; the one-card epoch runs inside
+    the phase), then `python -m mdd_tpu_torch benchmark` over every card.
+    Exits 2 on a host of one card."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"chip_smoke --local-cards: {cards} card(s); it needs two",
+              file=sys.stderr)
+        return 2
+    started = time.perf_counter()
+    phase_build()
+    WORK.mkdir(parents=True, exist_ok=True)
+    (WORK / "units").write_text("\n".join(UNITS) + "\n")
+    train = write_corpus("train", TRAIN_UTTS, SEED + 2)
+    dev = write_corpus("dev", DEV_UTTS, SEED + 3)
+    conf = write_trained_split()
+    text = run_cli(["evaluate", "--conf", str(conf), "--checkpoint",
+                    str(SYN_FULL / "best"), "--device", ONE_CARD,
+                    "--dump-dir", str(WORK / "trained_evaluate")])
+    (WORK / "trained_evaluate.log").write_text(text)
+    local = phase_local_cards(torch, train, dev, card)
+    extra = local_cards_benchmark(cards, card)
+    shutil.rmtree(WORK, ignore_errors=True)
+    log(f"[time] --local-cards in {time.perf_counter() - started:.1f} s")
+    print(card)
+    print(json.dumps({"local_cards": {"cards": cards, "launches": local,
+                                      "benchmark": extra}}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3857,6 +4226,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     card = smi
+    if sys.argv[1:] == ["--local-cards"]:
+        return local_cards_main(torch, card)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     started = time.perf_counter()
 
     phase_build()
@@ -3870,9 +4245,10 @@ def main() -> int:
     lexicon = phase_lexicon(torch, files, card)
     product = phase_product(torch, files, card)
     phase_profile(torch, engine, files, card)
-    trained = phase_trained(torch, files, card)
     train = write_corpus("train", TRAIN_UTTS, SEED + 2)
     dev = write_corpus("dev", DEV_UTTS, SEED + 3)
+    trained = phase_trained(torch, files, card)
+    local = phase_local_cards(torch, train, dev, card)
     phase_model_grad(torch, cfg, state, dev)
     train_fwd, train_bwd, conf, first_loss = phase_train(torch, train, dev)
     phase_train_strict(train, dev, first_loss, card)
@@ -3906,7 +4282,8 @@ def main() -> int:
                      + cached["lstm_fwd"] + eval_fwd + eval_cached_fwd
                      + ddp["train-ddp"]["lstm_fwd"]
                      + ddp["evaluate-ddp"]["lstm_fwd"]
-                     + sum(trained.values()) + benchmark["lstm_fwd"]),
+                     + sum(trained.values()) + local["lstm_fwd"]
+                     + benchmark["lstm_fwd"]),
         "launches_by_path": {"visualize": vis["lstm_fwd"],
                              "serve": launches, **lexicon, **product,
                              **{f"trained-{k}": v
@@ -3921,6 +4298,7 @@ def main() -> int:
                              "evaluate-cached": eval_cached_fwd,
                              "train-ddp": ddp["train-ddp"]["lstm_fwd"],
                              "evaluate-ddp": ddp["evaluate-ddp"]["lstm_fwd"],
+                             "local-cards": local["lstm_fwd"],
                              "benchmark": benchmark["lstm_fwd"]},
         "max_abs_err": max(worst["float32"],
                            *(timing[b]["timing_err"] for b in timing)),
@@ -3937,7 +4315,7 @@ def main() -> int:
                      + fused["lstm_bwd"] + bf16["lstm_bwd"]
                      + cached["lstm_bwd"] + ddp["train-ddp"]["lstm_bwd"]
                      + ddp["evaluate-ddp"]["lstm_bwd"]
-                     + benchmark["lstm_bwd"]),
+                     + local["lstm_bwd"] + benchmark["lstm_bwd"]),
         "launches_by_path": {"visualize": vis["lstm_bwd"],
                              "train": train_bwd,
                              "resume-plateau": plateau["lstm_bwd"],
@@ -3947,6 +4325,7 @@ def main() -> int:
                              "train-cached": cached["lstm_bwd"],
                              "train-ddp": ddp["train-ddp"]["lstm_bwd"],
                              "evaluate-ddp": ddp["evaluate-ddp"]["lstm_bwd"],
+                             "local-cards": local["lstm_bwd"],
                              "benchmark": benchmark["lstm_bwd"]},
         "max_abs_err": worst_bwd["float32_abs"],
         "shape": f"T'=80 B={BATCH} H={H} float32",
@@ -3960,13 +4339,15 @@ def main() -> int:
         "launches": (vis["fused_dropout"] + fused["fused_dropout"]
                      + bf16["fused_dropout"]
                      + ddp["train-ddp"]["fused_dropout"]
-                     + ddp["evaluate-ddp"]["fused_dropout"]),
+                     + ddp["evaluate-ddp"]["fused_dropout"]
+                     + local["fused_dropout"]),
         "launches_by_path": {"visualize": vis["fused_dropout"],
                              "train-fused": fused["fused_dropout"],
                              "train-bf16": bf16["fused_dropout"],
                              "train-ddp": ddp["train-ddp"]["fused_dropout"],
                              "evaluate-ddp":
-                                 ddp["evaluate-ddp"]["fused_dropout"]},
+                                 ddp["evaluate-ddp"]["fused_dropout"],
+                             "local-cards": local["fused_dropout"]},
         "max_abs_err": dropout_err,
         "shape": "conv0 site 64x32x220x122 float32",
         **dropout_timing["conv0"]["float32"],

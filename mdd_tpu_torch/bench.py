@@ -1,6 +1,7 @@
 """Benchmark of the port (counterpart of the repo-root bench.py, which
 `mdd_tpu benchmark` runs): training and decode throughput of the flagship
-model, the feature front end, evaluation and whole epochs, on one card.
+model, the feature front end, evaluation and whole epochs, on every card
+of the host as bench.py runs on its local mesh.
 
     python -m mdd_tpu_torch benchmark [--device cuda|cpu]
 
@@ -35,8 +36,15 @@ Where it differs from mdd_tpu's bench.py, on purpose:
     (`"random_init"`); the port reads the orbax files itself and raises
     on a read error, where bench.py falls back to random weights in a
     bare `except`;
-  * one process on one card: `n_chips` is 1, and a run under torchrun
-    with WORLD_SIZE > 1 raises SystemExit.
+  * a rank a card: `benchmark` starts a rank on every visible card
+    (parallel/launch.py) where bench.py spreads one process over its
+    mesh, and rank 0 prints the line, with `n_cards`.  The train, eval
+    and epoch sections spread over the cards as bench.py's do (each
+    global batch shared by the ranks); train and epoch rates are divided
+    by the card count and `mfu` by the count times a card's peak, where
+    bench.py divides by its chip count; decode and the front end run on
+    rank 0's card alone, as bench.py's run on one device.  A run under
+    torchrun with WORLD_SIZE > 1 raises SystemExit.
 The LM is read only from the reference recipe's data directory, as
 mdd_tpu reads it only from its mount.
 """
@@ -55,6 +63,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from mdd_tpu_torch.parallel import mesh
 
 BASELINE_AUDIO_SEC_PER_S = 317.0
 SECONDS_PER_INPUT_FRAME = 0.02  # 10 ms hop x frame-skip 2
@@ -213,6 +223,27 @@ def flagship_config(device: str):
                        use_pallas_lstm=torch.device(device).type == "cuda")
 
 
+def n_cards() -> int:
+    """The cards a section spreads over: the ranks of the local mesh
+    (parallel/launch.py), else this process's one."""
+    return mesh.process_count() if mesh.local_mesh() else 1
+
+
+def rank_rows(batch):
+    """-> (this rank's rows of `batch` on the local mesh, their valid
+    mask): ceil(B / N) rows a rank, the slots past the batch repeating
+    its last row, masked; the batch itself in one process."""
+    from mdd_tpu_torch.data.dataset import Batch
+
+    share = -(-batch.size // n_cards())
+    slots = np.arange(share) + mesh.process_index() * share
+    idx = np.minimum(slots, batch.size - 1)
+    return Batch(batch.inputs[idx], batch.input_fracs[idx],
+                 batch.targets[idx], batch.target_sizes[idx],
+                 batch.trans[idx], batch.trans_sizes[idx],
+                 [batch.utt_ids[i] for i in idx]), slots < batch.size
+
+
 def _sync(device: str) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -240,14 +271,16 @@ def train_batch(cfg, batch: int, frames: int, label_len: int):
 def bench_train(cfg, extra: dict, device: str, batch: int = BATCH,
                 frames: int = FRAMES, label_len: int = LABEL_LEN,
                 warmup: int = WARMUP_STEPS, steps: int = BENCH_STEPS) -> float:
-    """Trainer steps on one seeded batch (`train_batch`): `warmup`
-    steps, a synchronize, then `steps` timed up to a synchronize after
-    the last; -> audio-seconds per second.  Writes ms_per_step,
-    tflop_per_step, peak_flops, mfu and train_batch."""
+    """Trainer steps on one seeded batch (`train_batch`), shared by the
+    cards: `warmup` steps, a synchronize, then `steps` timed up to a
+    synchronize after the last; -> audio-seconds per second and card.
+    Writes ms_per_step, tflop_per_step, peak_flops, mfu (over the cards'
+    peak) and train_batch."""
     from mdd_tpu_torch.train.loop import Trainer
 
     trainer = Trainer(cfg, device=device, device_frontend=False)
-    arrays = trainer.batch_arrays(train_batch(cfg, batch, frames, label_len))
+    arrays = trainer.batch_arrays(*rank_rows(
+        train_batch(cfg, batch, frames, label_len)))
     acc = torch.zeros(4, dtype=torch.float32, device=trainer.device)
     for _ in range(warmup):
         acc = trainer.train_step(arrays, acc)
@@ -257,19 +290,23 @@ def bench_train(cfg, extra: dict, device: str, batch: int = BATCH,
         acc = trainer.train_step(arrays, acc)
     _sync(device)
     elapsed = time.perf_counter() - t0
-    loss_sum = float(acc[0])
+    # the ranks' shares of the loss (a share of padding adds 0)
+    loss_sum = float(mesh.all_reduce_metrics(np.asarray([float(acc[0])]))[0])
     if not loss_sum > 0.0:
         raise RuntimeError(f"train steps summed a loss of {loss_sum}")
 
     flops = train_step_flops(cfg, batch, frames, label_len)
     peak = peak_flops(card_name(device), cfg.compute_dtype)
-    mfu = model_flops_utilization(flops, elapsed / steps, peak)
+    cards = n_cards()
+    mfu = model_flops_utilization(flops, elapsed / steps,
+                                  None if peak is None else peak * cards)
     extra["ms_per_step"] = round(elapsed / steps * 1e3, 2)
     extra["tflop_per_step"] = round(flops / 1e12, 3)
     extra["peak_flops"] = peak
     extra["mfu"] = None if mfu is None else round(mfu, 4)
     extra["train_batch"] = batch
-    return steps * batch * frames * SECONDS_PER_INPUT_FRAME / elapsed
+    return (steps * batch * frames * SECONDS_PER_INPUT_FRAME / elapsed
+            / cards)
 
 
 def bench_decode(extra: dict, device: str, batch: int = DECODE_BATCH,
@@ -436,7 +473,9 @@ def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
     thread, with the weights of `trained_eval_state`.  First through the
     streaming loader (raw bfloat16 wire, prefetch), then with the split
     resident on the device (attach_cache + CachedLoader); one warm pass
-    and `passes` timed each."""
+    and `passes` timed each.  On the local mesh the cards share every
+    batch (the split's rows sharded over them in the cache); the rates
+    are the whole split's, as bench.py's."""
     from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
     from mdd_tpu_torch.data.device_cache import (CachedLoader,
                                                  DeviceFeatureCache)
@@ -468,7 +507,7 @@ def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
             loader = ThreadedLoader(
                 BucketedLoader(ds, batch_size=batch, shuffle=False,
                                num_workers=workers, time_quantum=64,
-                               wire_dtype="bfloat16"),
+                               wire_dtype="bfloat16", **_ranks()),
                 prefetch=4)
             return evaluate_model(session, loader, log=quiet)
 
@@ -487,9 +526,10 @@ def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
         # repeated evaluation (per-epoch dev decoding): the split resident
         # on the device, a pass moves index vectors and labels only
         cache = DeviceFeatureCache(ds, device, time_quantum=64,
-                                   wire_dtype="bfloat16")
+                                   wire_dtype="bfloat16", **_cache_ranks())
         session.attach_cache(cache)
-        cloader = CachedLoader(cache, batch_size=cached_batch, shuffle=False)
+        cloader = CachedLoader(cache, batch_size=cached_batch, shuffle=False,
+                               **_ranks())
         times = _timed_passes(
             lambda: evaluate_model(session, cloader, log=quiet), passes,
             n_utts)
@@ -498,8 +538,23 @@ def bench_eval(cfg, extra: dict, device: str, n_utts: int = EVAL_UTTS,
         extra["eval_utts_per_s_cached_max"] = round(n_utts / min(times), 1)
 
 
+def _ranks() -> dict:
+    """A loader's rank arguments: this rank's share of every global batch
+    on the local mesh (split_batch), the whole batch in one process."""
+    return dict(process_index=mesh.process_index(),
+                process_count=mesh.process_count(),
+                split_batch=mesh.local_mesh())
+
+
+def _cache_ranks() -> dict:
+    """A DeviceFeatureCache's: its rows sharded over the ranks."""
+    return dict(process_index=mesh.process_index(),
+                process_count=mesh.process_count())
+
+
 def _epoch_rate(trainer, loader, epochs: int, audio_s: float) -> tuple:
-    """One warm epoch, then `epochs` timed; -> (audio-s/s, s an epoch)."""
+    """One warm epoch, then `epochs` timed; -> (audio-s/s and card, s an
+    epoch)."""
     quiet = lambda *_: None
     trainer.run_epoch(loader, epoch=0, train=True, log=quiet)
     t0 = time.perf_counter()
@@ -507,7 +562,7 @@ def _epoch_rate(trainer, loader, epochs: int, audio_s: float) -> tuple:
         trainer.run_epoch(loader, epoch=e, train=True, log=quiet)
     _sync(str(trainer.device))
     elapsed = time.perf_counter() - t0
-    return epochs * audio_s / elapsed, elapsed / epochs
+    return epochs * audio_s / elapsed / n_cards(), elapsed / epochs
 
 
 def bench_epoch(cfg, extra: dict, device: str, n_utts: int = EPOCH_UTTS,
@@ -519,7 +574,9 @@ def bench_epoch(cfg, extra: dict, device: str, n_utts: int = EPOCH_UTTS,
     once; a batch is gathered and masked on the device), then on the
     streaming loader (ark reads, host SpecAugment and mutation, bucketed
     batches, raw bfloat16 wire, splice on the device).  One warm epoch
-    and `epochs` timed on each; writing the corpus is timed apart."""
+    and `epochs` timed on each; writing the corpus is timed apart.  The
+    cards share every batch (the corpus's rows sharded over them); the
+    rates are a card's, as bench.py's."""
     from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
     from mdd_tpu_torch.data.device_cache import (CachedLoader,
                                                  DeviceFeatureCache)
@@ -544,12 +601,14 @@ def bench_epoch(cfg, extra: dict, device: str, n_utts: int = EPOCH_UTTS,
                            str(out / "train_transcript_phn_text"),
                            train=True, device_frontend=True)
         trainer = Trainer(cfg, device=device, device_frontend=True)
-        cache = DeviceFeatureCache(ds, device, wire_dtype="bfloat16")
+        cache = DeviceFeatureCache(ds, device, wire_dtype="bfloat16",
+                                   **_cache_ranks())
         audio_s = float(cache.lengths.sum()) * 0.01
         extra["epoch_model_num_class"] = cfg.num_class
         extra["epoch_audio_s"] = round(audio_s, 1)
 
-        cloader = CachedLoader(cache, batch_size=batch, shuffle=True, seed=0)
+        cloader = CachedLoader(cache, batch_size=batch, shuffle=True, seed=0,
+                               **_ranks())
         rate, secs = _epoch_rate(trainer, cloader, epochs, audio_s)
         extra["epoch_audio_s_per_s_cached"] = round(rate, 1)
         extra["epoch_s_cached"] = round(secs, 3)
@@ -559,40 +618,49 @@ def bench_epoch(cfg, extra: dict, device: str, n_utts: int = EPOCH_UTTS,
 
         loader = ThreadedLoader(
             BucketedLoader(ds, batch_size=batch, shuffle=True, seed=0,
-                           num_workers=workers, wire_dtype="bfloat16"),
+                           num_workers=workers, wire_dtype="bfloat16",
+                           **_ranks()),
             prefetch=4)
         rate, secs = _epoch_rate(trainer, loader, epochs, audio_s)
         extra["epoch_audio_s_per_s_with_pipeline"] = round(rate, 1)
         extra["epoch_s"] = round(secs, 3)
 
 
-def _section(name: str, fn, *args):
-    """fn(*args), its wall time on stderr; -> what fn returns."""
+def _section(name: str, fn, *args, one_card: bool = False):
+    """fn(*args), its wall time on stderr (rank 0's); -> what fn returns.
+    `one_card`: on rank 0 alone, the others waiting for it."""
     t0 = time.perf_counter()
-    got = fn(*args)
-    print(f"[benchmark] {name} in {time.perf_counter() - t0:.1f} s",
-          file=sys.stderr, flush=True)
+    got = None
+    if not one_card or mesh.process_index() == 0:
+        got = fn(*args)
+    if one_card:
+        mesh.barrier()
+    if mesh.process_index() == 0:
+        print(f"[benchmark] {name} in {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
     return got
 
 
 def main(device: str = "cuda") -> dict:
     """Run the five sections in bench.py's order and print its one JSON
-    line; -> the line's object.  Raises SystemExit under torchrun with
-    several processes, and for a CUDA device on a host without one."""
+    line (rank 0); -> the line's object.  Raises SystemExit under
+    torchrun with several processes, and for a CUDA device on a host
+    without one."""
     world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if world > 1:
-        raise SystemExit(f"benchmark measures one process on one card; it "
-                         f"does not run as one of WORLD_SIZE={world} ranks "
-                         "(run it without torchrun)")
+    if world > 1 and not mesh.local_mesh():
+        raise SystemExit(f"benchmark starts a rank on every card of this "
+                         f"host itself; it does not run as one of "
+                         f"WORLD_SIZE={world} ranks (run it without "
+                         "torchrun)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"benchmark --device {device}: this host has no "
                          "CUDA device (pass --device cpu to run on the CPU)")
     cfg = flagship_config(device)
     extra: dict = {"model_num_class": cfg.num_class,
-                   "card": card_line(device)}
+                   "card": card_line(device), "n_cards": n_cards()}
     value = _section("train", bench_train, cfg, extra, device)
-    _section("decode", bench_decode, extra, device)
-    _section("frontend", bench_frontend, extra, device)
+    _section("decode", bench_decode, extra, device, one_card=True)
+    _section("frontend", bench_frontend, extra, device, one_card=True)
     _section("eval", bench_eval, cfg, extra, device)
     _section("epoch", bench_epoch, cfg, extra, device)
     line = {
@@ -602,5 +670,6 @@ def main(device: str = "cuda") -> dict:
         "vs_baseline": round(value / BASELINE_AUDIO_SEC_PER_S, 3),
         "extra": extra,
     }
-    print(json.dumps(line), flush=True)
+    if mesh.process_index() == 0:
+        print(json.dumps(line), flush=True)
     return line

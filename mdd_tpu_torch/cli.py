@@ -49,10 +49,18 @@ weighted by `lm_alpha`), prints PER and the TA/FR/FA/TR report and, with
 `--dump-dir`, writes the decode_seq / human_seq / transcribe files that
 `mdd-result` scores; `--cached` puts the test split on the device first.
 `train-lm` trains that bigram LM from a phone transcript file.
-With `--distributed`, `train` and `evaluate` are one rank of a
-multi-process run (`torchrun --nproc-per-node N -m mdd_tpu_torch train
---conf YAML --distributed`): each rank on its own card where there are
-enough (nccl), else sharing them (gloo), `batch_size` counting each
+`train`, `evaluate` and `benchmark` run on the host's cards as mdd_tpu
+runs on its local mesh: `train` on `data_parallel` of them (0 every
+visible card, N the first N), `evaluate` and `benchmark` on every one;
+with more than one the command starts a rank a card itself (nccl;
+parallel/launch.py), `batch_size` counting the rows of the global batch
+that the ranks share, and prints one card's output (`evaluate` one set
+of dumps).  `--device cuda:K` is card K alone; on the CPU (`--device
+cpu`) `data_parallel: N` starts N ranks (gloo).  `serve` and `infer`
+answer on one card.  With `--distributed`, `train` and `evaluate` are one
+rank of a multi-host run (`torchrun --nproc-per-node N -m mdd_tpu_torch
+train --conf YAML --distributed`): each rank on its own card where there
+are enough (nccl), else sharing them (gloo), `batch_size` counting each
 rank's rows; every rank prints the same losses and reports.
 `infer` diagnoses every N.wav + N.txt prompt pair of a directory and
 prints a report per word and the RTF breakdown; `serve` answers
@@ -63,9 +71,9 @@ lexicon: the CMUdict files of `--dict-dir` (else MDD_DICT_DIR) and the
 ECDICT csv of `--ecdict-csv`, and both denoise every wav with the native
 denoiser unless given `--no-denoise`; where the denoiser does not build
 they fail (mdd_tpu warns and goes on without it).
-`benchmark` measures mdd_tpu's bench.py sections on one card (bench.py):
-the train step's audio-s/s and MFU, the device beam, the front end,
-`evaluate` and whole epochs, and prints one JSON line.
+`benchmark` measures mdd_tpu's bench.py sections (bench.py): the train
+step's audio-s/s and MFU, the device beam, the front end, `evaluate` and
+whole epochs, and prints one JSON line.
 The checkpoint is `best` under `<checkpoint_dir>/<exp_name>/` of the
 config, or under `--checkpoint`: the port's `best.pt` + `best.meta.json`
 (train/checkpoint.py), or mdd_tpu's orbax directory `best/` beside
@@ -169,8 +177,9 @@ def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
     """mdd_tpu's `_build_loader`: the device-resident corpus on `device`
     where the config says `device_cache` (its rows sharded over the
     ranks), else the streaming loader; both yield this rank's rows of
-    each batch.  `global_schedule`: the streaming loader's (None: on with
-    several processes)."""
+    each batch, a share of the global batch on a local mesh.
+    `global_schedule`: the streaming loader's (None: on with several
+    processes; a local mesh's ranks always share its batches)."""
     from mdd_tpu_torch.data.dataset import BucketedLoader, SpeechDataset
     from mdd_tpu_torch.data.prefetch import ThreadedLoader
     from mdd_tpu_torch.parallel import mesh
@@ -182,6 +191,7 @@ def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
         train=train, augment_mode=cfg.augment_mode,
         mutation_prob=cfg.mutation_prob,
         device_frontend=cfg.device_frontend)
+    split = mesh.local_mesh()
     ranks = dict(process_index=mesh.process_index(),
                  process_count=mesh.process_count())
     if cfg.device_frontend and cfg.device_cache:
@@ -196,29 +206,31 @@ def _build_loader(cfg, vocab, scp, lab, trans, train: bool,
         return CachedLoader(cache, cfg.batch_size,
                             shuffle=train and cfg.shuffle_train,
                             seed=cfg.seed, label_quantum=cfg.label_quantum,
-                            **ranks)
+                            split_batch=split, **ranks)
     loader = BucketedLoader(
         ds, cfg.batch_size, shuffle=train and cfg.shuffle_train,
         seed=cfg.seed, num_workers=cfg.num_workers,
         time_quantum=cfg.time_quantum, label_quantum=cfg.label_quantum,
         wire_dtype=(cfg.wire_dtype or None) if cfg.device_frontend else None,
-        global_schedule=global_schedule, **ranks)
+        global_schedule=None if split else global_schedule,
+        split_batch=split, **ranks)
     if cfg.num_workers > 0:
         loader = ThreadedLoader(loader, prefetch=4)
     return loader
 
 
 @contextlib.contextmanager
-def _rank(args):
-    """-> the device of this process; with --distributed, as one rank of
-    the process group (mesh.joined), its line printed."""
+def _rank(args, out=None):
+    """-> the device of this process; with --distributed, or as a rank of
+    the local mesh (parallel/launch.py), as one rank of the process group
+    (mesh.joined), its line printed to `out` (stdout)."""
     from mdd_tpu_torch.parallel import mesh
 
-    if not args.distributed:
+    if not (getattr(args, "distributed", False) or mesh.launched_locally()):
         yield args.device
         return
     with mesh.joined(args.device) as device:
-        print(mesh.describe(device), flush=True)
+        print(mesh.describe(device), file=out or sys.stdout, flush=True)
         yield str(device)
 
 
@@ -244,12 +256,13 @@ def build_trainer(cfg, vocab, device: str, **model_overrides):
 
 def cmd_train(args) -> int:
     from mdd_tpu_torch.data.vocab import Vocab
-    from mdd_tpu_torch.parallel import mesh
-    from mdd_tpu_torch.utils.config import check_train_config, load_config
+    from mdd_tpu_torch.utils.config import (check_distributed_width,
+                                            load_config)
 
+    cfg = load_config(args.conf)
+    if args.distributed and os.environ.get("WORLD_SIZE"):
+        check_distributed_width(cfg, int(os.environ["WORLD_SIZE"]))
     with _rank(args) as device:
-        cfg = load_config(args.conf)
-        check_train_config(cfg, mesh.process_count())
         vocab = Vocab.from_units_file(cfg.vocab_file)
         print(f"Vocabulary size is {vocab.n_words}")
         trainer = build_trainer(cfg, vocab, device)
@@ -339,9 +352,9 @@ def cmd_evaluate(args) -> int:
         raise SystemExit("evaluate --cached requires device_frontend: true "
                          "in the config")
     with _rank(args) as device:
-        if args.cached and mesh.process_count() > 1:
+        if args.cached and args.distributed and mesh.process_count() > 1:
             # mdd_tpu warns and falls back to the streaming loader
-            raise SystemExit("evaluate --cached runs in one process; with "
+            raise SystemExit("evaluate --cached runs on one host; with "
                              "--distributed each rank decodes its share "
                              "through the streaming loader: drop --cached")
         cfg.device_cache = args.cached
@@ -360,8 +373,9 @@ def cmd_evaluate(args) -> int:
             device_frontend=cfg.device_frontend,
             left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
             n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
-        # several ranks: each its own share of the split, decoded alone
-        # (no collective until the report), so no global schedule
+        # --distributed: each rank its own share of the split, decoded
+        # alone (no collective until the report), so no global schedule;
+        # a local mesh's ranks share every batch instead
         loader = _build_loader(cfg, vocab, cfg.test_scp_path,
                                cfg.test_lab_path, cfg.test_trans_path,
                                train=False, device=device,
@@ -465,7 +479,9 @@ def cmd_serve(args) -> int:
 def cmd_benchmark(args) -> int:
     from mdd_tpu_torch import bench
 
-    bench.main(device=args.device)
+    # stdout holds the one JSON line
+    with _rank(args, out=sys.stderr) as device:
+        bench.main(device=device)
     return 0
 
 
@@ -650,8 +666,42 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# the subcommands that run on mdd_tpu's local mesh; `serve` and `infer`
+# answer a request on one card (a batch-1 request gains nothing from
+# being padded to the mesh, as mdd_tpu's EvalSession would pad it)
+LOCAL_MESH_COMMANDS = ("train", "evaluate", "benchmark")
+
+
+def local_width(args) -> int:
+    """The ranks a LOCAL_MESH_COMMANDS command runs as on this host
+    (parallel/launch.local_width): `train` `data_parallel` cards,
+    `evaluate` and `benchmark` every visible card, as mdd_tpu's
+    make_local_mesh; on the CPU `data_parallel` ranks for `train` and
+    `evaluate`, one for `benchmark`, which reads no config."""
+    from mdd_tpu_torch.parallel.launch import local_width as width
+    from mdd_tpu_torch.utils.config import load_config
+
+    if args.command == "benchmark":
+        return width(0, args.device, every_card=True)
+    cfg = load_config(args.conf)
+    return width(cfg.data_parallel, args.device,
+                 every_card=args.command == "evaluate")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    if (args.command in LOCAL_MESH_COMMANDS
+            and not getattr(args, "distributed", False)):
+        from mdd_tpu_torch.parallel import launch, mesh
+
+        if mesh.launched_locally():
+            launch.follow_launcher()          # a rank of the local mesh
+        else:
+            n = local_width(args)
+            if n > 1:
+                return launch.launch_local(
+                    sys.argv[1:] if argv is None else list(argv), n,
+                    args.device)
     return args.fn(args)
 
 

@@ -23,7 +23,12 @@ derives alike from the ark headers (`global_schedule`, the default with
 more than one process, which training needs: every rank then runs the
 same steps at the same shapes).  `Batch.score_mask` marks the rows that
 count: wrap-around duplicates and the global schedule's tail padding do
-not.
+not.  With `split_batch` (the ranks of one host's local mesh,
+parallel/launch.py) `batch_size` counts the global batch's rows, as on
+mdd_tpu's one-process mesh: each global batch of batch_size real rows is
+cut into shares of ceil(batch_size / process_count) slots, the slots past
+the real rows masked, so that the ranks together run the batches that one
+process draws.
 """
 
 from __future__ import annotations
@@ -158,7 +163,10 @@ class BucketedLoader:
     `batch_size` rows a batch: its slice of each global batch of
     `batch_size * process_count` rows (`global_schedule`, the default
     there), or batches of its own shard_for_host_primary share
-    (`global_schedule=False`)."""
+    (`global_schedule=False`).  With `split_batch` a global batch holds
+    `batch_size` rows and a rank's slice ceil(batch_size / process_count)
+    of its slots (the global schedule; `self.batch_size` is then the
+    rank's share, `global_batch` the global batch's real rows)."""
 
     def __init__(
         self,
@@ -173,12 +181,17 @@ class BucketedLoader:
         process_index: int = 0,
         process_count: int = 1,
         global_schedule: Optional[bool] = None,
+        split_batch: bool = False,
     ):
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} is not a rank "
                              f"of {process_count}")
+        if split_batch and global_schedule is False:
+            raise ValueError("split_batch cuts the global schedule's batches "
+                             "into rank shares: it needs global_schedule")
         self.ds = dataset
-        self.batch_size = batch_size
+        self.batch_size, self.global_batch = _shares(
+            batch_size, process_count, split_batch)
         self.shuffle = shuffle
         self.seed = seed
         self.time_quantum = time_quantum
@@ -198,7 +211,8 @@ class BucketedLoader:
         # the global schedule gives every rank the same shapes and batch
         # count by construction; per-rank shards of a bucketed corpus
         # may not, and a training step's collectives would then deadlock
-        self.global_schedule = (process_count > 1 if global_schedule is None
+        self.global_schedule = (process_count > 1 or split_batch
+                                if global_schedule is None
                                 else bool(global_schedule))
         self.shape_coordinated = self.global_schedule or process_count == 1
         if self.global_schedule:
@@ -229,8 +243,7 @@ class BucketedLoader:
         return tlens, llens, l2lens
 
     def __len__(self) -> int:
-        rows = self.batch_size * (self.process_count
-                                  if self.global_schedule else 1)
+        rows = self.global_batch if self.global_schedule else self.batch_size
         return -(-len(self._order) // rows)
 
     def set_epoch(self, epoch: int) -> None:
@@ -283,9 +296,9 @@ class BucketedLoader:
     def _iter_global(self, epoch: int, rng) -> Iterator[Batch]:
         """The global batch schedule, alike on every rank: shuffle the
         corpus, sort each window of 16 global batches by the header
-        lengths, cut global batches of batch_size * process_count rows;
-        each rank loads only its row slice."""
-        g = self.batch_size * self.process_count
+        lengths, cut global batches of `global_batch` rows; each rank
+        loads only its row slice."""
+        g = self.global_batch
         order = np.array(self._order)
         if self.shuffle:
             order = order[rng.permutation(len(order))]
@@ -301,8 +314,9 @@ class BucketedLoader:
 
     def _collate_global(self, chunk, epoch: int) -> Batch:
         """This rank's rows of the global batch `chunk`, padded to the
-        whole chunk's shapes (alike on every rank); a short tail is
-        filled by repeating its last item, score_mask False."""
+        whole chunk's shapes (alike on every rank); the slots past the
+        chunk's items (a short tail; a split batch the ranks do not
+        divide) repeat its last item, score_mask False."""
         g = self.batch_size * self.process_count
         n_real = len(chunk)
         chunk = chunk + [chunk[-1]] * (g - n_real)
@@ -350,6 +364,16 @@ class BucketedLoader:
                 else torch.from_numpy(inputs).to(self.wire_dtype))
         return Batch(wire, fracs, targets, tsizes, trans, trsizes,
                      [it[3] for it in items], score_mask=score)
+
+
+def _shares(batch_size: int, process_count: int,
+            split_batch: bool) -> Tuple[int, int]:
+    """(a rank's rows, a global batch's real rows) of a loader's batch:
+    split, ceil(batch_size / process_count) of batch_size; else
+    batch_size of batch_size * process_count."""
+    if split_batch:
+        return -(-batch_size // process_count), batch_size
+    return batch_size, batch_size * process_count
 
 
 def _repeat_last(a, pad: int):

@@ -19,7 +19,10 @@ streaming loader would have shipped for the same items.
 
 Several processes: the CachedLoader cuts one global batch schedule, alike
 on every rank, and each rank takes its row slice of every global batch
-(`global_idx` keeps the whole batch's rows).  With `shard_rows` each rank
+(`global_idx` keeps the whole batch's slots); with `split_batch` (one
+host's local mesh) a global batch holds `batch_size` items and a rank
+ceil(batch_size / process_count) of its slots, as for the streaming
+loader.  With `shard_rows` each rank
 holds 1/N of every bucket's rows; a batch is then assembled by each rank
 taking the rows it owns for every slot of the global batch, exact zeros
 elsewhere, and one reduction over the ranks that hands each its own
@@ -36,7 +39,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mdd_tpu_torch.data.dataset import (SpeechDataset, _round_up,
+from mdd_tpu_torch.data.dataset import (SpeechDataset, _round_up, _shares,
                                         resolve_wire_dtype)
 from mdd_tpu_torch.frontend import kaldi_io
 from mdd_tpu_torch.frontend.augment import (mutate_transcript,
@@ -176,24 +179,27 @@ class CachedLoader:
     is cut in global batches of batch_size * process_count items, alike on
     every rank, and rank `process_index` gets rows [r * batch_size,
     (r + 1) * batch_size) of each: every rank runs the same steps at the
-    same shapes, and each utterance sits in one slot of one batch."""
+    same shapes, and each utterance sits in one slot of one batch.  With
+    `split_batch` a global batch holds `batch_size` items, padded to
+    process_count shares of ceil(batch_size / process_count) rows
+    (`self.batch_size` is then the share)."""
 
     def __init__(self, cache: DeviceFeatureCache, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
                  label_quantum: int = 16, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, split_batch: bool = False):
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} is not a rank "
                              f"of {process_count}")
         self.cache = cache
         self.ds = cache.ds
-        self.batch_size = batch_size
+        self.batch_size, self._global_chunk = _shares(
+            batch_size, process_count, split_batch)
         self.shuffle = shuffle
         self.seed = seed
         self.label_quantum = label_quantum
         self.process_index = process_index
         self.process_count = process_count
-        self._global_chunk = batch_size * process_count
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -239,7 +245,7 @@ class CachedLoader:
         augmentation: the label widths span the whole batch), then this
         rank's row slice of it."""
         cache, ds = self.cache, self.ds
-        n_real, b = len(chunk), self._global_chunk
+        n_real, b = len(chunk), self.batch_size * self.process_count
         idx = np.zeros(b, np.int32)
         lengths = np.zeros(b, np.int32)
         aug = np.zeros((b, 4), np.int32)

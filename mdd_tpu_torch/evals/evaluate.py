@@ -18,12 +18,16 @@ Several processes: each rank decodes its own share of the test split on
 its own device (the loader's per-rank shards; rows whose score_mask is
 False, the wrap-around duplicates, are decoded but not scored), writes
 its dumps under `rank<r>/`, and `all_reduce_report` sums the integer
-tallies so every rank prints the global report.
+tallies so every rank prints the global report.  On one host's local
+mesh (parallel/launch.py) the ranks share every loader batch instead,
+each decoding its rows, and rank 0 gathers the decoded utterances in the
+loader's order and writes the one set of dumps that one process writes.
 """
 
 from __future__ import annotations
 
 import copy
+import pickle
 import queue
 import threading
 import time
@@ -255,10 +259,10 @@ class EvalSession:
         if not self.device_frontend:
             raise ValueError("cached evaluation decodes raw features; build "
                              "the EvalSession with device_frontend=True")
-        if mesh.process_count() > 1:
-            raise ValueError("cached evaluation runs in one process; "
-                             "several ranks decode through the streaming "
-                             "loader")
+        if mesh.process_count() > 1 and not mesh.local_mesh():
+            raise ValueError("cached evaluation runs on one host; "
+                             "--distributed ranks decode through the "
+                             "streaming loader")
         self.cache = cache
 
     def stage_batch(self, batch):
@@ -390,6 +394,17 @@ class _AsyncScorer:
         return report_from_vector(self.vec)
 
 
+def _gathered(order: List[tuple], triples: List[tuple]):
+    """Every rank's decoded triples on rank 0, sorted by their (batch,
+    rank, row) keys in `order`: the order in which one process decodes
+    them.  None on the other ranks."""
+    parts = mesh.all_gather_bytes(pickle.dumps(list(zip(order, triples))))
+    if mesh.process_index() != 0:
+        return None
+    keyed = [kt for part in parts for kt in pickle.loads(part)]
+    return [t for _, t in sorted(keyed, key=lambda kt: kt[0])]
+
+
 def evaluate_model(
     session: EvalSession,
     loader: Iterable[Batch],
@@ -439,9 +454,13 @@ def evaluate_model(
             return
         yield from ThreadedLoader(staged, prefetch=2)
 
+    # a local mesh's ranks hold rows of the same batches: rank 0 writes
+    # every rank's, in the loader's order (batch, rank, row)
+    gather = dump_dir is not None and mesh.local_mesh()
+    order = []
     batches = staged_iter()
     try:
-        for staged, valid in batches:
+        for b, (staged, valid) in enumerate(batches):
             batch = staged[0]
             decoded, _ = session.decode_staged(staged)
             chunk = []
@@ -453,15 +472,17 @@ def evaluate_model(
                 canonical = vocab.decode(
                     batch.trans[i][: batch.trans_sizes[i]])
                 chunk.append((utt, decoded[i], label, canonical))
+                order.append((b, mesh.process_index(), i))
             if scorer is not None:
                 scorer.submit(chunk)
             # triples feed the dump files (and the serial scoring path);
             # keeping them is a few strings per utterance
             triples.extend(chunk)
 
-        if dump_dir is not None:
+        dumped = _gathered(order, triples) if gather else triples
+        if dump_dir is not None and dumped is not None:
             d = Path(dump_dir)
-            if mesh.process_count() > 1:
+            if mesh.process_count() > 1 and not gather:
                 # each rank holds its share's triples: one directory a
                 # rank (cat rank*/x puts the whole set together)
                 d = d / f"rank{mesh.process_index()}"
@@ -469,7 +490,7 @@ def evaluate_model(
             with open(d / "decode_seq.log", "w") as w1, \
                  open(d / "human_seq.log", "w") as w2, \
                  open(d / "transcribe.log", "w") as w3:
-                for utt, decoded, label, canonical in triples:
+                for utt, decoded, label, canonical in dumped:
                     w1.write(f"{utt} {' '.join(_strip_sil(decoded))}\n")
                     w2.write(f"{utt} {' '.join(_strip_sil(label))}\n")
                     w3.write(f"{utt} {' '.join(_strip_sil(canonical))}\n")

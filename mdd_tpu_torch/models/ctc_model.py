@@ -115,7 +115,9 @@ def batch_stats(x: torch.Tensor, axis: int,
     In a process group of several ranks the rows are those of the global
     batch, as under mdd_tpu's mesh: the masked sums (x, x^2, count) are
     summed over the ranks by a differentiable all-reduce, so the
-    statistics and the gradients through them are the global batch's."""
+    statistics and the gradients through them are the global batch's.  A
+    rank whose rows are all masked (a batch smaller than the ranks, a
+    short last batch) adds exact zeros, whatever its padding rows hold."""
     xf = x.float()
     dims = [k for k in range(x.dim()) if k != axis % x.dim()]
     if sample_mask is None and mesh.process_count() == 1:

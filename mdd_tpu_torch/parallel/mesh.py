@@ -10,6 +10,14 @@ and the evaluation tallies (`all_reduce_metrics`).  A rank's process is
 started by torchrun or by anything that sets its variables (`ENV`);
 `init_distributed` joins the group.
 
+Two kinds of group.  Under torchrun (`--distributed`) each rank is one of
+mdd_tpu's processes: `batch_size` counts its own rows and each rank
+writes its own evaluation dumps.  The ranks that `parallel/launch.py`
+starts on one host (`LOCAL_MESH_ENV` set) are mdd_tpu's one process over
+its local mesh instead (`local_mesh`): `batch_size` counts the rows of
+the global batch, which the ranks share, and rank 0
+writes what one process writes.
+
 Backend: nccl when every local rank has a card of its own; gloo when
 ranks share a card (gloo moves CUDA tensors through the host) or run on
 the CPU.  Gloo offers only all_reduce, broadcast and barrier on CUDA
@@ -31,6 +39,8 @@ import torch.distributed as dist
 
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 INIT_TIMEOUT_S = 300    # a rank that never arrives fails the others' init
+# set by launch.launch_local, in every rank it starts, to its own pid
+LOCAL_MESH_ENV = "MDD_LOCAL_MESH"
 
 
 def init_distributed(device: str = "cuda",
@@ -104,6 +114,18 @@ def backend() -> str:
     return dist.get_backend() if dist.is_initialized() else "none"
 
 
+def launched_locally() -> bool:
+    """Whether launch.launch_local started this process as a rank."""
+    return bool(os.environ.get(LOCAL_MESH_ENV))
+
+
+def local_mesh() -> bool:
+    """Whether the process group is mdd_tpu's one process over its local
+    mesh (the ranks of launch.launch_local): `batch_size` then counts the
+    global batch's rows, and rank 0 writes one process's files."""
+    return process_count() > 1 and launched_locally()
+
+
 def _collective_device() -> torch.device:
     """Where a host-side value goes for a collective: nccl reduces only
     CUDA tensors, gloo takes CPU ones."""
@@ -137,6 +159,12 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x)
 
 
+def barrier() -> None:
+    """Wait for every rank; nothing in one process."""
+    if process_count() > 1:
+        dist.barrier()
+
+
 def all_reduce_tensors(tensors: Sequence[torch.Tensor]) -> None:
     """Sum same-shaped tensor lists over ranks in place, in one collective
     over a flat buffer (all tensors on one device and of one dtype)."""
@@ -168,6 +196,26 @@ def all_reduce_metrics(values) -> np.ndarray:
     t = torch.as_tensor(arr).to(_collective_device())
     dist.all_reduce(t)
     return t.cpu().numpy()
+
+
+def all_gather_bytes(data: bytes) -> list:
+    """Every rank's `data`, in rank order, on every rank: their lengths,
+    then the bytes, each rank's at its own offset and zeros elsewhere,
+    summed over the ranks (all_reduce only, as everywhere here)."""
+    n = process_count()
+    if n == 1:
+        return [bytes(data)]
+    lengths = np.zeros(n, np.int64)
+    lengths[process_index()] = len(data)
+    lengths = all_reduce_metrics(lengths)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    buf = np.zeros(int(offsets[-1]), np.uint8)
+    lo = int(offsets[process_index()])
+    buf[lo:lo + len(data)] = np.frombuffer(data, np.uint8)
+    t = torch.from_numpy(buf).to(_collective_device())
+    dist.all_reduce(t)
+    out = t.cpu().numpy().tobytes()
+    return [out[int(offsets[r]):int(offsets[r + 1])] for r in range(n)]
 
 
 def reduce_scatter_rows(x: torch.Tensor) -> torch.Tensor:

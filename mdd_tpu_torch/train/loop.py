@@ -27,7 +27,10 @@ sum of the global loss's and the ranks' gradients are summed, in one
 all-reduce over a flat buffer, before the identical Adam step on each.
 The metric accumulator is summed over the ranks when it is read, so every
 rank logs the same numbers and the plateau machine decides alike.  Rank 0
-writes the checkpoints.  Dropout masks differ by rank (the rank is folded
+writes the checkpoints.  On one host's local mesh (parallel/launch.py) a
+global batch holds the config's batch_size rows, each rank ceil(B / N)
+of its slots, the slots past the batch masked out of the loss count, the
+statistics and the WER as a ragged tail's padding is.  Dropout masks differ by rank (the rank is folded
 into their seed); the weight noise is drawn alike on every rank.
 """
 

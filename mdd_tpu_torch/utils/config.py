@@ -107,8 +107,9 @@ class Config:
     lm_alpha: float = 0.0
     lm_path: str = ""
 
-    # parallelism: mdd_tpu's data-parallel mesh width; in the port the
-    # ranks are processes, so 0 (all of them) or their number
+    # parallelism: mdd_tpu's data-parallel mesh width: 0 = every local
+    # card, N = the first N (a rank a card, parallel/launch.py); on the
+    # CPU 0 = one process, N = N ranks
     data_parallel: int = 0
 
     def model_config(self, num_class: int):
@@ -158,13 +159,16 @@ def load_config(path: str) -> Config:
     return cfg
 
 
-def check_train_config(cfg: Config, process_count: int = 1) -> None:
-    """Refuse a data-parallel width the run does not have, instead of
-    training on another: the port's ranks are processes (one a card), so
-    `data_parallel` is 0 or the number of processes, 1 in one process."""
+def check_distributed_width(cfg: Config, process_count: int) -> None:
+    """Refuse a data-parallel width that a torchrun run (`--distributed`)
+    does not have, instead of training on another: there every rank is
+    one of mdd_tpu's processes, one card of the mesh with `batch_size`
+    rows of its own, so `data_parallel` is 0 or the rank count."""
     if cfg.data_parallel not in (0, process_count):
         raise ValueError(
-            f"data_parallel: {cfg.data_parallel} but this run has "
-            f"{process_count} process(es): launch that many ranks with "
-            "`torchrun --nproc-per-node N -m mdd_tpu_torch train --conf ... "
-            "--distributed`, or set data_parallel: 0")
+            f"data_parallel: {cfg.data_parallel} but this --distributed run "
+            f"has {process_count} rank(s): under torchrun every rank is one "
+            "card of the mesh and batch_size counts its own rows, so "
+            "data_parallel is 0 or the rank count; without --distributed "
+            "(and torchrun) `train` itself starts data_parallel ranks on "
+            "this host's cards, which share one batch of batch_size rows")

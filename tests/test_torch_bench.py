@@ -279,8 +279,9 @@ def test_cli_line_holds_every_extra_key_of_bench_py(cli_stdout):
     extra = json.loads(cli_stdout)["extra"]
     assert bench_py_line_fields()[2] <= set(extra)
     assert set(extra) == (set().union(*SECTION_KEYS.values())
-                          | {"model_num_class", "card"})
+                          | {"model_num_class", "card", "n_cards"})
     assert extra["card"] == "cpu" and extra["model_num_class"] == 43
+    assert extra["n_cards"] == 1
     assert extra["mfu"] is None and extra["decode_lm"] is None
 
 

@@ -438,3 +438,59 @@ def test_orbax_latest_restores_alike_on_the_card_and_the_cpu(cuda, tmp_path):
     want = src.optimizer.state_dict()["state"]
     for (i, k), v in got["cuda"][1].items():
         assert torch.equal(v, want[i][k]), (i, k)
+
+
+@pytest.fixture
+def second_card(cuda):
+    """cuda:1 where the host has two cards; the current device stays 0,
+    as in a rank of the local mesh whose tensors lie on another card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])
+def test_lstm_kernels_on_a_second_card(second_card, monkeypatch, kernel):
+    """Each LSTM wrapper on cuda:1 with cuda:0 current: the launch goes to
+    the tensors' card and stream, its barrier counters are allocated
+    there, and the result is the plain version's (the tolerances of
+    test_kernel_matches_plain_version and its backward)."""
+    made = []
+    counters = lstm_cuda._barrier_counters
+
+    def recorded(b, device):
+        made.append(counters(b, device))
+        return made[-1]
+    monkeypatch.setattr(lstm_cuda, "_barrier_counters", recorded)
+    x_proj, w_hh = (a.to(second_card) for a in _inputs(80, 64, 384,
+                                                       torch.float32))
+    if kernel == "lstm_fwd":
+        got = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
+        want = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
+        tol = [2e-5, 2e-5]
+    else:
+        g = torch.Generator().manual_seed(1)
+        dhs = torch.randn((80, 2, 64, 384), generator=g).to(second_card)
+        hs, cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
+        got = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+        want = lstm_cuda.lstm_seq_bwd_reference(x_proj, w_hh, hs, cs, dhs)
+        tol = [1e-4 * w.abs().max().item() for w in want]
+    torch.cuda.synchronize(second_card)
+    assert torch.cuda.current_device() == 0
+    assert [t.device for t in made] == [second_card]
+    for a, w, t in zip(got, want, tol):
+        assert a.device == second_card
+        assert (a.float() - w.float()).abs().max().item() <= t
+
+
+def test_dropout_kernel_on_a_second_card(second_card):
+    x = torch.randn((16, 110, 768), device=second_card)
+    seed = torch.tensor([0x1234_5678], device=second_card)
+    before = dropout_cuda.fused_dropout_kernel.launches
+    out = dropout_cuda.fused_dropout_apply(x, seed, 0.2)
+    torch.cuda.synchronize(second_card)
+    assert dropout_cuda.fused_dropout_kernel.launches == before + 1
+    assert out.device == second_card and torch.cuda.current_device() == 0
+    assert torch.equal(out, dropout_cuda.fused_dropout_reference(x, seed,
+                                                                 0.2))

@@ -121,13 +121,23 @@ def test_device_cache_is_refused(tmp_path):
     assert not (tmp_path / "ckpt").exists()
 
 
-def test_global_schedule_is_refused(tmp_path):
+def test_global_schedule_is_refused(tmp_path, monkeypatch):
     """The global schedule is ported (tests/test_torch_global_schedule.py,
-    tests/test_torch_distributed_cli.py); what stays refused with it is a
-    data_parallel width the run does not have: one process is one rank."""
-    conf = _yaml(tmp_path, 1, global_schedule=True, data_parallel=2)
-    with pytest.raises(ValueError, match="data_parallel: 2.*torchrun"):
-        cli.main(["train", "--conf", conf, "--device", "cpu"])
+    tests/test_torch_distributed_cli.py), and without --distributed
+    `data_parallel: N` starts N ranks (tests/test_torch_local_cards.py);
+    what stays refused with it is a data_parallel width that a torchrun
+    run does not have: under --distributed a rank is one card of the
+    mesh, refused before the rank joins its group."""
+    from mdd_tpu_torch.parallel import mesh
+
+    conf = _yaml(tmp_path, 1, global_schedule=True, data_parallel=3)
+    for v, val in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0"),
+                   ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(v, val)
+    monkeypatch.setattr(mesh, "init_distributed", pytest.fail)
+    with pytest.raises(ValueError, match="data_parallel: 3.*--distributed"):
+        cli.main(["train", "--conf", conf, "--device", "cpu",
+                  "--distributed"])
     assert not (tmp_path / "ckpt").exists()
 
 
