@@ -5,7 +5,8 @@
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
-            lstm_fwd.cu, lstm_bwd.cu, dropout.cu, and mma_rate.cu (the
+            lstm_fwd.cu, lstm_bwd.cu, dropout.cu, wer.cu, ctc_beam.cu,
+            and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
             the model's path); g++ the host C++ sources at the same time:
             denoise.cc (the denoiser library and the mdd_denoise tool) and
@@ -26,6 +27,24 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             first's, and the thread's tensors hold what it put there
             (the barrier counters stay a launch's own until it is
             enqueued).
+3b. kernel-wer  greedy_wer (csrc/wer.cu) against ops/wer.greedy_wer_counts
+            on the card, errors and tokens equal exactly, twice each: the
+            train cell's shapes (B=64, T' 47-110, L 16-40, a sixth of the
+            rows invalid, the step's transposed ids), benchmark's 512 x
+            80, rows with no frames, no targets or only blanks, and
+            L=1023, the largest the wrapper takes; then its time against
+            the plain loop's at B=64, T'=110, L=40 (CUDA events, in turns).
+3c. kernel-beam  ctc_beam (csrc/ctc_beam.cu) against
+            decode/beam_jit.beam_search_batch on the card: profile-evaluate's
+            shape (B=64, T'=110, K=10, C=43) with and without a bigram LM
+            at alpha 0.5, benchmark's 512 x 80, ragged lengths, B=1, K=1,
+            K=16, K=16 with C=64 (the limits) and one-hot posteriors with
+            and without the LM: at least 99% of the sequences identical
+            (the share logged; every differing row printed with both
+            normalised scores), token error at most 0.002, zeros after
+            every prefix, the same bits twice; 16 rows against the host
+            beam (decode/beam.py) at BEAM_MATCH; then its time against the
+            plain loop's at profile-evaluate's shape (in turns).
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -93,7 +112,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             in-process for one epoch and `--resume` for a second.  Losses
             finite and falling, `best` and `latest` on disk, the launch
             counters (zeroed just before) covering every layer of every
-            step; then the step time at B=64.
+            step, and greedy_wer once a train or validation step; then
+            the step time at B=64, and the step median with the WER on
+            its kernel against the plain loop, in turns.
 10a. train-strict  `python -m mdd_tpu_torch train` as a fresh process
             (nothing of this script runs in it) for one epoch of that
             corpus: the Trainer's first line must state TF32 off for
@@ -184,7 +205,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             Greedy`, and `mdd-result` on the beam + LM dumps, all
             in-process: the reports parse, the canonical total equals the
             dump's phones, mdd-result's PER is evaluate's, lstm_fwd
-            launched 4 times a forward, the three PERs close; on one
+            launched 4 times a forward, ctc_beam once a batch of the two
+            beam passes, the three PERs close; on one
             batch of that model's log-probs the
             device beam against the host beam (decode/beam.py), at least
             95% of the sequences identical.
@@ -195,10 +217,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             the cache groups utterances by bucket, every utterance padded
             alike decodes alike (the model's outputs depend on the
             padding); lstm_fwd launched 4 times a forward.
-19. profile-evaluate  evaluate_model over the 512 training utterances, beam
-            and greedy: utterances per second, and torch.profiler's device
-            busy share over one beam pass; the beam alone at B=64, T'=110,
-            K=10, C=43 (ms a batch and a frame); fused_dropout at the 3
+19. profile-evaluate  evaluate_model over the 512 training utterances:
+            utterances per second of beam + LM on the beam kernel and on
+            the plain frame loop (in turns) and of greedy, and
+            torch.profiler's device busy share over one beam pass; the
+            beam alone at B=64, T'=110, K=10, C=43 three ways in turns
+            (decode_log on the kernel, the kernel's launch by CUDA events,
+            decode_log on the plain loop: ms a batch and a frame) and the
+            plain loop's device ops a frame; fused_dropout at the 3
             site shapes in float32 and bfloat16: a call (CUDA events) and
             its kernel's device time (torch.profiler) beside its bound (the
             larger of bytes and integer operations), its plain version and
@@ -233,7 +259,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             conf/synthetic_full.yaml's decode (beam 10, no LM): at least
             99% of the 900 decodes identical to mdd_tpu's own decode of
             the split (results/syn_full_best_mdd_tpu_cpu/) and PER within
-            0.10 points of its; lstm_fwd launched 4 times a forward; then
+            0.10 points of its; lstm_fwd launched 4 times a forward and
+            ctc_beam once; then
             `evaluate --cached` (its agreement printed, not gating: the
             cache pads by bucket); utts/s of both; (c) `serve --checkpoint
             checkpoints/syn_full/best` in-process on phase 5's request
@@ -274,8 +301,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             evaluation pass; lstm_fwd 4 counts a forward and lstm_bwd 4 a
             train step over the phase (every Trainer step and evaluation
             forward counted apart), fused_dropout 0 (bench.py leaves it
-            off); the B=512 backward's recurrence plan, the line, the
-            phase's wall time and peak device memory logged; then, not
+            off), greedy_wer at least once a step, ctc_beam more than once
+            an evaluation forward (the decode section's rounds too); the
+            B=512 backward's recurrence plan, the line, the phase's wall
+            time and peak device memory logged; then, not
             gating, torch.profiler over 3 steps of the train section's
             cell: device busy share and the ops that take the time.
 
@@ -592,6 +621,283 @@ def phase_kernel_staging(torch) -> None:
             raise AssertionError(f"{name} and a staging thread disturb "
                                  f"each other: {differ} launches differ, "
                                  f"{written} staged tensors changed")
+
+
+# ---------------------------------------------------------------------------
+# the two device programs of mdd_tpu ported as kernels: the train WER's
+# collapse + edit distance (csrc/wer.cu) and the CTC prefix beam
+# (csrc/ctc_beam.cu); each launch on a path is counted by path
+
+#: path -> launches of greedy_wer / ctc_beam on it (zeroed just before the
+#: path runs, read just after; launches that compare a kernel with its plain
+#: version are not counted)
+PATH_LAUNCHES = {"greedy_wer": {}, "ctc_beam": {}}
+#: phase kernel-wer: (name, B, T', L, seed, case); T' 47-110 and L 16-40
+#: are the train cell's, 512 x 80 benchmark's
+WER_CASES = [("train T'=110 L=40", 64, 110, 40, 0, "random"),
+             ("train T'=47 L=16", 64, 47, 16, 1, "random"),
+             ("train T'=80 L=40, the step's transposed ids", 64, 80, 40, 2,
+              "strided"),
+             ("benchmark 512 x 80", 512, 80, 40, 3, "random"),
+             ("pred_len 0 (no frames)", 16, 60, 24, 4, "no-frames"),
+             ("target_sizes 0", 16, 60, 24, 5, "no-targets"),
+             ("all-blank rows", 16, 60, 24, 6, "all-blank"),
+             ("the largest L the wrapper takes", 8, 300, 1023, 7, "random")]
+#: phase kernel-beam: (name, B, T', C, K, seed, LM, case)
+BEAM_CASES = [("profile-evaluate", 64, 110, 43, 10, 0, False, "random"),
+              ("profile-evaluate + LM", 64, 110, 43, 10, 1, True, "random"),
+              ("benchmark 512 x 80", 512, 80, 43, 10, 2, False, "random"),
+              ("ragged lengths", 64, 110, 43, 10, 3, True, "ragged"),
+              ("B=1", 1, 110, 43, 10, 4, False, "random"),
+              ("K=1", 64, 110, 43, 1, 5, False, "random"),
+              ("K=16", 64, 110, 43, 16, 6, True, "random"),
+              ("K=16 C=64", 16, 80, 64, 16, 7, True, "random"),
+              ("one-hot (peaky) posteriors", 64, 110, 43, 10, 8, False,
+               "peaky"),
+              ("one-hot (peaky) + LM", 64, 110, 43, 10, 9, True, "peaky")]
+BEAM_IDENTICAL = 0.99   # kernel vs plain, share of identical sequences
+BEAM_TOKEN_ERR = 0.002  # kernel vs plain, edits over the plain's tokens
+HOST_ROWS = 16          # kernel vs the host beam (decode/beam.py, Python)
+
+
+def new_kernels() -> dict:
+    from mdd_tpu_torch.ops.beam_cuda import ctc_beam_kernel
+    from mdd_tpu_torch.ops.wer_cuda import greedy_wer_kernel
+
+    return {"greedy_wer": greedy_wer_kernel, "ctc_beam": ctc_beam_kernel}
+
+
+def zero_path_launches() -> None:
+    for k in new_kernels().values():
+        k.launches = 0
+
+
+def record_path_launches(path: str) -> dict:
+    """The greedy_wer and ctc_beam launches since zero_path_launches, kept
+    under `path`; -> them."""
+    got = {n: k.launches for n, k in new_kernels().items()}
+    for n, v in got.items():
+        PATH_LAUNCHES[n][path] = PATH_LAUNCHES[n].get(path, 0) + v
+    return got
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean wall ms of fn() to a synchronize, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def wer_inputs(torch, b: int, t: int, l: int, seed: int, case: str):
+    """Seeded greedy-WER inputs on the card: argmax-like ids over 43
+    classes (a third blank), frames in [1, t], targets of 1-42, sizes in
+    [0, l], a sixth of the rows invalid."""
+    g = torch.Generator().manual_seed(SEED + 100 + seed)
+    ids = torch.randint(0, 43, (b, t), generator=g)
+    ids[torch.rand((b, t), generator=g) < 0.33] = 0
+    repeat = torch.rand((b, t - 1), generator=g) < 0.3
+    ids[:, 1:] = torch.where(repeat, ids[:, :-1], ids[:, 1:])
+    frames = torch.randint(1, t + 1, (b,), generator=g)
+    targets = torch.randint(1, 43, (b, l), generator=g)
+    sizes = torch.randint(0, l + 1, (b,), generator=g)
+    valid = torch.rand(b, generator=g) > 1 / 6
+    if case == "no-frames":
+        frames[: b // 2] = 0
+    if case == "no-targets":
+        sizes[: b // 2] = 0
+    if case == "all-blank":
+        ids[: b // 2] = 0
+    ids = ids.cuda()
+    if case == "strided":       # the train step's argmax(-1).transpose(0, 1)
+        ids = ids.t().contiguous().t()
+    return ids, frames.cuda(), targets.cuda(), sizes.cuda(), valid.cuda()
+
+
+def phase_kernel_wer(torch, card: str) -> dict:
+    """greedy_wer against ops/wer.greedy_wer_counts on the card, exactly;
+    its time against the plain loop's at B=64, T'=110, L=40."""
+    from mdd_tpu_torch.ops import wer_cuda
+    from mdd_tpu_torch.ops.wer import greedy_wer_counts
+
+    kernel = wer_cuda.greedy_wer_kernel
+    for name, b, t, l, seed, case in WER_CASES:
+        args = wer_inputs(torch, b, t, l, seed, case)
+        before = kernel.launches
+        dist, counts = kernel(*args)
+        again = kernel(*args)[1]
+        torch.cuda.synchronize()
+        want = [int(v) for v in greedy_wer_counts(*args)]
+        got = [int(v) for v in counts]
+        log(f"[kernel-wer] {name} (B={b}, T'={t}, L={l}): errors, tokens "
+            f"{got} kernel, {want} plain")
+        if got != want or not torch.equal(counts, again) \
+                or kernel.launches != before + 2:
+            raise AssertionError(f"greedy_wer {name}: kernel {got} (again "
+                                 f"{again.tolist()}), plain {want}")
+    b, t, l = BATCH, 110, 40
+    args = wer_inputs(torch, b, t, l, 0, "random")
+    kern = lambda: wer_cuda.greedy_wer(*args)
+    plain = lambda: greedy_wer_counts(*args)
+    times = {"kernel": [], "plain": []}
+    for which, fn in (("kernel", kern), ("plain", plain), ("plain", plain),
+                      ("kernel", kern)):
+        times[which].append(cuda_ms(fn, 200 if which == "kernel" else 10))
+    host = host_ms(kern, 200)
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    least, by = wer_cuda.bound_ms(*args[:4])
+    log(f"[kernel-wer] B={b} T'={t} L={l}: kernel {times['kernel']} ms, "
+        f"plain {times['plain']} ms (CUDA events, in turns), the kernel's "
+        f"call {host:.4f} ms to a synchronize; bound {least:.6f} ms "
+        f"({by}); {ms / t * 1e3:.3f} us a frame ({card})")
+    return {"max_abs_err": 0, "shape": f"B={b} T'={t} L={l} int64",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": least,
+            "bound_by": by, "library_ms": None, "ms_per_frame": ms / t,
+            "call_ms": host}
+
+
+def beam_inputs(torch, b: int, t: int, c: int, seed: int, lm: bool,
+                case: str):
+    """Seeded log-probs (blank-boosted, or one-hot clamped at 1e-38 as
+    BatchedBeamDecoder.decode clamps), lengths and an LM matrix on the
+    card: a Witten-Bell bigram trained on seeded sentences, times 0.5."""
+    import numpy as np
+
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.decode import lm_train
+    from mdd_tpu_torch.decode.arpa import ArpaBigramLM
+
+    rng = np.random.default_rng(SEED + 200 + seed)
+    if case == "peaky":
+        ids = rng.integers(0, c, (b, t))
+        ids[rng.random((b, t)) < 0.5] = 0
+        probs = np.zeros((b, t, c), np.float32)
+        np.put_along_axis(probs, ids[..., None], 1.0, -1)
+        lp = np.log(np.maximum(probs, 1e-38))
+    else:
+        logits = rng.standard_normal((b, t, c)).astype(np.float32)
+        logits[:, :, 0] += 1.5
+        lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    lengths = (rng.integers(0, t + 1, b) if case == "ragged"
+               else np.full(b, t))
+    vocab = Vocab([f"p{i}" for i in range(c - 2)])
+    if lm:
+        path = WORK / f"kernel_beam_lm_{c}.arpa"
+        if not path.exists():
+            units = vocab.units()
+            counts = lm_train.BigramCounts()
+            counts.add_corpus([[units[i] for i in rng.integers(
+                0, len(units), rng.integers(8, 30))] for _ in range(400)])
+            WORK.mkdir(parents=True, exist_ok=True)
+            lm_train.write_arpa(*lm_train.witten_bell_bigram(counts),
+                                str(path))
+        matrix = ArpaBigramLM(str(path)).dense_matrix(vocab.index2word) * 0.5
+    else:
+        matrix = np.zeros((c + 1, c + 1), np.float32)
+    return (torch.from_numpy(lp.astype(np.float32)).cuda(),
+            torch.from_numpy(lengths.astype(np.int64)).cuda(),
+            torch.from_numpy(np.asarray(matrix, np.float32)).cuda(), vocab)
+
+
+def phase_kernel_beam(torch, card: str) -> dict:
+    """ctc_beam against decode/beam_jit.beam_search_batch on the card, and
+    against the host beam; its time against the plain loop's."""
+    import numpy as np
+
+    from mdd_tpu_torch.align.levenshtein import edit_distance
+    from mdd_tpu_torch.decode.beam import BeamSearchDecoder
+    from mdd_tpu_torch.decode.beam_jit import beam_search_batch
+    from mdd_tpu_torch.ops import beam_cuda
+
+    kernel = beam_cuda.ctc_beam_kernel
+    rows = same = bits = errs = tokens = 0
+    worst = 0.0
+    timing = None
+    for name, b, t, c, k, seed, lm, case in BEAM_CASES:
+        lp, lengths, matrix, vocab = beam_inputs(torch, b, t, c, seed, lm,
+                                                 case)
+        before = kernel.launches
+        pre, lens, score = kernel(lp, lengths, matrix, k, 0, 0.1, scores=True)
+        pre2, lens2 = kernel(lp, lengths, matrix, k, 0, 0.1)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 2 or not (
+                torch.equal(pre, pre2) and torch.equal(lens, lens2)):
+            raise AssertionError(f"ctc_beam {name}: not the same from run "
+                                 "to run, or not one launch a call")
+        ref, ref_lens, ref_score = beam_search_batch(
+            lp, lengths, matrix, k, 0, 0.1, int(lengths.max()),
+            return_scores=True)
+        got = [pre[i, :lens[i]].tolist() for i in range(b)]
+        want = [ref[i, :ref_lens[i]].tolist() for i in range(b)]
+        tails = bool((pre * (torch.arange(t, device=pre.device)[None]
+                             >= lens[:, None])).eq(0).all())
+        n_same = sum(x == y for x, y in zip(got, want))
+        n_bits = int((score.view(torch.int32)
+                      == ref_score.view(torch.int32)).sum())
+        n_err = sum(edit_distance(x, y)[0] for x, y in zip(got, want))
+        worst = max(worst, (score - ref_score).abs().max().item())
+        rows += b
+        same += n_same
+        bits += n_bits
+        errs += n_err
+        tokens += sum(len(y) for y in want)
+        log(f"[kernel-beam] {name} (B={b}, T'={t}, C={c}, K={k}"
+            f"{', LM 0.5' if lm else ''}): {n_same} / {b} sequences identical "
+            f"to the plain version's, {n_bits} / {b} scores equal bit for "
+            f"bit, {n_err} token edits; zeros after each prefix: {tails}")
+        for i in range(b):
+            if got[i] != want[i]:
+                log(f"[kernel-beam]   row {i}: kernel {got[i]} score "
+                    f"{score[i].item()!r}; plain {want[i]} score "
+                    f"{ref_score[i].item()!r}")
+        if not tails:
+            raise AssertionError(f"ctc_beam {name}: non-zero labels past a "
+                                 "prefix")
+        if name == "profile-evaluate":
+            host = BeamSearchDecoder(vocab.index2word, beam_width=k)
+            probs = torch.exp(lp[:HOST_ROWS]).double().cpu().numpy()
+            hosted = host.decode(probs, lengths[:HOST_ROWS].tolist())
+            share = sum(x == y for x, y in zip(got, hosted)) / HOST_ROWS
+            log(f"[kernel-beam] {name}: the first {HOST_ROWS} rows "
+                f"{100 * share:.1f}% identical to the host beam (bar "
+                f"{100 * BEAM_MATCH:.0f}%)")
+            if share < BEAM_MATCH:
+                raise AssertionError("ctc_beam disagrees with the host beam")
+            timing = (lp, lengths, matrix, k, t)
+    share, err = same / rows, errs / max(tokens, 1)
+    log(f"[kernel-beam] all cases: {same} / {rows} sequences identical "
+        f"({100 * share:.2f}%, bar {100 * BEAM_IDENTICAL:.0f}%), {bits} / "
+        f"{rows} normalised scores equal bit for bit (largest difference "
+        f"{worst!r}), token error {err:.6f} (bar {BEAM_TOKEN_ERR})")
+    if share < BEAM_IDENTICAL or err > BEAM_TOKEN_ERR:
+        raise AssertionError("ctc_beam disagrees with its plain version")
+
+    lp, lengths, matrix, k, t = timing
+    kern = lambda: kernel(lp, lengths, matrix, k, 0, 0.1)
+    plain = lambda: beam_search_batch(lp, lengths, matrix, k, 0, 0.1, t)
+    times = {"kernel": [], "plain": []}
+    for which, fn in (("kernel", kern), ("plain", plain), ("plain", plain),
+                      ("kernel", kern)):
+        times[which].append(cuda_ms(fn, 50 if which == "kernel" else 3,
+                                    warmup=1))
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    least, by = beam_cuda.bound_ms(lp, lengths, matrix, k, 0, 0.1)
+    kept = int(beam_cuda.kept_frames(lp, lengths, 0, 0.1).max())
+    log(f"[kernel-beam] B={lp.shape[0]} T'={t} C={lp.shape[2]} K={k}: kernel "
+        f"{times['kernel']} ms, plain {times['plain']} ms (CUDA events, in "
+        f"turns); {ms / t * 1e3:.3f} us a frame ({ms / kept * 1e3:.3f} a kept "
+        f"frame of the longest row, {kept}); bound {least:.6f} ms ({by}) "
+        f"({card})")
+    return {"max_abs_err": worst, "identical_share": share,
+            "token_error": err, "scores_bit_equal": bits / rows,
+            "shape": f"B={lp.shape[0]} T'={t} C={lp.shape[2]} K={k} float32",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": least,
+            "bound_by": by, "library_ms": None, "ms_per_frame": ms / t}
 
 
 def phase_model(torch):
@@ -1583,6 +1889,11 @@ def phase_profile(torch, engine, files, card: str) -> None:
     report_profile(prof, wall_us, "profile", f"{n} batch-1 requests", card)
 
 
+#: the device names of the package's own kernels (report_profile lists them)
+PACKAGE_KERNELS = ("lstm_", "dropout_kernel", "greedy_wer_kernel",
+                   "ctc_beam_kernel")
+
+
 def report_profile(prof, wall_us: float, tag: str, what: str,
                    card: str) -> None:
     """Device busy share of the wall clock and the top device ops."""
@@ -1599,7 +1910,7 @@ def report_profile(prof, wall_us: float, tag: str, what: str,
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
     # the top ten, and below them every kernel of the package's own
     for e in ranked[:10] + [e for e in ranked[10:]
-                            if "lstm_" in e.key or "dropout_kernel" in e.key]:
+                            if any(n in e.key for n in PACKAGE_KERNELS)]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
@@ -1742,12 +2053,14 @@ def phase_train(torch, train, dev) -> tuple:
 
     confs = [write_train_yaml(train, dev, e) for e in (1, 2)]
     lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    zero_path_launches()
     t0 = time.perf_counter()
     out = run_cli(["train", "--conf", confs[0], "--device", "cuda"])
     out += run_cli(["train", "--conf", confs[1], "--device", "cuda",
                     "--resume"])
     wall = time.perf_counter() - t0
     fwd, bwd = lstm_fwd_kernel.launches, lstm_bwd_kernel.launches
+    new = record_path_launches("train")
     for line in out.splitlines():
         if "done" in line or "resumed" in line or "best dev" in line:
             log(f"[train]   {line}")
@@ -1764,7 +2077,8 @@ def phase_train(torch, train, dev) -> tuple:
         f"{wall:.1f} s (both runs' set-up included); "
         f"first step loss {first:.4f}, epoch-2 train loss {ep2:.4f}; "
         f"lstm_fwd launches {fwd} over {forwards} forwards, lstm_bwd "
-        f"launches {bwd} over {steps} train steps")
+        f"launches {bwd} over {steps} train steps; greedy_wer launches "
+        f"{new['greedy_wer']}, ctc_beam {new['ctc_beam']}")
     if not all(math.isfinite(v) for v in losses) or len(losses) < steps:
         raise AssertionError(f"losses not finite or missing: {losses}")
     if not ep2 < first:
@@ -1777,6 +2091,10 @@ def phase_train(torch, train, dev) -> tuple:
         raise AssertionError(f"{fwd} forward / {bwd} backward launches for "
                              f"{forwards} forwards / {steps} train steps: a "
                              "layer bypassed the kernels")
+    # one WER a train or validation step, each a forward of 4 layers
+    if 4 * new["greedy_wer"] != fwd or new["ctc_beam"]:
+        raise AssertionError(f"{new} for {fwd // 4} train and validation "
+                             "steps: the WER bypassed its kernel")
     return fwd, bwd, confs[1], first
 
 
@@ -1814,6 +2132,31 @@ def phase_step_time(torch, conf: str, card: str) -> None:
         f"over {len(secs)} steps (min {min(secs) * 1e3:.2f}, max "
         f"{max(secs) * 1e3:.2f}); {sum(audio) / sum(secs):.1f} audio "
         f"seconds per second ({card})")
+    # the step's WER on its kernel against the plain loop, in turns
+    from mdd_tpu_torch.ops.wer import greedy_wer_counts
+    from mdd_tpu_torch.train import loop
+
+    kernel_wer = loop.greedy_wer
+    medians = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        loop.greedy_wer = (kernel_wer if which == "kernel"
+                           else greedy_wer_counts)
+        try:
+            turn = []
+            for padded, valid in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                acc = trainer.train_step(trainer.batch_arrays(padded, valid),
+                                         acc)
+                torch.cuda.synchronize()
+                turn.append(time.perf_counter() - t0)
+        finally:
+            loop.greedy_wer = kernel_wer
+        medians[which].append(round(statistics.median(turn) * 1e3, 2))
+    log(f"[train] step median at B={BATCH}, the WER on its kernel "
+        f"{medians['kernel']} ms, on the plain loop {medians['plain']} ms "
+        f"(in turns: kernel, plain, plain, kernel; {len(batches)} steps "
+        f"each) ({card})")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1824,6 +2167,7 @@ def phase_step_time(torch, conf: str, card: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     report_profile(prof, wall_us, "profile-train",
                    f"3 train steps at B={BATCH}", card)
+
 
 
 STRICT_LINE = ("compute_dtype float32 on cuda: cuBLAS allow_tf32=False, "
@@ -1933,6 +2277,7 @@ def phase_resume_plateau(torch, train, dev, card: str) -> dict:
     loop.Trainer.run_epoch, PlateauScheduler.step = run_epoch_rec, step_rec
     loop.Trainer._restore_snapshot, loop.save_checkpoint = restore_rec, save_rec
     lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    zero_path_launches()
     try:
         _, w = run(whole)
         _, first = run(split[0])
@@ -1946,6 +2291,7 @@ def phase_resume_plateau(torch, train, dev, card: str) -> dict:
         loop.Trainer._restore_snapshot, loop.save_checkpoint = restore, save
     launches = {"lstm_fwd": lstm_fwd_kernel.launches,
                 "lstm_bwd": lstm_bwd_kernel.launches}
+    record_path_launches("resume-plateau")
     epochs = 2 * PLATEAU_EPOCHS + 1
     steps = -(-TRAIN_UTTS // BATCH) * epochs
     forwards = steps + -(-DEV_UTTS // BATCH) * epochs
@@ -2150,6 +2496,7 @@ def phase_resume_mdd_tpu(torch, train, dev, card: str) -> dict:
 
     loop.Trainer.train_step, loop.save_checkpoint = train_step_rec, save_rec
     lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    zero_path_launches()
     try:
         t0 = time.perf_counter()
         out = run_cli(["train", "--conf", conf, "--device", "cuda",
@@ -2164,6 +2511,7 @@ def phase_resume_mdd_tpu(torch, train, dev, card: str) -> dict:
         loop.Trainer.train_step, loop.save_checkpoint = train_step, save
     launches = {"lstm_fwd": lstm_fwd_kernel.launches,
                 "lstm_bwd": lstm_bwd_kernel.launches}
+    record_path_launches("resume-mdd_tpu")
     epochs = HANDOVER_EPOCHS + 1
     steps = -(-TRAIN_UTTS // BATCH) * epochs
     forwards = steps + -(-DEV_UTTS // BATCH) * epochs
@@ -2468,6 +2816,7 @@ def phase_train_fused(torch, conf: str, card: str) -> dict:
     kernels = (fused_dropout_kernel, lstm_fwd_kernel, lstm_bwd_kernel)
     for k in kernels:
         k.launches = 0
+    zero_path_launches()
     t0 = time.perf_counter()
     trainer.fit(*loaders, num_epochs=FUSED_EPOCHS, print_every=1,
                 checkpoint_dir=cfg.checkpoint_dir, exp_name=cfg.exp_name,
@@ -2475,6 +2824,7 @@ def phase_train_fused(torch, conf: str, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     drops, fwd, bwd = (k.launches for k in kernels)
+    record_path_launches("train-fused")
     steps = -(-TRAIN_UTTS // BATCH) * FUSED_EPOCHS
     forwards = steps + -(-DEV_UTTS // BATCH) * FUSED_EPOCHS
     losses = step_losses(lines)            # the first epoch's steps
@@ -2590,6 +2940,7 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
     kernels = (fused_dropout_kernel, lstm_fwd_kernel, lstm_bwd_kernel)
     for k in kernels:
         k.launches = 0
+    zero_path_launches()
     lines = []
     t0 = time.perf_counter()
     trainer.fit(*loaders, num_epochs=1, print_every=1,
@@ -2598,6 +2949,7 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     drops, fwd, bwd = (k.launches for k in kernels)
+    record_path_launches("train-bf16")
     steps = -(-TRAIN_UTTS // BATCH)
     forwards = steps + -(-DEV_UTTS // BATCH)
     losses = step_losses(lines)
@@ -2731,6 +3083,7 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
              ("greedy", ["--decode-type", "Greedy"]))
     dumps = {k: WORK / f"dump_{k}" for k, _ in kinds}
     lstm_fwd_kernel.launches = 0
+    zero_path_launches()
     reports, wall = {}, {}
     for kind, flags in kinds:
         t0 = time.perf_counter()
@@ -2739,7 +3092,12 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
         wall[kind] = time.perf_counter() - t0
         reports[kind] = parse_report(text)
     launches = lstm_fwd_kernel.launches
+    new = record_path_launches("evaluate")
     forwards = len(kinds) * -(-DEV_UTTS // BATCH)
+    # a beam launch a batch of the two beam passes, none for greedy
+    if new != {"greedy_wer": 0, "ctc_beam": 2 * -(-DEV_UTTS // BATCH)}:
+        raise AssertionError(f"{new} over the three passes: the beam "
+                             "bypassed its kernel")
     result = run_cli(["mdd-result", "--ref", str(dumps["beam"] / "transcribe.log"),
                       "--human", str(dumps["beam"] / "human_seq.log"),
                       "--hyp", str(dumps["beam"] / "decode_seq.log"),
@@ -2758,7 +3116,7 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
             f"({card})")
     log(f"[evaluate] mdd-result on the beam + LM dumps: {wer.group(0)}; recall "
         f"{recall:.4f}; lstm_fwd launches {launches} over {forwards} "
-        "forwards")
+        f"forwards; ctc_beam launches {new['ctc_beam']}")
     for r in reports.values():
         if (r["utts"] != DEV_UTTS or r["total"] != canon
                 or r["parts"] != r["TA"] + r["FR"] + r["FA"] + r["TR"]
@@ -2820,15 +3178,32 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
     return launches, yaml_path
 
 
+@contextlib.contextmanager
+def plain_beam():
+    """decode/beam_jit's dispatcher sends every tensor, CUDA ones too, to
+    the plain frame loop while the block runs (for timing the two side by
+    side)."""
+    from mdd_tpu_torch.decode import beam_jit
+
+    dispatch = beam_jit.beam_search
+    beam_jit.beam_search = beam_jit.beam_search_batch
+    try:
+        yield
+    finally:
+        beam_jit.beam_search = dispatch
+
+
 def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> None:
-    """Throughput and device busy share of evaluate_model, and the beam
-    alone."""
+    """Throughput and device busy share of evaluate_model (the beam on its
+    kernel and on the plain loop, in turns), and the beam alone three ways
+    in turns."""
     from torch.profiler import ProfilerActivity, profile
 
     from mdd_tpu_torch import cli
     from mdd_tpu_torch.data.vocab import Vocab
     from mdd_tpu_torch.decode.beam_jit import BatchedBeamDecoder
     from mdd_tpu_torch.evals.evaluate import EvalSession, evaluate_model
+    from mdd_tpu_torch.ops.beam_cuda import ctc_beam_kernel
     from mdd_tpu_torch.utils.config import load_config
 
     lm = str(WORK / "lm.arpa")
@@ -2836,38 +3211,58 @@ def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> None:
     vocab = Vocab.from_units_file(cfg.vocab_file)
     state, model_cfg = cli._load_best(cfg, None)
     quiet = lambda *_: None
+
+    def rate(session) -> tuple:
+        loader = cli._build_loader(cfg, vocab, *train, train=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = evaluate_model(session, loader, log=quiet)
+        torch.cuda.synchronize()
+        return rep.n_utts / (time.perf_counter() - t0), rep
+
     for kind in ("Beam", "Greedy"):
         session = EvalSession(
             model_cfg, state, vocab, decode_type=kind, beam_width=10,
             lm_path=lm, lm_alpha=0.5, device="cuda", device_frontend=True,
             left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
             n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
-        rates = []
-        for _ in range(2):
-            loader = cli._build_loader(cfg, vocab, *train, train=False)
-            torch.cuda.synchronize()
+        if kind == "Greedy":
+            rates = [rate(session)[0] for _ in range(2)]
+            rep = rate(session)[1]
+            log(f"[profile-evaluate] evaluate_model, Greedy, {rep.n_utts} "
+                f"utterances in batches of {BATCH}: {rates[0]:.1f} then "
+                f"{rates[1]:.1f} utterances per second; PER {rep.per:.2f} "
+                f"({card})")
+            continue
+        rates, pers = {"kernel": [], "plain": []}, {}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            with (plain_beam() if which == "plain"
+                  else contextlib.nullcontext()):
+                r, rep = rate(session)
+            rates[which].append(round(r, 1))
+            pers[which] = rep.per
+        log(f"[profile-evaluate] evaluate_model, beam 10 + LM 0.5, "
+            f"{rep.n_utts} utterances in batches of {BATCH}, utterances per "
+            f"second in turns: the beam kernel {rates['kernel']}, the plain "
+            f"frame loop {rates['plain']}; PER {pers['kernel']:.2f} / "
+            f"{pers['plain']:.2f} ({card})")
+        if pers["kernel"] != pers["plain"]:
+            log("[profile-evaluate]   the two beams' PERs differ")
+        loader = cli._build_loader(cfg, vocab, *train, train=False)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rep = evaluate_model(session, loader, log=quiet)
+            evaluate_model(session, loader, log=quiet)
             torch.cuda.synchronize()
-            rates.append(rep.n_utts / (time.perf_counter() - t0))
-        log(f"[profile-evaluate] evaluate_model, {kind}, {rep.n_utts} "
-            f"utterances in batches of {BATCH}: {rates[0]:.1f} then "
-            f"{rates[1]:.1f} utterances per second; PER {rep.per:.2f} "
-            f"({card})")
-        if kind == "Beam":
-            loader = cli._build_loader(cfg, vocab, *train, train=False)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                evaluate_model(session, loader, log=quiet)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            report_profile(prof, wall_us, "profile-evaluate",
-                           f"one beam pass over {rep.n_utts} utterances "
-                           "(profiler on)", card)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        report_profile(prof, wall_us, "profile-evaluate",
+                       f"one beam pass over {rep.n_utts} utterances "
+                       "(profiler on)", card)
 
-    # the beam alone at the evaluation shape
+    # the beam alone at the evaluation shape: decode_log as evaluate calls
+    # it (to host sequences), the kernel's launch alone, decode_log on the
+    # plain loop
     t_out, n_class, width = 110, len(UNITS) + 2, 10
     g = torch.Generator().manual_seed(SEED + 5)
     logits = torch.randn((BATCH, t_out, n_class), generator=g)
@@ -2876,28 +3271,39 @@ def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> None:
     beam = BatchedBeamDecoder(vocab.index2word, beam_width=width,
                               device="cuda")
     lengths = [t_out] * BATCH
-    beam.decode_log(lp, lengths)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
+    dev_lengths = torch.full((BATCH,), t_out, dtype=torch.int64,
+                             device="cuda")
+    decode = lambda: beam.decode_log(lp, lengths)
+    launch = lambda: ctc_beam_kernel(lp, dev_lengths, beam.lm_matrix, width,
+                                     0, 0.1)
+    ways = {"decode_log": [], "kernel": [], "plain": []}
+    for turn in ("kernel", "plain", "plain", "kernel"):
+        if turn == "kernel":
+            ways["decode_log"].append(host_ms(decode, 20))
+            ways["kernel"].append(cuda_ms(launch, 50))
+        else:
+            with plain_beam():
+                ways["plain"].append(host_ms(decode, 3))
+    with plain_beam(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        beam.decode_log(lp, lengths)
+        decode()
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        beam.decode_log(lp, lengths)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ms = statistics.median(walls)
-    log(f"[timing] device beam, B={BATCH} T'={t_out} K={width} C={n_class}: "
-        f"{ms:.2f} ms a batch (median of 3; {min(walls):.2f}-"
-        f"{max(walls):.2f}), {ms / t_out:.4f} ms a frame, "
-        f"{BATCH / ms * 1e3:.0f} utterances per second ({card})")
-    report_profile(prof, wall_us, "timing", "one beam batch (profiler on)",
-                   card)
+        plain_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
 
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    ms = min(ways["decode_log"])
+    log(f"[timing] device beam, B={BATCH} T'={t_out} K={width} C={n_class}, "
+        f"in turns: decode_log on the kernel {ways['decode_log']} ms, the "
+        f"kernel's launch {ways['kernel']} ms (CUDA events), decode_log on "
+        f"the plain loop {ways['plain']} ms; {ms / t_out:.5f} ms a frame, "
+        f"{BATCH / ms * 1e3:.0f} utterances per second on the kernel; the "
+        f"plain loop {ops} device ops a batch, {ops / t_out:.1f} a frame "
+        f"({card})")
+    report_profile(prof, plain_us, "timing",
+                   "one beam batch on the plain loop (profiler on)", card)
 
 
 def write_hard_corpus() -> dict:
@@ -2976,6 +3382,7 @@ def phase_train_cached(torch, card: str) -> dict:
 
     CachedLoader._make_batch = record
     lstm_fwd_kernel.launches = lstm_bwd_kernel.launches = 0
+    zero_path_launches()
     t0 = time.perf_counter()
     try:
         out = run_cli(["train", "--conf", confs[0], "--device", "cuda"])
@@ -2985,6 +3392,7 @@ def phase_train_cached(torch, card: str) -> dict:
         CachedLoader._make_batch = make_batch
     wall = time.perf_counter() - t0
     fwd, bwd = lstm_fwd_kernel.launches, lstm_bwd_kernel.launches
+    record_path_launches("train-cached")
     for line in out.splitlines():
         if "done" in line or "resumed" in line or "best dev" in line:
             log(f"[train-cached]   {line}")
@@ -3120,10 +3528,12 @@ def phase_evaluate_cached(torch, cached: dict, card: str) -> int:
         for flags in ([], ["--cached"]):
             dump = WORK / f"dump_cached_b{b}_{len(flags)}"
             lstm_fwd_kernel.launches = 0
+            zero_path_launches()
             t0 = time.perf_counter()
             text = run_cli(["evaluate", "--conf", conf, "--device", ONE_CARD,
                             "--dump-dir", str(dump)] + flags)
             wall = time.perf_counter() - t0
+            record_path_launches("evaluate-cached")
             if flags:
                 launches += lstm_fwd_kernel.launches
             report = parse_report(text)
@@ -3655,12 +4065,17 @@ def phase_trained(torch, files, card: str) -> dict:
             dump = WORK / f"trained_{kind}"
             ran["forwards"] = 0
             lstm_fwd_kernel.launches = 0
+            zero_path_launches()
             t0 = time.perf_counter()
             text = run_cli(["evaluate", "--conf", str(conf), "--checkpoint",
                             str(SYN_FULL / "best"), "--device", ONE_CARD,
                             "--dump-dir", str(dump)] + flags)
             wall = time.perf_counter() - t0
             launches[kind] = lstm_fwd_kernel.launches
+            beams = record_path_launches(f"trained-{kind}")["ctc_beam"]
+            if beams != ran["forwards"]:
+                raise AssertionError(f"{kind}: {beams} ctc_beam launches for "
+                                     f"{ran['forwards']} forwards (beam 10)")
             (WORK / f"trained_{kind}.log").write_text(text)
             got = parse_report(text)
             decode_min = float(re.search(
@@ -3677,8 +4092,9 @@ def phase_trained(torch, files, card: str) -> dict:
                 f"{golden['TR']}); F1 {got['f1']:.2f}; "
                 f"{900 / (decode_min * 60):.1f} utts/s by the report's "
                 f"decode time, {wall:.2f} s of command with set-up; lstm_fwd "
-                f"{launches[kind]} launches over {ran['forwards']} forwards "
-                f"({card}); random weights: {RANDOM_WEIGHT_EVAL}")
+                f"{launches[kind]} launches over {ran['forwards']} forwards, "
+                f"ctc_beam {beams} ({card}); random weights: "
+                f"{RANDOM_WEIGHT_EVAL}")
             if got["utts"] != 900 or launches[kind] != 4 * ran["forwards"] \
                     or ran["forwards"] < -(-900 // 256):
                 raise AssertionError(
@@ -4042,6 +4458,7 @@ def phase_benchmark(torch, card: str) -> dict:
     kernels = (lstm_fwd_kernel, lstm_bwd_kernel, fused_dropout_kernel)
     for k in kernels:
         k.launches = 0
+    zero_path_launches()
     out = io.StringIO()
     Trainer.train_step, EvalSession._forward = counted_step, counted_forward
     torch.cuda.reset_peak_memory_stats()
@@ -4055,13 +4472,15 @@ def phase_benchmark(torch, card: str) -> dict:
     wall = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     fwd, bwd, drops = (k.launches for k in kernels)
+    new = record_path_launches("benchmark")
     lines = out.getvalue().splitlines()
     for line in lines:
         log(f"[benchmark] {line}")
     log(f"[benchmark] `benchmark` in {wall:.1f} s, rc {rc}, {len(lines)} "
         f"stdout line(s); {ran['steps']} Trainer steps, {ran['forwards']} "
         f"evaluation forwards; lstm_fwd {fwd}, lstm_bwd {bwd}, "
-        f"fused_dropout {drops}; lstm_bwd's recurrence at B={bench.BATCH}, "
+        f"fused_dropout {drops}, greedy_wer {new['greedy_wer']}, ctc_beam "
+        f"{new['ctc_beam']}; lstm_bwd's recurrence at B={bench.BATCH}, "
         f"T'={t_out} in {plan['launches']} launch(es) of "
         f"{plan['chunk_rows']} rows; peak device memory {peak_gib:.1f} GiB "
         f"({card})")
@@ -4104,6 +4523,13 @@ def phase_benchmark(torch, card: str) -> dict:
             f"launches for {ran['steps']} steps and {ran['forwards']} "
             f"evaluation forwards of {layers} layers: a layer bypassed its "
             "kernel, or dropout ran fused")
+    # a WER a Trainer step; a beam launch an evaluation forward (beam 10)
+    # and a decode round
+    if not (new["greedy_wer"] >= ran["steps"]
+            and new["ctc_beam"] > ran["forwards"]):
+        raise AssertionError(f"{new} for {ran['steps']} steps and "
+                             f"{ran['forwards']} evaluation forwards: the WER "
+                             "or the beam bypassed its kernel")
     profile_bench_step(torch, cfg, card)
     return {"lstm_fwd": fwd, "lstm_bwd": bwd, "fused_dropout": drops}
 
@@ -4238,6 +4664,8 @@ def main() -> int:
     worst = phase_kernel(torch)
     worst_bwd = phase_kernel_bwd(torch)
     phase_kernel_staging(torch)
+    wer_kernel = phase_kernel_wer(torch, card)
+    beam_kernel = phase_kernel_beam(torch, card)
     cfg, meta, state = phase_model(torch)
     vis = phase_visualize(torch, cfg, state, card)
     files = write_serving_files(cfg, meta, state)
@@ -4352,6 +4780,22 @@ def main() -> int:
         "shape": "conv0 site 64x32x220x122 float32",
         **dropout_timing["conv0"]["float32"],
         "by_site": dropout_timing,
+    }, {
+        "name": "greedy_wer",
+        "route": "cuda",
+        "source": "mdd_tpu_torch/csrc/wer.cu",
+        "replaces": "mdd_tpu/ops/wer.py:32",
+        "launches": sum(PATH_LAUNCHES["greedy_wer"].values()),
+        "launches_by_path": PATH_LAUNCHES["greedy_wer"],
+        **wer_kernel,
+    }, {
+        "name": "ctc_beam",
+        "route": "cuda",
+        "source": "mdd_tpu_torch/csrc/ctc_beam.cu",
+        "replaces": "mdd_tpu/decode/beam_jit.py:60",
+        "launches": sum(PATH_LAUNCHES["ctc_beam"].values()),
+        "launches_by_path": PATH_LAUNCHES["ctc_beam"],
+        **beam_kernel,
     }]
     log(f"[time] every phase in {time.perf_counter() - started:.1f} s")
     print(smi)

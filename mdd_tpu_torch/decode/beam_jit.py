@@ -44,8 +44,13 @@ incorrectly; with two independent 32-bit rolling hashes the probability is
 ~2^-62 per candidate pair, negligible (and covered by the equivalence
 tests).
 
-About 35 small ops a frame, each a kernel launch: on a GPU the loop is
-bound by the host's launch rate, not by the device.
+The loop launches about 83 small ops a frame (9,151 device ops for 110
+frames at B=64, K=10, C=43 under torch.profiler on an H100): on a GPU it
+is bound by the host's launch rate, not by the device.  So `beam_search`,
+which BatchedBeamDecoder calls, sends a CUDA tensor to the hand-written
+kernel of ops/beam_cuda.py (csrc/ctc_beam.cu: the whole frame loop in one
+launch, one block a row, the same sequences) and a CPU tensor to
+`beam_search_batch`, the plain version.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from mdd_tpu_torch.ops.beam_cuda import ctc_beam_kernel
 
 NEG_INF = -1e30
 _MUL1 = 1000003
@@ -71,9 +78,11 @@ def beam_search_batch(
     blank: int,
     blank_skip_threshold: float,
     n_frames: int | None = None,
+    return_scores: bool = False,
 ):
     """-> (best prefixes (B, T) int64, their lengths (B,) int64), on
-    log_probs' device.  `n_frames` bounds the loop: frames from there on
+    log_probs' device, and with `return_scores` the best beams' normalised
+    scores (B,) float32.  `n_frames` bounds the loop: frames from there on
     must lie past every row's length (they would be skipped anyway)."""
     B, T, C = log_probs.shape
     K = beam_width
@@ -192,7 +201,24 @@ def beam_search_batch(
     best = torch.argmax(norm, dim=1)                               # first max
     best_prefix = torch.gather(
         prefixes, 1, best[:, None, None].expand(B, 1, T))[:, 0]
-    return best_prefix, torch.gather(lens, 1, best[:, None])[:, 0]
+    best_len = torch.gather(lens, 1, best[:, None])[:, 0]
+    if return_scores:
+        score = torch.gather(norm, 1, best[:, None])[:, 0]
+        return best_prefix, best_len, score
+    return best_prefix, best_len
+
+
+def beam_search(log_probs: torch.Tensor, lengths: torch.Tensor,
+                lm_matrix: torch.Tensor, beam_width: int, blank: int,
+                blank_skip_threshold: float, n_frames: int | None = None):
+    """beam_search_batch's result: the kernel on CUDA tensors (one launch;
+    it bounds each row's loop by its own length, so `n_frames` is for the
+    plain version), the plain version on CPU tensors."""
+    if log_probs.device.type == "cpu":
+        return beam_search_batch(log_probs, lengths, lm_matrix, beam_width,
+                                 blank, blank_skip_threshold, n_frames)
+    return ctc_beam_kernel(log_probs.contiguous(), lengths, lm_matrix,
+                           beam_width, blank, blank_skip_threshold)
 
 
 class BatchedBeamDecoder:
@@ -244,7 +270,7 @@ class BatchedBeamDecoder:
         if self.lm_matrix.device != lp.device:
             self.lm_matrix = self.lm_matrix.to(lp.device)
         host_lengths = np.asarray(lengths, np.int64).reshape(-1)
-        prefixes, lens = beam_search_batch(
+        prefixes, lens = beam_search(
             lp, torch.from_numpy(host_lengths).to(lp.device), self.lm_matrix,
             beam_width=self.beam_width, blank=self.blank,
             blank_skip_threshold=self.blank_skip_threshold,

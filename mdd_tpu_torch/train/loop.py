@@ -53,7 +53,7 @@ from mdd_tpu_torch.frontend.augment import apply_spec_augment_masks
 from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
 from mdd_tpu_torch.ops.ctc_loss import ctc_loss
-from mdd_tpu_torch.ops.wer import greedy_wer_counts
+from mdd_tpu_torch.ops.wer_cuda import greedy_wer
 from mdd_tpu_torch.parallel import mesh
 from mdd_tpu_torch.train.checkpoint import (checkpoint_format,
                                             load_checkpoint,
@@ -179,8 +179,7 @@ class Trainer:
         count = mesh.all_reduce_sum(maskf.sum().detach())
         loss = (nll * maskf).sum() / count.clamp_min(1.0)
         ids = log_probs.detach().argmax(dim=-1).transpose(0, 1)
-        errs, tokens = greedy_wer_counts(ids, input_sizes, targets, tsizes,
-                                         mask)
+        errs, tokens = greedy_wer(ids, input_sizes, targets, tsizes, mask)
         return loss, errs, tokens
 
     @staticmethod

@@ -20,6 +20,7 @@ from mdd_tpu_torch.decode import beam_jit, lm_train
 from mdd_tpu_torch.decode.arpa import ArpaBigramLM, UniformLM
 from mdd_tpu_torch.decode.beam import BeamSearchDecoder
 from mdd_tpu_torch.decode.beam_jit import BatchedBeamDecoder
+from mdd_tpu_torch.ops import beam_cuda
 
 UNITS = ["sil", "aa", "bb", "cc", "dd"]
 
@@ -122,6 +123,93 @@ def test_beams_return_identical_sequences(name, arpa_path):
     assert device.decode_phones(probs, lengths) == [
         [vocab.index2word[i] for i in s] for s in got]
     assert device.decode_log(np.log(probs), lengths) == got
+
+
+def test_beam_search_sends_cpu_tensors_to_the_plain_version(arpa_path,
+                                                          monkeypatch):
+    """BatchedBeamDecoder's dispatcher on CPU tensors: the plain loop, no
+    launch, and mdd_tpu's sequences (scenario with_lm's inputs)."""
+    def refuse(*_, **__):
+        raise AssertionError("a CPU tensor reached the beam kernel")
+    monkeypatch.setattr(beam_jit, "ctc_beam_kernel", refuse)
+    seed, b, t, boost, lengths, width, _ = SCENARIOS["with_lm"]
+    vocab = Vocab(UNITS)
+    probs = _random_probs(np.random.default_rng(seed), b, t, vocab.n_words,
+                          boost)
+    got = BatchedBeamDecoder(vocab.index2word, beam_width=width,
+                             lm=ArpaBigramLM(arpa_path), lm_alpha=0.5,
+                             device="cpu").decode(probs, lengths)
+    assert got == JaxBatchedBeam(vocab.index2word, beam_width=width,
+                                 lm=JaxArpa(arpa_path), lm_alpha=0.5).decode(
+        probs, lengths)
+    lp = torch.log(torch.from_numpy(probs).clamp_min(1e-38))
+    lm = torch.from_numpy(np.asarray(ArpaBigramLM(arpa_path).dense_matrix(
+        vocab.index2word) * 0.5, np.float32))
+    args = (lp, torch.tensor(lengths), lm, width, 0, 0.1)
+    out, want = beam_jit.beam_search(*args), beam_jit.beam_search_batch(*args)
+    assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+@pytest.mark.parametrize("with_lm", [False, True])
+@pytest.mark.parametrize("n_units,width", [(5, 10), (5, 4), (41, 10)])
+def test_merge_finds_at_most_one_extension_per_stay(with_lm, n_units, width,
+                                                    monkeypatch):
+    """The property the kernel's merge relies on, in the plain version:
+    every column of the (K*C, K) collision matrix m (read where the
+    masked log-sum-exp sees it: the entries that are not -inf) holds at
+    most one True, so a stay gains from one extension at most."""
+    rng = np.random.default_rng(n_units + width + with_lm)
+    c = n_units + 2
+    lp = torch.from_numpy(rng.standard_normal((4, 30, c)).astype(
+        np.float32)).log_softmax(-1)
+    lm = (torch.from_numpy((np.log(rng.dirichlet(np.ones(c + 1), c + 1))
+                            * 0.5).astype(np.float32)) if with_lm
+          else torch.zeros(c + 1, c + 1))
+    columns = []
+    logsumexp = torch.logsumexp
+
+    def seen(x, dim):
+        columns.append((x > -float("inf")).sum(dim=dim).max().item())
+        return logsumexp(x, dim=dim)
+    monkeypatch.setattr(torch, "logsumexp", seen)
+    beam_jit.beam_search_batch(lp, torch.tensor([30, 30, 17, 1]), lm, width,
+                               0, 0.1)
+    assert len(columns) == 30 and max(columns) <= 1 and max(columns) == 1
+
+
+_GOOD_BEAM = dict(log_probs=torch.zeros((2, 6, 7)),
+                  lengths=torch.full((2,), 6, dtype=torch.int64),
+                  lm_matrix=torch.zeros((8, 8)), beam_width=4, blank=0)
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    (dict(log_probs=torch.zeros((2, 6, 7), dtype=torch.float64)), TypeError,
+     "log_probs"),
+    (dict(lengths=torch.full((2,), 6, dtype=torch.int32)), TypeError,
+     "lengths"),
+    (dict(log_probs=torch.zeros((6, 2, 7)).transpose(0, 1)), ValueError,
+     "contiguous"),
+    (dict(lengths=torch.full((3,), 6, dtype=torch.int64)), ValueError,
+     "lengths must be"),
+    (dict(beam_width=17), ValueError, "beam width"),
+    (dict(beam_width=0), ValueError, "beam width"),
+    (dict(log_probs=torch.zeros((2, 6, 65)), lm_matrix=torch.zeros((66, 66))),
+     ValueError, "classes"),
+    (dict(lm_matrix=torch.zeros((6, 6))), ValueError, "LM matrix"),
+    (dict(lm_matrix=torch.zeros((8, 9))), ValueError, "LM matrix"),
+    (dict(blank=7), ValueError, "blank"),
+    ({}, ValueError, "CUDA tensors"),
+])
+def test_beam_kernel_wrapper_refuses_on_the_cpu(bad, error, match):
+    """Every refusal of the kernel's wrapper shows on CPU tensors, before
+    any build or launch (the device is checked last): K <= 16, C <= 64,
+    a square LM matrix of side C to 65."""
+    kernel = beam_cuda.CtcBeamKernel()
+    args = {**_GOOD_BEAM, **bad}
+    with pytest.raises(error, match=match):
+        kernel(args["log_probs"], args["lengths"], args["lm_matrix"],
+               args["beam_width"], args["blank"], 0.1)
+    assert kernel.launches == 0 and kernel._lib is None
 
 
 def test_peaky_probabilities_decode_as_greedy():

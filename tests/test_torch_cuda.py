@@ -7,6 +7,7 @@ No JAX here, so the file runs on a GPU machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
 import sys
 import threading
 
@@ -494,3 +495,267 @@ def test_dropout_kernel_on_a_second_card(second_card):
     assert out.device == second_card and torch.cuda.current_device() == 0
     assert torch.equal(out, dropout_cuda.fused_dropout_reference(x, seed,
                                                                  0.2))
+
+
+# ------------------------------------------- the train WER and the beam
+def _wer_inputs(b, t, l, seed, case="random"):
+    """Seeded greedy-WER inputs on the card (chip_smoke.py's recipe): ids
+    over 43 classes with blanks and repeats, frames in [1, t], sizes in
+    [0, l], a sixth of the rows invalid."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, 43, (b, t), generator=g)
+    ids[torch.rand((b, t), generator=g) < 0.33] = 0
+    repeat = torch.rand((b, t - 1), generator=g) < 0.3
+    ids[:, 1:] = torch.where(repeat, ids[:, :-1], ids[:, 1:])
+    frames = torch.randint(1, t + 1, (b,), generator=g)
+    targets = torch.randint(1, 43, (b, l), generator=g)
+    sizes = torch.randint(0, l + 1, (b,), generator=g)
+    valid = torch.rand(b, generator=g) > 1 / 6
+    if case == "no-frames":
+        frames[: b // 2] = 0
+    if case == "no-targets":
+        sizes[: b // 2] = 0
+    if case == "all-blank":
+        ids[: b // 2] = 0
+    ids = ids.cuda()
+    if case == "strided":           # the train step's argmax transposed
+        ids = ids.t().contiguous().t()
+    return ids, frames.cuda(), targets.cuda(), sizes.cuda(), valid.cuda()
+
+
+WER_SHAPES = [(64, 110, 40, "random"), (64, 47, 16, "random"),
+              (64, 80, 40, "strided"), (512, 80, 40, "random"),
+              (16, 60, 24, "no-frames"), (16, 60, 24, "no-targets"),
+              (16, 60, 24, "all-blank"), (8, 300, 1023, "random"),
+              (3, 20, 0, "random"), (5, 33, 31, "random"),
+              (5, 33, 32, "random")]
+
+
+@pytest.mark.parametrize("b,t,l,case", WER_SHAPES)
+def test_wer_kernel_equals_plain_version(cuda, b, t, l, case):
+    """Integers only: the counts equal the plain loop's exactly."""
+    from mdd_tpu_torch.ops import wer_cuda
+    from mdd_tpu_torch.ops.wer import greedy_wer_counts
+
+    args = _wer_inputs(b, t, l, seed=b + t + l, case=case)
+    before = wer_cuda.greedy_wer_kernel.launches
+    got = wer_cuda.greedy_wer(*args)
+    torch.cuda.synchronize()
+    assert wer_cuda.greedy_wer_kernel.launches == before + 1
+    assert [int(v) for v in got] == [int(v) for v in
+                                     greedy_wer_counts(*args)]
+
+
+def test_wer_kernel_is_the_same_from_run_to_run(cuda):
+    from mdd_tpu_torch.ops import wer_cuda
+
+    args = _wer_inputs(64, 110, 40, seed=1)
+    first = wer_cuda.greedy_wer_kernel(*args)
+    for _ in range(3):
+        again = wer_cuda.greedy_wer_kernel(*args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_wer_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from mdd_tpu_torch.ops import wer_cuda
+
+    ids, frames, targets, sizes, valid = _wer_inputs(4, 20, 8, seed=2)
+    kernel = wer_cuda.greedy_wer_kernel
+    with pytest.raises(TypeError):
+        kernel(ids.int(), frames, targets, sizes, valid)
+    with pytest.raises(ValueError, match="1023"):
+        kernel(ids, frames, torch.ones((4, 1024), dtype=torch.int64,
+                                       device="cuda"), sizes, valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(ids, torch.stack([frames, frames], 1)[:, 0], targets, sizes,
+               valid)
+    with pytest.raises(ValueError, match="lies on"):
+        kernel(ids, frames.cpu(), targets, sizes, valid)
+
+
+def _beam_inputs(b, t, c, seed, lm=False, case="random"):
+    """Seeded log-probs (blank-boosted, or one-hot clamped at 1e-38),
+    lengths and a dense LM matrix (log of seeded Dirichlet rows times
+    0.5, or zeros) on the card."""
+    rng = np.random.default_rng(seed)
+    if case == "peaky":
+        ids = rng.integers(0, c, (b, t))
+        ids[rng.random((b, t)) < 0.5] = 0
+        probs = np.zeros((b, t, c), np.float32)
+        np.put_along_axis(probs, ids[..., None], 1.0, -1)
+        lp = np.log(np.maximum(probs, 1e-38))
+    else:
+        logits = rng.standard_normal((b, t, c)).astype(np.float32)
+        logits[:, :, 0] += 1.5
+        lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    lengths = rng.integers(0, t + 1, b) if case == "ragged" else np.full(b, t)
+    matrix = (np.log(rng.dirichlet(np.ones(c + 1), c + 1)) * 0.5 if lm
+              else np.zeros((c + 1, c + 1)))
+    return (torch.from_numpy(lp.astype(np.float32)).cuda(),
+            torch.from_numpy(lengths.astype(np.int64)).cuda(),
+            torch.from_numpy(matrix.astype(np.float32)).cuda())
+
+
+# (B, T', C, K, LM, case): profile-evaluate's shape with and without the
+# LM, benchmark's 512 x 80, ragged lengths, B=1, K=1, K=16, the limits,
+# one-hot posteriors
+BEAM_SHAPES = [(64, 110, 43, 10, False, "random"),
+               (64, 110, 43, 10, True, "random"),
+               (512, 80, 43, 10, False, "random"),
+               (64, 110, 43, 10, True, "ragged"),
+               (1, 110, 43, 10, False, "random"),
+               (64, 110, 43, 1, False, "random"),
+               (64, 110, 43, 16, True, "random"),
+               (16, 80, 64, 16, True, "random"),
+               (64, 110, 43, 10, False, "peaky"),
+               (8, 24, 5, 10, True, "random")]
+
+
+@pytest.mark.parametrize("b,t,c,k,lm,case", BEAM_SHAPES)
+def test_beam_kernel_matches_plain_version(cuda, b, t, c, k, lm, case):
+    """The plain version's float order: at least 99% of the sequences
+    identical (all, so far) and a token error under 0.002."""
+    from mdd_tpu_torch.align.levenshtein import edit_distance
+    from mdd_tpu_torch.decode.beam_jit import beam_search_batch
+    from mdd_tpu_torch.ops import beam_cuda
+
+    lp, lengths, matrix = _beam_inputs(b, t, c, seed=b + t + c + k, lm=lm,
+                                       case=case)
+    before = beam_cuda.ctc_beam_kernel.launches
+    pre, lens = beam_cuda.ctc_beam_kernel(lp, lengths, matrix, k, 0, 0.1)
+    torch.cuda.synchronize()
+    assert beam_cuda.ctc_beam_kernel.launches == before + 1
+    ref, ref_lens = beam_search_batch(lp, lengths, matrix, k, 0, 0.1)
+    got = [pre[i, :lens[i]].tolist() for i in range(b)]
+    want = [ref[i, :ref_lens[i]].tolist() for i in range(b)]
+    same = sum(x == y for x, y in zip(got, want))
+    assert same >= 0.99 * b
+    edits = sum(edit_distance(x, y)[0] for x, y in zip(got, want))
+    assert edits <= 0.002 * sum(len(y) for y in want)
+    tail = torch.arange(t, device="cuda")[None] >= lens[:, None]
+    assert not pre[tail].any()
+
+
+def test_beam_kernel_is_the_same_from_run_to_run(cuda):
+    from mdd_tpu_torch.ops import beam_cuda
+
+    lp, lengths, matrix = _beam_inputs(64, 110, 43, seed=3, lm=True)
+    first = beam_cuda.ctc_beam_kernel(lp, lengths, matrix, 10, 0, 0.1,
+                                      scores=True)
+    for _ in range(3):
+        again = beam_cuda.ctc_beam_kernel(lp, lengths, matrix, 10, 0, 0.1,
+                                          scores=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_beam_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from mdd_tpu_torch.ops import beam_cuda
+
+    lp, lengths, matrix = _beam_inputs(4, 20, 43, seed=4)
+    kernel = beam_cuda.ctc_beam_kernel
+    with pytest.raises(ValueError, match="beam width"):
+        kernel(lp, lengths, matrix, 17, 0, 0.1)
+    with pytest.raises(TypeError):
+        kernel(lp.double(), lengths, matrix, 10, 0, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel(lp.transpose(0, 1), lengths, matrix, 10, 0, 0.1)
+    with pytest.raises(ValueError, match="classes"):
+        wide, _, wide_lm = _beam_inputs(4, 20, 65, seed=4)
+        kernel(wide, lengths, wide_lm, 10, 0, 0.1)
+    with pytest.raises(ValueError, match="LM matrix"):
+        kernel(lp, lengths, matrix[:42, :42].contiguous(), 10, 0, 0.1)
+
+
+def test_new_kernels_launch_through_a_device_without_an_index(cuda):
+    """torch.device("cuda") names the current device: each binding launches
+    there (the wrappers pass their tensors' devices, which carry one)."""
+    from mdd_tpu_torch.decode.beam_jit import beam_search_batch
+    from mdd_tpu_torch.ops import beam_cuda, wer_cuda
+    from mdd_tpu_torch.ops.wer import greedy_wer_counts
+
+    ids, frames, targets, sizes, valid = _wer_inputs(8, 30, 10, seed=5)
+    dist = torch.empty(8, dtype=torch.int64, device="cuda")
+    counts = torch.zeros(2, dtype=torch.int64, device="cuda")
+    wer_cuda.greedy_wer_kernel._launch(
+        torch.device("cuda"), ids.data_ptr(), ids.stride(0), ids.stride(1),
+        frames.data_ptr(), targets.data_ptr(), targets.stride(0),
+        targets.stride(1), sizes.data_ptr(), valid.data_ptr(), 8, 30, 10, 0,
+        dist.data_ptr(), counts.data_ptr())
+    torch.cuda.synchronize()
+    assert counts.tolist() == [int(v) for v in greedy_wer_counts(
+        ids, frames, targets, sizes, valid)]
+
+    lp, lengths, matrix = _beam_inputs(4, 30, 43, seed=5)
+    pre = torch.empty((4, 30), dtype=torch.int64, device="cuda")
+    lens = torch.empty(4, dtype=torch.int64, device="cuda")
+    norm = torch.empty(4, dtype=torch.float32, device="cuda")
+    back = torch.empty(4 * 30 * 10, dtype=torch.int16, device="cuda")
+    beam_cuda.ctc_beam_kernel._launch(
+        torch.device("cuda"), lp.data_ptr(), lengths.data_ptr(),
+        matrix.data_ptr(), pre.data_ptr(), lens.data_ptr(), norm.data_ptr(),
+        back.data_ptr(), 4, 30, 43, 44, 10, 0, 0.1, math.log(0.9))
+    torch.cuda.synchronize()
+    ref, ref_lens = beam_search_batch(lp, lengths, matrix, 10, 0, 0.1)
+    assert torch.equal(lens, ref_lens) and torch.equal(pre, ref)
+
+
+def test_wer_and_beam_kernels_on_a_second_card(second_card):
+    from mdd_tpu_torch.decode.beam_jit import beam_search_batch
+    from mdd_tpu_torch.ops import beam_cuda, wer_cuda
+    from mdd_tpu_torch.ops.wer import greedy_wer_counts
+
+    args = [a.to(second_card) for a in _wer_inputs(64, 110, 40, seed=6)]
+    got = wer_cuda.greedy_wer(*args)
+    torch.cuda.synchronize(second_card)
+    assert got[0].device == second_card
+    assert torch.cuda.current_device() == 0
+    assert [int(v) for v in got] == [int(v) for v in
+                                     greedy_wer_counts(*args)]
+    lp, lengths, matrix = (a.to(second_card) for a in
+                           _beam_inputs(64, 110, 43, seed=6, lm=True))
+    pre, lens = beam_cuda.ctc_beam_kernel(lp, lengths, matrix, 10, 0, 0.1)
+    torch.cuda.synchronize(second_card)
+    ref, ref_lens = beam_search_batch(lp, lengths, matrix, 10, 0, 0.1)
+    assert pre.device == second_card and torch.cuda.current_device() == 0
+    assert torch.equal(lens, ref_lens) and torch.equal(pre, ref)
+
+
+def test_trainer_and_eval_session_on_the_card_launch_both_kernels(cuda):
+    """A Trainer's step launches the WER kernel once; an EvalSession with
+    the beam decoder launches the beam kernel once a batch."""
+    from mdd_tpu_torch.data.dataset import Batch
+    from mdd_tpu_torch.data.vocab import Vocab
+    from mdd_tpu_torch.evals.evaluate import EvalSession
+    from mdd_tpu_torch.models.ctc_model import ModelConfig
+    from mdd_tpu_torch.ops import beam_cuda, wer_cuda
+    from mdd_tpu_torch.train.loop import Trainer
+
+    vocab = Vocab(["sil", "aa", "bb", "cc", "dd", "ee"])
+    cfg = ModelConfig(input_dim=24, num_class=vocab.n_words,
+                      conv_channels=(4, 4), rnn_hidden_size=16,
+                      rnn_layers=2, text_embed_size=8, text_vocab_size=16,
+                      dropout=0.0)
+    rng = np.random.default_rng(7)
+    b, t, l = 4, 40, 6
+    batch = Batch(
+        inputs=rng.standard_normal((b, t, 24)).astype(np.float32),
+        input_fracs=np.array([1.0, 0.9, 0.8, 1.0], np.float32),
+        targets=rng.integers(2, vocab.n_words, (b, l)).astype(np.int32),
+        target_sizes=np.array([6, 5, 4, 6], np.int32),
+        trans=rng.integers(2, 16, (b, l)).astype(np.int32),
+        trans_sizes=np.array([6, 5, 4, 6], np.int32),
+        utt_ids=[f"u{i}" for i in range(b)])
+    trainer = Trainer(cfg, device="cuda")
+    wer_before = wer_cuda.greedy_wer_kernel.launches
+    acc = trainer.train_step(trainer.batch_arrays(batch, np.ones(b, bool)),
+                             torch.zeros(4, device="cuda"))
+    torch.cuda.synchronize()
+    assert wer_cuda.greedy_wer_kernel.launches == wer_before + 1
+    assert acc[2].item() == 21           # the reference tokens
+    session = EvalSession(cfg, trainer.model.state_dict(), vocab,
+                          decode_type="Beam", beam_width=4, device="cuda")
+    beam_before = beam_cuda.ctc_beam_kernel.launches
+    decoded, frames = session.decode_batch(batch)
+    torch.cuda.synchronize()
+    assert beam_cuda.ctc_beam_kernel.launches == beam_before + 1
+    assert len(decoded) == b and (frames > 0).all()

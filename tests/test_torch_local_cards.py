@@ -321,7 +321,9 @@ def test_a_stopped_launcher_stops_every_rank(tmp_path, sig):
                              RANK], cwd=REPO,
                             env=dict(os.environ, PYTHONPATH=str(REPO)))
     deadline = time.monotonic() + TIMEOUT
-    while not all((tmp_path / f"pid{r}").exists() for r in (0, 1)):
+    # a rank creates its pid file, then writes it: wait for the number
+    while not all((tmp_path / f"pid{r}").exists()
+                  and (tmp_path / f"pid{r}").read_text() for r in (0, 1)):
         assert time.monotonic() < deadline and proc.poll() is None
         time.sleep(0.05)
     pids = [int((tmp_path / f"pid{r}").read_text()) for r in (0, 1)]

@@ -28,7 +28,7 @@ from mdd_tpu_torch.data.dataset import pad_batch_to
 from mdd_tpu_torch.data.vocab import Vocab
 from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import BatchNorm, ModelConfig
-from mdd_tpu_torch.ops import ctc_loss, wer
+from mdd_tpu_torch.ops import ctc_loss, wer, wer_cuda
 from mdd_tpu_torch.train.loop import Trainer
 from mdd_tpu_torch.train.plateau import PlateauAction, PlateauScheduler
 from test_torch_data import UNITS, write_corpus
@@ -139,6 +139,78 @@ def test_greedy_wer_counts_match_jax():
     dist_t = wer.batched_edit_distance(*(torch.from_numpy(a) for a in
                                          (ids, frames, targets, tsizes)))
     np.testing.assert_array_equal(dist_t.numpy(), np.asarray(dist_j))
+
+
+def _wer_case(case: str):
+    """(ids, frames, targets, target_sizes, valid) numpy at the shape of
+    test_greedy_wer_counts_match_jax (one compile of mdd_tpu's scan)."""
+    rng = np.random.default_rng(5)
+    b, t, l = 6, 20, 7
+    ids = rng.integers(0, 5, (b, t)).astype(np.int64)
+    frames = rng.integers(1, t + 1, b).astype(np.int64)
+    targets = rng.integers(1, 5, (b, l)).astype(np.int64)
+    tsizes = rng.integers(0, l + 1, b).astype(np.int64)
+    valid = np.array([1, 1, 0, 1, 1, 1], bool)
+    if case == "no-frames":
+        frames[:3] = 0
+    if case == "no-targets":
+        tsizes[:3] = 0
+    if case == "all-blank":
+        ids[:3] = 0
+    if case == "frames-past-the-width":
+        frames[:] = t + 5
+    return ids, frames, targets, tsizes, valid
+
+
+@pytest.mark.parametrize("case", ["random", "no-frames", "no-targets",
+                                  "all-blank", "frames-past-the-width",
+                                  "transposed-ids"])
+def test_greedy_wer_sends_cpu_tensors_to_the_plain_version(case,
+                                                           monkeypatch):
+    """The train step's WER dispatcher on CPU tensors: the plain loop, no
+    launch, and mdd_tpu's counts (the transposed ids are the step's
+    argmax(-1).transpose(0, 1))."""
+    def refuse(*_, **__):
+        raise AssertionError("a CPU tensor reached the WER kernel")
+    monkeypatch.setattr(wer_cuda, "greedy_wer_kernel", refuse)
+    arrays = _wer_case("random" if case == "transposed-ids" else case)
+    ref = jax_wer.greedy_wer_counts(*arrays)
+    args = [torch.from_numpy(a) for a in arrays]
+    if case == "transposed-ids":
+        args[0] = args[0].t().contiguous().t()
+    out = wer_cuda.greedy_wer(*args)
+    assert [int(v) for v in out] == [int(v) for v in ref]
+
+
+_GOOD_WER = dict(ids=torch.zeros((3, 5), dtype=torch.int64),
+                 frames=torch.ones(3, dtype=torch.int64),
+                 targets=torch.ones((3, 4), dtype=torch.int64),
+                 target_sizes=torch.ones(3, dtype=torch.int64),
+                 valid=torch.ones(3, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    (dict(ids=torch.zeros((3, 5), dtype=torch.int32)), TypeError, "ids"),
+    (dict(frames=torch.ones(3)), TypeError, "frames"),
+    (dict(valid=torch.ones(3, dtype=torch.int64)), TypeError, "valid"),
+    (dict(targets=torch.ones(4, dtype=torch.int64)), ValueError, "2-D"),
+    (dict(targets=torch.ones((3, 1024), dtype=torch.int64)), ValueError,
+     "1023"),
+    (dict(frames=torch.ones((3, 2), dtype=torch.int64)[:, 0]), ValueError,
+     "contiguous"),
+    (dict(target_sizes=torch.ones(4, dtype=torch.int64)), ValueError,
+     "batch size"),
+    (dict(ids=torch.zeros((0, 5), dtype=torch.int64),
+          frames=torch.ones(0, dtype=torch.int64)), ValueError, "one row"),
+    ({}, ValueError, "CUDA tensors"),
+])
+def test_wer_kernel_wrapper_refuses_on_the_cpu(bad, error, match):
+    """Every refusal of the kernel's wrapper shows on CPU tensors, before
+    any build or launch (the device is checked last)."""
+    kernel = wer_cuda.GreedyWerKernel()
+    with pytest.raises(error, match=match):
+        kernel(**{**_GOOD_WER, **bad})
+    assert kernel.launches == 0 and kernel._lib is None
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
