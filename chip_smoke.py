@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py            # from the repo root, on a machine with a card
 
-Phases, each printed as it ends; any failure raises and exits non-zero:
+Phases, each printed as it ends; any failure raises and exits non-zero.
+A float32 forward of the flagship model launches lstm_fwd 5 times (4
+acoustic BiLSTM layers and the text BiLSTM) and its train step lstm_bwd 5
+times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
+
 
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
             lstm_fwd.cu, lstm_bwd.cu, dropout.cu, wer.cu, ctc_beam.cu,
-            and mma_rate.cu (the
+            ctc_loss.cu and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
             the model's path); g++ the host C++ sources at the same time:
             denoise.cc (the denoiser library and the mdd_denoise tool) and
@@ -45,6 +49,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             every prefix, the same bits twice; 16 rows against the host
             beam (decode/beam.py) at BEAM_MATCH; then its time against the
             plain loop's at profile-evaluate's shape (in turns).
+3d. kernel-ctc  ctc_alpha and ctc_beta_grad (csrc/ctc_loss.cu, the CTC
+            loss's two recursions and its gradient) against
+            ops/ctc_cuda's plain versions on the card: the train cell's
+            shapes (B=64, T' 47-110, L 16-40; the step's transposed
+            log-probs), benchmark's 512 x 80, input lengths 0 and 1, label
+            lengths 0, a row no alignment fits, repeated (padded) rows,
+            T'=1, L=0 and L=511 (S=1023, the largest the wrapper takes):
+            nll within 1e-5 relative, the alphas of each row's frames and
+            the gradient within 1e-5, the same bits twice; then their times
+            at B=64, T'=110, L=40 against the plain versions' and
+            F.ctc_loss's (the yardstick: forward, and forward + backward,
+            its host syncs included), in turns, the bound and us a frame.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -54,7 +70,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             utterance of T'=80: the 6 activations of mdd_tpu's list
             (conv, rnn0's dropout and output, rnn1's BatchNorm, dropout
             and output) and the log-probs on the kernel against the plain
-            LSTM within phase model's tolerance, lstm_fwd launched 4
+            LSTM within phase model's tolerance, lstm_fwd launched 5
             times (zeroed just before); then visualize_utterance writes
             its 8 PNGs, or raises the ImportError that names matplotlib
             where it is missing.
@@ -64,8 +80,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             mdd_tpu_torch serve` in-process on JSON request lines that carry
             their canonical phones, and the engine it builds on groups that
             batch 1, 4 and 16 requests.  Every response must be ok; the
-            kernel's launch counter, zeroed just before, must cover all 4
-            acoustic layers of every forward.
+            kernel's launch counter, zeroed just before, must cover all 5
+            BiLSTM layers of every forward; then, not gating, the batch-1
+            p50 with the text BiLSTM on the kernels against the plain
+            loop, in turns.
 6. lexicon  the lexicon and the product entry points on phase 5's files:
             CMUdict, IPA, phonics and ECDICT files of 8 prompt words typed
             in (a ninth word is in no dictionary), then `python -m
@@ -76,7 +94,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             one dump line per pair; `serve --warmup --max-batch 4` on
             word-only requests (one with a canonical override): every
             response ok with its IPA, translation and phonics, no group past
-            4; lstm_fwd launches, zeroed before each, covering 4 layers of
+            4; lstm_fwd launches, zeroed before each, covering 5 layers of
             every forward.  Then, not gating: p50 batch-1 latency of
             word-only against canonical-carrying requests in turns, the
             lexicon's host time a word, and the first lookup's load of a
@@ -89,16 +107,16 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             written; `bulk_load` of the fbank ark through the native reader
             equal bit for bit to the Python pass, both timed.  (b) `infer`
             with its default --denoise over phase 6's pairs: one report a
-            pair, the RTF lines, lstm_fwd launched 4 times a forward; the
+            pair, the RTF lines, lstm_fwd launched 5 times a forward; the
             denoiser raises the SNR of a seeded noisy tone by 3 dB; its
             host ms per audio-second.  (c) `serve --socket 127.0.0.1:0
             --max-batch 16 --warmup` and `serve --socket PATH` in threads:
             4 TCP clients x 16 requests and a unix client x 8 at once,
             every answer ok and equal to its solo answer on the decoded and
-            canonical rows, faults and score, no group past 16, lstm_fwd 4
+            canonical rows, faults and score, no group past 16, lstm_fwd 5
             times a forward, 0.0.0.0 refused, and a client that stops
             reading dropped while another's answers come within 2 s.  (d)
-            Not gating: the port's serve_loadtest for 15 s at 1, 4 and 16
+            Not gating: the port's serve_loadtest for 10 s at 1, 4 and 16
             clients, denoise on and off: p50 / p90 / p99 and requests/s.
 8. profile  torch.profiler over batch-1 requests: device busy share and
             the kernels that take the device time.
@@ -112,9 +130,13 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             in-process for one epoch and `--resume` for a second.  Losses
             finite and falling, `best` and `latest` on disk, the launch
             counters (zeroed just before) covering every layer of every
-            step, and greedy_wer once a train or validation step; then
-            the step time at B=64, and the step median with the WER on
-            its kernel against the plain loop, in turns.
+            step, greedy_wer and ctc_alpha once a train or validation step
+            and ctc_beta_grad once a train step; then the step time at
+            B=64, the step median with the WER on its kernel against the
+            plain loop, in turns, and with the text BiLSTM on the kernels
+            or the plain loop and the loss on the CTC kernels or
+            F.ctc_loss (four ways, in turns: `model.text.lstm.rnn` and
+            `train.loop.ctc_loss` swapped in the script).
 10a. train-strict  `python -m mdd_tpu_torch train` as a fresh process
             (nothing of this script runs in it) for one epoch of that
             corpus: the Trainer's first line must state TF32 off for
@@ -150,8 +172,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             new epoch, and `latest/` read back through the Adam map equal
             to the trainer's last `latest` bit for bit; the launch
             counters cover every layer of every step.
-11. profile-train  torch.profiler over 3 train steps: device busy share and
-            the ops that take the device time.
+11. profile-train  torch.profiler over 3 train steps, on the kernels and
+            as before them (the text BiLSTM's plain loop, F.ctc_loss):
+            device busy share, the ops that take the device time, device
+            ops and host syncs a step.
 12. timing  one BiLSTM layer at B=1, 16 and 64, T'=80: the forward kernel
             (and its plan), its plain version, its bound, the port's layer
             and one torch.nn.LSTM call (a whole layer, the yardstick); the
@@ -184,7 +208,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             median; then 3 steps of that model at bench.py's cell (B=512 x
             160 frames, the largest batch a train step gives the dropout
             kernel): losses finite, fused_dropout 12 and lstm_bwd 4 counts
-            a step, the step times.
+            a step, the step times; then the step median there with the
+            loss on the CTC kernels against F.ctc_loss, in turns.
 16. train-cached  the training path on the device-resident corpus: a
             hard-profile corpus (512 / 64 / 64 utterances of 16-40 phones,
             the recovered 41-unit inventory) from `python -m
@@ -205,7 +230,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             Greedy`, and `mdd-result` on the beam + LM dumps, all
             in-process: the reports parse, the canonical total equals the
             dump's phones, mdd-result's PER is evaluate's, lstm_fwd
-            launched 4 times a forward, ctc_beam once a batch of the two
+            launched 5 times a forward, ctc_beam once a batch of the two
             beam passes, the three PERs close; on one
             batch of that model's log-probs the
             device beam against the host beam (decode/beam.py), at least
@@ -216,7 +241,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             utterance alike, reports and dump lines equal; at B=64, where
             the cache groups utterances by bucket, every utterance padded
             alike decodes alike (the model's outputs depend on the
-            padding); lstm_fwd launched 4 times a forward.
+            padding); lstm_fwd launched 5 times a forward.
 19. profile-evaluate  evaluate_model over the 512 training utterances:
             utterances per second of beam + LM on the beam kernel and on
             the plain frame loop (in turns) and of greedy, and
@@ -238,10 +263,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             row-sharded device cache: the ranks' logged losses equal bit
             for bit, the train losses within 1e-4 of one process's, the dev
             loss within 3e-4 (DDP_DEV_RTOL says why); (b) 2 x 32 with
-            dropout 0.2 through the fused kernel: per rank, lstm_fwd 4 a
-            forward, lstm_bwd 4 and fused_dropout 12 a train step; (c)
+            dropout 0.2 through the fused kernel: per rank, lstm_fwd 5 a
+            forward, lstm_bwd 5 and fused_dropout 12 a train step; (c)
             `evaluate --distributed` (beam + LM) on train-fused's `best`,
-            2 ranks against one process (per rank lstm_fwd 4 a forward,
+            2 ranks against one process (per rank lstm_fwd 5 a forward,
             no other launch): the same tallies at batch 1, and
             utterances/s at batch 1 and 64; (d) the step medians of 1 x 64
             and 2 x 32 and the gradient all-reduce's time a step; (e) with
@@ -259,21 +284,23 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             conf/synthetic_full.yaml's decode (beam 10, no LM): at least
             99% of the 900 decodes identical to mdd_tpu's own decode of
             the split (results/syn_full_best_mdd_tpu_cpu/) and PER within
-            0.10 points of its; lstm_fwd launched 4 times a forward and
+            0.10 points of its; lstm_fwd launched 5 times a forward and
             ctc_beam once; then
             `evaluate --cached` (its agreement printed, not gating: the
             cache pads by bucket); utts/s of both; (c) `serve --checkpoint
             checkpoints/syn_full/best` in-process on phase 5's request
             lines: every answer ok and equal to the answers from a port
             `.pt` checkpoint that save_checkpoint wrote from the same state
-            dict, lstm_fwd 4 times a forward.
+            dict, lstm_fwd 5 times a forward.  Not gating: `evaluate`'s
+            utts/s with the text BiLSTM on the kernels against the plain
+            loop, in turns.
 20b. local-cards  `train` and `evaluate` over every card of the host
             from one command, as mdd_tpu's one-process mesh
             (parallel/launch.py starts a rank a card, each as RANK_BOOT).
             One card: `train` at data_parallel 0 (the flagship recipe at
             B=64, one epoch, dropout 0) runs in this process with no
-            process group (the launcher refused), lstm_fwd 4 a forward
-            and lstm_bwd 4 a step; data_parallel 2 raises make_mesh's
+            process group (the launcher refused), lstm_fwd 5 a forward
+            and lstm_bwd 5 a step; data_parallel 2 raises make_mesh's
             ValueError before any rank.  Two cards or more: that epoch
             at data_parallel 1 (one process) against 2 and 0 (every
             card; nccl, rank r on card r, B=64 shared): the ranks' losses
@@ -298,10 +325,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
             and every `extra` key of bench.py (read from its source) and
             the port's `card` and `peak_flops`; value > 0, 0 < mfu <= 1
             against the listed bf16 peak, 900 utterances in every
-            evaluation pass; lstm_fwd 4 counts a forward and lstm_bwd 4 a
-            train step over the phase (every Trainer step and evaluation
+            evaluation pass; lstm_fwd 4 counts a bfloat16 train step and
+            5 an evaluation forward of the float32 trained model, lstm_bwd
+            4 a train step over the phase (every Trainer step and evaluation
             forward counted apart), fused_dropout 0 (bench.py leaves it
-            off), greedy_wer at least once a step, ctc_beam more than once
+            off), greedy_wer at least once a step, ctc_alpha as often,
+            ctc_beta_grad once a train step, ctc_beam more than once
             an evaluation forward (the decode section's rounds too); the
             B=512 backward's recurrence plan, the line, the phase's wall
             time and peak device memory logged; then, not
@@ -628,10 +657,23 @@ def phase_kernel_staging(torch) -> None:
 # collapse + edit distance (csrc/wer.cu) and the CTC prefix beam
 # (csrc/ctc_beam.cu); each launch on a path is counted by path
 
-#: path -> launches of greedy_wer / ctc_beam on it (zeroed just before the
-#: path runs, read just after; launches that compare a kernel with its plain
-#: version are not counted)
-PATH_LAUNCHES = {"greedy_wer": {}, "ctc_beam": {}}
+#: path -> launches of greedy_wer / ctc_beam / ctc_alpha / ctc_beta_grad on
+#: it (zeroed just before the path runs, read just after; launches that
+#: compare a kernel with its plain version are not counted)
+PATH_LAUNCHES = {"greedy_wer": {}, "ctc_beam": {}, "ctc_alpha": {},
+                 "ctc_beta_grad": {}}
+#: the flagship model's acoustic BiLSTM layers
+FLAGSHIP_LAYERS = 4
+
+
+def lstm_per_pass(compute_dtype: str = "float32") -> int:
+    """lstm_fwd launches a forward (and lstm_bwd launches a train step) of
+    the flagship model with use_pallas_lstm: one an acoustic BiLSTM, and
+    in float32 one for the text BiLSTM (models/ctc_model.TextEncoder keeps
+    it on the plain loop in bfloat16)."""
+    return FLAGSHIP_LAYERS + (compute_dtype == "float32")
+
+
 #: phase kernel-wer: (name, B, T', L, seed, case); T' 47-110 and L 16-40
 #: are the train cell's, 512 x 80 benchmark's
 WER_CASES = [("train T'=110 L=40", 64, 110, 40, 0, "random"),
@@ -662,9 +704,13 @@ HOST_ROWS = 16          # kernel vs the host beam (decode/beam.py, Python)
 
 def new_kernels() -> dict:
     from mdd_tpu_torch.ops.beam_cuda import ctc_beam_kernel
+    from mdd_tpu_torch.ops.ctc_cuda import (ctc_alpha_kernel,
+                                            ctc_beta_grad_kernel)
     from mdd_tpu_torch.ops.wer_cuda import greedy_wer_kernel
 
-    return {"greedy_wer": greedy_wer_kernel, "ctc_beam": ctc_beam_kernel}
+    return {"greedy_wer": greedy_wer_kernel, "ctc_beam": ctc_beam_kernel,
+            "ctc_alpha": ctc_alpha_kernel,
+            "ctc_beta_grad": ctc_beta_grad_kernel}
 
 
 def zero_path_launches() -> None:
@@ -673,8 +719,8 @@ def zero_path_launches() -> None:
 
 
 def record_path_launches(path: str) -> dict:
-    """The greedy_wer and ctc_beam launches since zero_path_launches, kept
-    under `path`; -> them."""
+    """The launches of new_kernels() since zero_path_launches, kept under
+    `path`; -> them."""
     got = {n: k.launches for n, k in new_kernels().items()}
     for n, v in got.items():
         PATH_LAUNCHES[n][path] = PATH_LAUNCHES[n].get(path, 0) + v
@@ -759,6 +805,187 @@ def phase_kernel_wer(torch, card: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": least,
             "bound_by": by, "library_ms": None, "ms_per_frame": ms / t,
             "call_ms": host}
+
+
+#: phase kernel-ctc: (name, B, T', L, seed, case); T' 47-110 and L 16-40
+#: are the train cell's, 512 x 80 benchmark's
+CTC_CASES = [("train T'=110 L=40", 64, 110, 40, 0, "random"),
+             ("train T'=47 L=16", 64, 47, 16, 1, "random"),
+             ("train T'=110 L=40, the step's transposed log-probs", 64, 110,
+              40, 2, "strided"),
+             ("benchmark 512 x 80", 512, 80, 40, 3, "random"),
+             ("input lengths 0 and 1, label lengths 0, a row no alignment "
+              "fits", 64, 110, 40, 4, "edges"),
+             ("padded (repeated) rows", 16, 60, 24, 5, "padded"),
+             ("T'=1, L=1", 1, 1, 1, 6, "random"),
+             ("no labels (L=0)", 3, 9, 0, 7, "random"),
+             ("the largest L the wrapper takes (S=1023)", 4, 1100, 511, 8,
+              "random")]
+CTC_NLL_RTOL = 1e-5    # kernel vs plain: both take the same float steps in
+CTC_GRAD_ATOL = 1e-5   # the same order; the plain class sums use atomics
+
+
+def ctc_inputs(torch, b: int, t: int, l: int, seed: int, case: str,
+               c: int = 43):
+    """Seeded CTC inputs on the card: log-softmax of N(0, 4) logits over 43
+    classes, labels 1-42 with a sixth repeated, label lengths 16..l (the
+    train cell's 16-40), input lengths t/2..t; "edges" adds rows of input
+    length 0 and 1, label length 0 and one no alignment fits, "strided"
+    lays the log-probs out as the model's log_softmax(...).transpose(0, 1),
+    "padded" repeats a row as pad_batch_to does."""
+    g = torch.Generator().manual_seed(SEED + 200 + seed)
+    lp = torch.log_softmax(torch.randn((t, b, c), generator=g) * 2, -1)
+    labels = torch.randint(1, c, (b, max(l, 1)), generator=g)[:, :l]
+    if l > 1:
+        repeat = torch.rand((b, l - 1), generator=g) < 1 / 6
+        labels[:, 1:] = torch.where(repeat, labels[:, :-1], labels[:, 1:])
+    label_lengths = torch.randint(min(16, l), l + 1, (b,), generator=g)
+    input_lengths = torch.randint(max(1, t // 2), t + 1, (b,), generator=g)
+    if case == "edges":
+        input_lengths[:4] = torch.tensor([0, 0, 1, 1])
+        label_lengths[:6] = torch.tensor([0, 1, 0, 1, 0, l])
+        input_lengths[6] = label_lengths[6] // 2        # cannot fit
+    if case == "padded":
+        for x in (lp.transpose(0, 1), labels, label_lengths, input_lengths):
+            x[b // 2:] = x[b // 2 - 1]
+    lp = lp.cuda()
+    if case == "strided":
+        lp = lp.transpose(0, 1).contiguous().transpose(0, 1)
+    return lp, input_lengths.cuda(), labels.cuda(), label_lengths.cuda()
+
+
+def library_ctc_loss(log_probs, input_lengths, labels, label_lengths,
+                     blank: int = 0):
+    """The library loss the port called before its CTC kernels, the
+    yardstick only: F.ctc_loss(reduction="none", zero_infinity=True) plus a
+    detached 1e30 on the rows no alignment fits (fewer frames than labels
+    plus repeats), whose backward is the gradient at the logits of a
+    log_softmax (exp(log_probs) - posterior).  Its tensor-length overload
+    copies both length vectors to the host in the forward and again in
+    the backward."""
+    import torch
+    import torch.nn.functional as F
+
+    input_lengths, label_lengths = input_lengths.long(), label_lengths.long()
+    labels = labels.long()
+    nll = F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                     blank=blank, reduction="none", zero_infinity=True)
+    pos = torch.arange(1, labels.shape[1], device=labels.device)
+    repeats = ((labels[:, 1:] == labels[:, :-1])
+               & (pos[None] < label_lengths[:, None])).sum(1)
+    bad = input_lengths < label_lengths + repeats
+    return nll + 1e30 * bad.to(nll.dtype)
+
+
+def phase_kernel_ctc(torch, card: str) -> dict:
+    """ctc_alpha and ctc_beta_grad against their plain versions on the card
+    (nll within CTC_NLL_RTOL relative, the alphas of each row's frames and
+    the gradient within CTC_GRAD_ATOL, the same bits twice); their times at
+    B=64, T'=110, L=40 against the plain versions' and F.ctc_loss's, in
+    turns.  -> the two `kernels` entries' numbers."""
+    from mdd_tpu_torch.ops import ctc_cuda
+
+    alpha_k, grad_k = ctc_cuda.ctc_alpha_kernel, ctc_cuda.ctc_beta_grad_kernel
+    worst = {"nll": 0.0, "nll_rel": 0.0, "grad": 0.0}
+    for name, b, t, l, seed, case in CTC_CASES:
+        args = ctc_inputs(torch, b, t, l, seed, case)
+        g = torch.rand(b, generator=torch.Generator().manual_seed(seed)
+                       ).cuda() + 0.5
+        before = (alpha_k.launches, grad_k.launches)
+        nll, alphas = ctc_cuda.ctc_loss_fwd(*args)
+        grad = ctc_cuda.ctc_loss_bwd(*args, alphas, nll, g)
+        nll2, alphas2 = ctc_cuda.ctc_loss_fwd(*args)
+        grad2 = ctc_cuda.ctc_loss_bwd(*args, alphas2, nll2, g)
+        torch.cuda.synchronize()
+        ref_nll, ref_alphas = ctc_cuda.ctc_loss_fwd_reference(*args)
+        ref_grad = ctc_cuda.ctc_loss_bwd_reference(*args, ref_alphas,
+                                                   ref_nll, g)
+        frames = torch.arange(t, device="cuda")[:, None] < args[1][None]
+        nll_abs = (nll - ref_nll).abs()
+        nll_rel = (nll_abs / ref_nll.abs().clamp_min(1e-30)).max().item()
+        alpha_err = ((alphas[frames] - ref_alphas[frames]).abs()
+                     / ref_alphas[frames].abs().clamp_min(1.0)).max().item() \
+            if frames.any() else 0.0
+        grad_err = (grad - ref_grad).abs().max().item()
+        feasible = ref_nll < 5e29
+        worst["nll"] = max(worst["nll"], nll_abs[feasible].max().item()
+                           if feasible.any() else 0.0)
+        worst["nll_rel"] = max(worst["nll_rel"], nll_rel)
+        worst["grad"] = max(worst["grad"], grad_err)
+        log(f"[kernel-ctc] {name} (B={b}, T'={t}, L={l}): nll rel err "
+            f"{nll_rel:.2e}, alphas {alpha_err:.2e}, dlog_probs abs err "
+            f"{grad_err:.2e}; {int((~feasible).sum())} row(s) no alignment "
+            f"fits")
+        if not (nll_rel <= CTC_NLL_RTOL and alpha_err <= CTC_NLL_RTOL
+                and grad_err <= CTC_GRAD_ATOL
+                and torch.isfinite(grad).all()):
+            raise AssertionError(f"ctc kernels {name}: nll {nll_rel}, alphas "
+                                 f"{alpha_err}, grad {grad_err}")
+        if not (torch.equal(nll, nll2) and torch.equal(grad, grad2)):
+            raise AssertionError(f"ctc kernels {name}: two calls differ")
+        if (alpha_k.launches, grad_k.launches) != (before[0] + 2,
+                                                   before[1] + 2):
+            raise AssertionError(f"ctc kernels {name}: launches "
+                                 f"{alpha_k.launches - before[0]}, "
+                                 f"{grad_k.launches - before[1]}, not 2")
+    b, t, l = BATCH, 110, 40
+    args = ctc_inputs(torch, b, t, l, 0, "random")
+    g = torch.ones(b, device="cuda")
+    nll, alphas = ctc_cuda.ctc_loss_fwd(*args)
+    lp_grad = args[0].clone().requires_grad_(True)
+
+    def lib_fwd():
+        return library_ctc_loss(args[0], *args[1:])
+
+    def lib_fwd_bwd():
+        library_ctc_loss(lp_grad, *args[1:]).sum().backward()
+
+    def ours_fwd_bwd():
+        ctc_cuda.CtcLoss.apply(lp_grad, *args[1:], 0).sum().backward()
+
+    fns = {"ctc_alpha": lambda: alpha_k(*args),
+           "ctc_beta_grad": lambda: grad_k(*args, alphas, nll, g),
+           "plain fwd": lambda: ctc_cuda.ctc_loss_fwd_reference(*args),
+           "plain bwd": lambda: ctc_cuda.ctc_loss_bwd_reference(
+               *args, alphas, nll, g),
+           "F.ctc_loss fwd": lib_fwd, "F.ctc_loss fwd+bwd": lib_fwd_bwd,
+           "ours fwd+bwd": ours_fwd_bwd}
+    iters = {"plain fwd": 5, "plain bwd": 5}
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(cuda_ms(fns[k], iters.get(k, 100)))
+    calls = {k: host_ms(fns[k], iters.get(k, 100))
+             for k in ("ctc_alpha", "F.ctc_loss fwd", "ours fwd+bwd",
+                       "F.ctc_loss fwd+bwd")}
+    best = {k: min(v) for k, v in times.items()}
+    lib_bwd = best["F.ctc_loss fwd+bwd"] - best["F.ctc_loss fwd"]
+    out = {}
+    for k, plain, lib in (("ctc_alpha", "plain fwd", best["F.ctc_loss fwd"]),
+                          ("ctc_beta_grad", "plain bwd", lib_bwd)):
+        least, by = ctc_cuda.bound_ms(*args, kernel=k)
+        log(f"[kernel-ctc] {k} B={b} T'={t} L={l}: kernel {times[k]} ms, "
+            f"plain {times[plain]} ms, bound {least:.6f} ms ({by}); "
+            f"{best[k] / t * 1e3:.3f} us a frame ({card})")
+        out[k] = {"max_abs_err": worst["nll"] if k == "ctc_alpha"
+                  else worst["grad"],
+                  "shape": f"B={b} T'={t} L={l} C=43 float32",
+                  "ms": best[k], "plain_ms": best[plain], "bound_ms": least,
+                  "bound_by": by, "library_ms": lib,
+                  "ms_per_frame": best[k] / t}
+    out["ctc_alpha"]["max_rel_err"] = worst["nll_rel"]
+    out["ctc_alpha"]["call_ms"] = calls["ctc_alpha"]
+    out["ctc_beta_grad"]["fwd_bwd_ms"] = best["ours fwd+bwd"]
+    out["ctc_beta_grad"]["library_fwd_bwd_ms"] = best["F.ctc_loss fwd+bwd"]
+    log(f"[kernel-ctc] F.ctc_loss (yardstick) forward "
+        f"{times['F.ctc_loss fwd']} ms, forward + backward {times['F.ctc_loss fwd+bwd']} ms; the "
+        f"port's loss forward + backward {times['ours fwd+bwd']} ms (CUDA "
+        f"events, in turns); to a synchronize: ctc_alpha "
+        f"{calls['ctc_alpha']:.4f}, F.ctc_loss forward "
+        f"{calls['F.ctc_loss fwd']:.4f}, ours forward + backward "
+        f"{calls['ours fwd+bwd']:.4f}, F.ctc_loss forward + backward "
+        f"{calls['F.ctc_loss fwd+bwd']:.4f} ms ({card})")
+    return out
 
 
 def beam_inputs(torch, b: int, t: int, c: int, seed: int, lm: bool,
@@ -996,7 +1223,8 @@ def phase_visualize(torch, cfg, state, card: str) -> dict:
     if not errs[worst] <= MODEL_TOL:
         raise AssertionError(f"[visualize] kernel and plain captures "
                              f"differ: {errs}")
-    if launches != {"lstm_fwd": 4, "lstm_bwd": 0, "fused_dropout": 0}:
+    if launches != {"lstm_fwd": lstm_per_pass(), "lstm_bwd": 0,
+                    "fused_dropout": 0}:
         raise AssertionError(f"[visualize] launches {launches}: a layer "
                              "of the forward bypassed lstm_fwd")
     out = WORK / "visualize"
@@ -1142,10 +1370,32 @@ def phase_serve(files, card: str):
     log(f"[serve] p50 request latency, batch 1, wavs 0.6-3.2 s: "
         f"{statistics.median(singles) * 1e3:.2f} ms ({card})")
     log(f"[serve] lstm_fwd launches {launches} over {forwards} model "
-        f"forwards (4 acoustic BiLSTM layers each)")
-    if launches < 4 * forwards or forwards == 0:
+        f"forwards ({lstm_per_pass()} BiLSTM layers each)")
+    if launches < lstm_per_pass() * forwards or forwards == 0:
         raise AssertionError(f"{launches} kernel launches for {forwards} "
                              "forwards: a layer bypassed the kernel")
+    # batch-1 p50 with the text BiLSTM on the kernels against the plain
+    # loop, in turns (after the launch count: these are not counted)
+    from mdd_tpu_torch.ops.lstm import bilstm
+
+    text = engine.session.model.text.lstm
+    kernel_rnn = text.rnn
+    p50 = {"kernels": [], "plain loop": []}
+    try:
+        for which in ("kernels", "plain loop", "plain loop", "kernels"):
+            text.rnn = kernel_rnn if which == "kernels" else bilstm
+            turn = []
+            for i in range(2 * n_files):
+                t0 = time.perf_counter()
+                check_ok(handle_requests(engine, [request(files,
+                                                          i % n_files)]), 1)
+                turn.append(time.perf_counter() - t0)
+            p50[which].append(round(statistics.median(turn) * 1e3, 3))
+    finally:
+        text.rnn = kernel_rnn
+    log(f"[serve] p50 batch-1 latency with the text BiLSTM on the kernels "
+        f"{p50['kernels']} ms, on the plain loop {p50['plain loop']} ms (in "
+        f"turns, {2 * n_files} requests each) ({card})")
     return launches, engine
 
 
@@ -1332,7 +1582,7 @@ def phase_lexicon(torch, files, card: str) -> dict:
     forwards = 3 * n_pairs   # diagnose_dir: one forward a pair
     log(f"[lexicon] infer: 3 runs in {infer_s:.2f} s; lstm_fwd launches "
         f"{infer_launches} over {forwards} model forwards ({card})")
-    if infer_launches < 4 * forwards:
+    if infer_launches < lstm_per_pass() * forwards:
         raise AssertionError(f"{infer_launches} kernel launches for "
                              f"{forwards} forwards: a layer bypassed it")
 
@@ -1394,7 +1644,8 @@ def phase_lexicon(torch, files, card: str) -> dict:
         f"{sorted(set(batches))}; {warmed}; {tail[-1]}")
     log(f"[lexicon] serve: lstm_fwd launches {serve_launches} over "
         f"{serve_forwards} model forwards")
-    if serve_launches < 4 * serve_forwards or serve_forwards == 0:
+    if (serve_launches < lstm_per_pass() * serve_forwards
+            or serve_forwards == 0):
         raise AssertionError(f"{serve_launches} kernel launches for "
                              f"{serve_forwards} forwards")
 
@@ -1453,7 +1704,7 @@ FEAT_TOL = 2e-4    # card vs CPU features, plus each element's rounding
 # dimension's rounding by 1 / std
 SOCKET_CLIENTS, SOCKET_REQUESTS, UNIX_REQUESTS = 4, 16, 8
 STALL_WAIT_S = 2.0  # the longest a reading client may wait on a stalled one
-LOAD_SECONDS = 15.0
+LOAD_SECONDS = 10.0
 LOAD_CLIENTS = (1, 4, 16)
 
 
@@ -1618,7 +1869,7 @@ def product_infer(torch, files, paths: list, card: str) -> int:
            if l.startswith(("RTF:", "init model time:", "process time:"))]
     if len(rtf) != 3:
         raise AssertionError(f"infer --denoise: RTF lines {rtf}")
-    if launches < 4 * n_pairs:
+    if launches < lstm_per_pass() * n_pairs:
         raise AssertionError(f"infer --denoise: {launches} lstm_fwd launches "
                              f"for {n_pairs} forwards")
     log(f"[product] infer --denoise: {n_pairs} reports ok; {rtf[0]}; "
@@ -1794,7 +2045,7 @@ def product_socket(torch, files, card: str) -> int:
         raise AssertionError(f"ready lines missing: {text[-2000:]}")
     forwards = sum(int(l.split(" in ")[1].split()[0])
                    for l in text.splitlines() if l.startswith("served "))
-    if launches < 4 * forwards or forwards == 0:
+    if launches < lstm_per_pass() * forwards or forwards == 0:
         raise AssertionError(f"{launches} lstm_fwd launches for {forwards} "
                              "forwards")
     # every answer: ok, in order, groups of at most 16, equal to its solo
@@ -1891,12 +2142,14 @@ def phase_profile(torch, engine, files, card: str) -> None:
 
 #: the device names of the package's own kernels (report_profile lists them)
 PACKAGE_KERNELS = ("lstm_", "dropout_kernel", "greedy_wer_kernel",
-                   "ctc_beam_kernel")
+                   "ctc_beam_kernel", "ctc_alpha_kernel",
+                   "ctc_beta_grad_kernel")
 
 
 def report_profile(prof, wall_us: float, tag: str, what: str,
-                   card: str) -> None:
-    """Device busy share of the wall clock and the top device ops."""
+                   card: str) -> int:
+    """Device busy share of the wall clock and the top device ops; -> the
+    count of device ops."""
     from torch.autograd import DeviceType
 
     events = [e for e in prof.key_averages()
@@ -1913,6 +2166,14 @@ def report_profile(prof, wall_us: float, tag: str, what: str,
                             if any(n in e.key for n in PACKAGE_KERNELS)]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    return sum(e.count for e in events)
+
+
+def host_syncs(prof) -> dict:
+    """The CUDA runtime calls of a profile that make the host wait for the
+    device, by name (the window's own closing synchronize included)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if "Synchronize" in e.key}
 
 
 def write_corpus(split: str, n: int, seed: int) -> tuple:
@@ -2087,14 +2348,18 @@ def phase_train(torch, train, dev) -> tuple:
     for name in ("best.pt", "best.meta.json", "latest.pt", "latest.opt.pt"):
         if not (ckpt / name).exists():
             raise AssertionError(f"{name} was not written")
-    if bwd != 4 * steps or fwd < 4 * forwards:
+    if bwd != lstm_per_pass() * steps or fwd < lstm_per_pass() * forwards:
         raise AssertionError(f"{fwd} forward / {bwd} backward launches for "
                              f"{forwards} forwards / {steps} train steps: a "
                              "layer bypassed the kernels")
-    # one WER a train or validation step, each a forward of 4 layers
-    if 4 * new["greedy_wer"] != fwd or new["ctc_beam"]:
-        raise AssertionError(f"{new} for {fwd // 4} train and validation "
-                             "steps: the WER bypassed its kernel")
+    # one WER and one CTC forward a train or validation step, each a
+    # forward of lstm_per_pass() layers; one CTC backward a train step
+    if (lstm_per_pass() * new["greedy_wer"] != fwd or new["ctc_beam"]
+            or new["ctc_alpha"] != new["greedy_wer"]
+            or new["ctc_beta_grad"] != steps):
+        raise AssertionError(f"{new} for {fwd // lstm_per_pass()} train and "
+                             f"validation steps, {steps} train steps: the "
+                             "WER or the loss bypassed its kernel")
     return fwd, bwd, confs[1], first
 
 
@@ -2157,16 +2422,64 @@ def phase_step_time(torch, conf: str, card: str) -> None:
         f"{medians['kernel']} ms, on the plain loop {medians['plain']} ms "
         f"(in turns: kernel, plain, plain, kernel; {len(batches)} steps "
         f"each) ({card})")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for padded, valid in batches[:3]:
-            acc = trainer.train_step(trainer.batch_arrays(padded, valid), acc)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, "profile-train",
-                   f"3 train steps at B={BATCH}", card)
+    # the text BiLSTM on the LSTM kernels and the loss on the CTC kernels,
+    # each against what it replaced (the plain loop, F.ctc_loss), in turns
+    from mdd_tpu_torch.ops.lstm import bilstm
+    from mdd_tpu_torch.ops.lstm_cuda import bilstm_cuda
+
+    text = trainer.model.text.lstm
+    kernel_ctc = loop.ctc_loss
+    if text.rnn is not bilstm_cuda:
+        raise AssertionError("the float32 text BiLSTM is not on the kernels")
+    variants = {"kernels": (bilstm_cuda, kernel_ctc),
+                "text loop": (bilstm, kernel_ctc),
+                "F.ctc_loss": (bilstm_cuda, library_ctc_loss),
+                "before": (bilstm, library_ctc_loss)}
+
+    def steps(which, batch_list, acc):
+        text.rnn, loop.ctc_loss = variants[which]
+        try:
+            turn = []
+            for padded, valid in batch_list:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                acc = trainer.train_step(trainer.batch_arrays(padded, valid),
+                                         acc)
+                torch.cuda.synchronize()
+                turn.append(time.perf_counter() - t0)
+        finally:
+            text.rnn, loop.ctc_loss = variants["kernels"]
+        return turn, acc
+
+    medians = {k: [] for k in variants}
+    for which in list(variants) + list(variants)[::-1]:
+        turn, acc = steps(which, batches, acc)
+        medians[which].append(round(statistics.median(turn) * 1e3, 2))
+    log(f"[train] step median at B={BATCH} (ms, in turns "
+        f"{list(variants)} and back; {len(batches)} steps each): "
+        + "; ".join(f"{k} {v}" for k, v in medians.items())
+        + f" (text BiLSTM / loss: kernels / kernels, plain loop / kernels, "
+        f"kernels / F.ctc_loss, plain loop / F.ctc_loss) ({card})")
+    for which in ("kernels", "before"):
+        text.rnn, loop.ctc_loss = variants[which]
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for padded, valid in batches[:3]:
+                    acc = trainer.train_step(
+                        trainer.batch_arrays(padded, valid), acc)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            text.rnn, loop.ctc_loss = variants["kernels"]
+        ops = report_profile(prof, wall_us, "profile-train",
+                             f"3 train steps at B={BATCH}, {which}", card)
+        syncs = host_syncs(prof)
+        log(f"[profile-train] {which}: {ops / 3:.1f} device ops a step, "
+            f"{(sum(syncs.values()) - 1) / 3:.2f} host syncs a step "
+            f"besides the window's closing one {syncs} ({card})")
 
 
 
@@ -2348,7 +2661,8 @@ def phase_resume_plateau(torch, train, dev, card: str) -> dict:
                              "actions")
     if not all(math.isfinite(v) for v in dev_w + dev_s):
         raise AssertionError(f"[resume-plateau] dev losses {dev_w} {dev_s}")
-    if launches["lstm_bwd"] != 4 * steps or launches["lstm_fwd"] < 4 * forwards:
+    if (launches["lstm_bwd"] != lstm_per_pass() * steps
+            or launches["lstm_fwd"] < lstm_per_pass() * forwards):
         raise AssertionError(f"[resume-plateau] launches {launches} for "
                              f"{forwards} forwards / {steps} train steps: "
                              "a layer bypassed the kernels")
@@ -2567,7 +2881,8 @@ def phase_resume_mdd_tpu(torch, train, dev, card: str) -> dict:
     if not final_same:
         raise AssertionError("[resume-mdd_tpu] latest/ does not hold the "
                              "trainer's last state")
-    if launches["lstm_bwd"] != 4 * steps or launches["lstm_fwd"] < 4 * forwards:
+    if (launches["lstm_bwd"] != lstm_per_pass() * steps
+            or launches["lstm_fwd"] < lstm_per_pass() * forwards):
         raise AssertionError(f"[resume-mdd_tpu] launches {launches} for "
                              f"{forwards} forwards / {steps} train steps: "
                              "a layer bypassed the kernels")
@@ -2844,7 +3159,8 @@ def phase_train_fused(torch, conf: str, card: str) -> dict:
                              f"{epochs}")
     if not (losses[-1] < losses[0] and epochs[-1] < epochs[0]):
         raise AssertionError(f"the loss did not fall: {losses}, {epochs}")
-    if drops != 12 * steps or bwd != 4 * steps or fwd != 4 * forwards:
+    if (drops != 12 * steps or bwd != lstm_per_pass() * steps
+            or fwd != lstm_per_pass() * forwards):
         raise AssertionError(
             f"{drops} dropout / {fwd} lstm_fwd / {bwd} lstm_bwd launches for "
             f"{steps} train steps and {forwards} forwards: a site or a layer "
@@ -2963,7 +3279,10 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
         raise AssertionError(f"losses missing or not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the bfloat16 loss did not fall: {losses}")
-    if drops != 12 * steps or bwd != 4 * steps or fwd != 4 * forwards:
+    # bfloat16 keeps the text BiLSTM on the plain loop
+    layers = lstm_per_pass("bfloat16")
+    if (drops != 12 * steps or bwd != layers * steps
+            or fwd != layers * forwards):
         raise AssertionError(
             f"{drops} dropout / {fwd} lstm_fwd / {bwd} lstm_bwd launches for "
             f"{steps} train steps and {forwards} forwards: a site or a layer "
@@ -3025,6 +3344,28 @@ def bench_cell_fused_step(torch, model_cfg, card: str) -> None:
         raise AssertionError(
             f"{drops} fused_dropout / {bwd} lstm_bwd launches for "
             f"{len(secs)} steps of {model_cfg.rnn_layers} layers")
+    # the loss on the CTC kernels against F.ctc_loss at this cell, in turns
+    from mdd_tpu_torch.train import loop
+
+    kernel_ctc = loop.ctc_loss
+    medians = {"kernels": [], "F.ctc_loss": []}
+    try:
+        for which in ("kernels", "F.ctc_loss", "F.ctc_loss", "kernels"):
+            loop.ctc_loss = (kernel_ctc if which == "kernels"
+                             else library_ctc_loss)
+            turn = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(arrays, torch.zeros(4, device="cuda"))
+                torch.cuda.synchronize()
+                turn.append(time.perf_counter() - t0)
+            medians[which].append(round(statistics.median(turn) * 1e3, 2))
+    finally:
+        loop.ctc_loss = kernel_ctc
+    log(f"[train-bf16] bench.py's cell: step median with the loss on the "
+        f"CTC kernels {medians['kernels']} ms, on F.ctc_loss "
+        f"{medians['F.ctc_loss']} ms (in turns, 3 steps each) ({card})")
 
 
 def write_eval_yaml(conf: str, name: str, split: tuple, lm: str,
@@ -3095,7 +3436,8 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
     new = record_path_launches("evaluate")
     forwards = len(kinds) * -(-DEV_UTTS // BATCH)
     # a beam launch a batch of the two beam passes, none for greedy
-    if new != {"greedy_wer": 0, "ctc_beam": 2 * -(-DEV_UTTS // BATCH)}:
+    if new != {"greedy_wer": 0, "ctc_beam": 2 * -(-DEV_UTTS // BATCH),
+               "ctc_alpha": 0, "ctc_beta_grad": 0}:
         raise AssertionError(f"{new} over the three passes: the beam "
                              "bypassed its kernel")
     result = run_cli(["mdd-result", "--ref", str(dumps["beam"] / "transcribe.log"),
@@ -3127,7 +3469,7 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
                                                   beam["tokens"]):
         raise AssertionError("mdd-result's PER is not evaluate's: "
                              f"{wer.group(0)} vs {beam}")
-    if not math.isfinite(recall) or launches != 4 * forwards:
+    if not math.isfinite(recall) or launches != lstm_per_pass() * forwards:
         raise AssertionError(f"{launches} lstm_fwd launches for {forwards} "
                              "forwards, or recall not finite")
     for kind in ("beam", "beam_no_lm"):
@@ -3416,7 +3758,7 @@ def phase_train_cached(torch, card: str) -> dict:
         raise AssertionError(f"the loss did not fall: {first}, {epochs}")
     if "resumed from epoch 2" not in out:
         raise AssertionError("the third epoch did not resume from epoch 2")
-    if bwd != 4 * steps or fwd < 4 * forwards:
+    if bwd != lstm_per_pass() * steps or fwd < lstm_per_pass() * forwards:
         raise AssertionError(f"{fwd} forward / {bwd} backward launches for "
                              f"{forwards} forwards / {steps} train steps: a "
                              "layer bypassed the kernels")
@@ -3575,7 +3917,7 @@ def phase_evaluate_cached(torch, cached: dict, card: str) -> int:
                                                     r_c["total"]):
         raise AssertionError(f"utterances padded alike decode otherwise: "
                              f"{differ}")
-    if launches != 4 * forwards:
+    if launches != lstm_per_pass() * forwards:
         raise AssertionError(f"{launches} lstm_fwd launches in the cached "
                              f"evaluations' {forwards} forwards: a layer "
                              "bypassed the kernel")
@@ -3630,13 +3972,11 @@ def phase_timing_dropout(torch, card: str) -> dict:
 
 DDP_TIMEOUT_S = 420   # one rank's process, set-up included
 DDP_TRAIN_RTOL = 1e-4  # 2 ranks x 32 vs 1 x 64: every logged train loss
-DDP_DEV_RTOL = 3e-4    # the dev loss after the epoch's 8 Adam steps: the
-# conv biases feed a train-mode BatchNorm, their gradient is 0 up to
-# rounding, and Adam moves each about lr * sign(rounding) a step, so the
-# two runs' biases part by up to 2 lr a step and shift the eval-mode
-# BatchNorm's input (ROADMAP §3 item 8); the train losses do not see it
-# (train-mode BatchNorm subtracts the batch mean).  Sound runs on an H100
-# read up to 9.8e-5 (PERF.md §6)
+DDP_DEV_RTOL = 3e-4    # the dev loss after the epoch's 8 Adam steps.
+# Sound runs on an H100 read up to 9.8e-5 (PERF.md §6) while the conv
+# biases, which feed a train-mode BatchNorm, took Adam steps of about
+# lr * sign(rounding) that differed between the two runs; their gradient
+# is now exactly 0 (ROADMAP §3 item 10)
 
 # Each rank is `python -c RANK_BOOT <result> <cli args>`: the port's CLI
 # entry point, with the launch counters set to 0 just before it, each
@@ -3818,7 +4158,8 @@ def check_ddp_launches(tag: str, rec: dict, fused: bool) -> None:
     """Every layer of every step and forward on the kernels, per rank."""
     steps, forwards = len(rec["steps"]), len(rec["steps"]) + rec["eval_steps"]
     got = rec["launches"]
-    if (got["lstm_bwd"] != 4 * steps or got["lstm_fwd"] != 4 * forwards
+    if (got["lstm_bwd"] != lstm_per_pass() * steps
+            or got["lstm_fwd"] != lstm_per_pass() * forwards
             or got["fused_dropout"] != (12 * steps if fused else 0)):
         raise AssertionError(
             f"[distributed] {tag}: launches {got} for {steps} train steps "
@@ -3884,8 +4225,9 @@ def phase_distributed(torch, conf: str, train: tuple, dev: tuple,
         one = run_ranks(f"eval_ddp_b{b}_1", 0, args, one_card)
         two = run_ranks(f"eval_ddp_b{b}_2", 2, args, one_card)
         reports = [parse_report(t) for t, _ in one + two]
-        # each rank decodes its half of the dev split, 4 layers a forward
-        want = {"lstm_fwd": 4 * -(-(DEV_UTTS // 2) // b), "lstm_bwd": 0,
+        # each rank decodes its half of the dev split
+        want = {"lstm_fwd": lstm_per_pass() * -(-(DEV_UTTS // 2) // b),
+                "lstm_bwd": 0,
                 "fused_dropout": 0}
         if any(r["launches"] != want for _, r in two):
             raise AssertionError(
@@ -4095,7 +4437,8 @@ def phase_trained(torch, files, card: str) -> dict:
                 f"{launches[kind]} launches over {ran['forwards']} forwards, "
                 f"ctc_beam {beams} ({card}); random weights: "
                 f"{RANDOM_WEIGHT_EVAL}")
-            if got["utts"] != 900 or launches[kind] != 4 * ran["forwards"] \
+            if got["utts"] != 900 \
+                    or launches[kind] != lstm_per_pass() * ran["forwards"] \
                     or ran["forwards"] < -(-900 // 256):
                 raise AssertionError(
                     f"{kind}: {got['utts']} utterances, {launches[kind]} "
@@ -4109,6 +4452,34 @@ def phase_trained(torch, files, card: str) -> dict:
                     f"{got['per']} vs {golden['per']}")
     finally:
         EvalSession._forward = forward
+    # the trained model's evaluate with its text BiLSTM on the kernels
+    # against the plain loop, in turns (not counted: the path's launches
+    # were read above)
+    from mdd_tpu_torch.ops.lstm import bilstm
+
+    route = {"rnn": None}
+
+    def routed_forward(self, *args):
+        if route["rnn"] is not None:
+            self.model.text.lstm.rnn = route["rnn"]
+        return forward(self, *args)
+
+    rates = {"kernels": [], "plain loop": []}
+    EvalSession._forward = routed_forward
+    try:
+        for which in ("kernels", "plain loop", "plain loop", "kernels"):
+            route["rnn"] = None if which == "kernels" else bilstm
+            text = run_cli(["evaluate", "--conf", str(conf), "--checkpoint",
+                            str(SYN_FULL / "best"), "--device", ONE_CARD])
+            decode_min = float(re.search(
+                r"time used for decode \d+ sentences: (\S+) minutes",
+                text).group(1))
+            rates[which].append(round(900 / (decode_min * 60), 1))
+    finally:
+        EvalSession._forward = forward
+    log(f"[trained] evaluate utts/s by the report's decode time, the text "
+        f"BiLSTM on the kernels {rates['kernels']}, on the plain loop "
+        f"{rates['plain loop']} (in turns) ({card})")
     # the corpus stays for phase local-cards
 
     # (c) serve from the orbax directory and from a .pt of the same weights
@@ -4144,7 +4515,7 @@ def phase_trained(torch, files, card: str) -> dict:
         tail = err.getvalue().strip().splitlines()[-1]
         forwards = int(tail.split(" in ")[1].split()[0])
         launches[kind] = lstm_fwd_kernel.launches
-        if launches[kind] != 4 * forwards:
+        if launches[kind] != lstm_per_pass() * forwards:
             raise AssertionError(f"{kind}: {launches[kind]} lstm_fwd "
                                  f"launches for {forwards} forwards")
         answers[kind] = [{k: v for k, v in r.items()
@@ -4265,7 +4636,8 @@ def phase_local_cards(torch, train: tuple, dev: tuple, card: str) -> dict:
         finally:
             Trainer.train_step, launch.launch_local = step, spawn
         if seen != [(False, 1)] * steps or got != {
-                "lstm_fwd": 4 * forwards, "lstm_bwd": 4 * steps,
+                "lstm_fwd": lstm_per_pass() * forwards,
+                "lstm_bwd": lstm_per_pass() * steps,
                 "fused_dropout": 0}:
             raise AssertionError(
                 f"[local-cards] data_parallel 0 on one card: steps ran "
@@ -4328,7 +4700,7 @@ def phase_local_cards(torch, train: tuple, dev: tuple, card: str) -> dict:
         str(dump)])
     check_local_ranks("evaluate", recs, cards)
     for r in recs:
-        if (r["launches"]["lstm_fwd"] != 4 * r["forwards"]
+        if (r["launches"]["lstm_fwd"] != lstm_per_pass() * r["forwards"]
                 or r["launches"]["lstm_bwd"] or not r["forwards"]):
             raise AssertionError(f"[local-cards] evaluate: launches "
                                  f"{r['launches']} for {r['forwards']} "
@@ -4513,19 +4885,24 @@ def phase_benchmark(torch, card: str) -> dict:
     if extra["eval_checkpoint"] != "syn_full/best":
         raise AssertionError(f"benchmark evaluated {extra['eval_checkpoint']}"
                              ", not the trained syn_full/best")
-    layers = cfg.rnn_layers
+    # the train steps in bfloat16 (the text BiLSTM on the plain loop), the
+    # evaluation forwards on the trained float32 model
+    layers = lstm_per_pass(cfg.compute_dtype)
     if not (ran["steps"] > bench.WARMUP_STEPS + bench.BENCH_STEPS
             and ran["forwards"] > 0 and bwd == layers * ran["steps"]
-            and fwd == layers * (ran["steps"] + ran["forwards"])
+            and fwd == (layers * ran["steps"]
+                        + lstm_per_pass() * ran["forwards"])
             and drops == 0):
         raise AssertionError(
             f"{fwd} lstm_fwd / {bwd} lstm_bwd / {drops} fused_dropout "
-            f"launches for {ran['steps']} steps and {ran['forwards']} "
-            f"evaluation forwards of {layers} layers: a layer bypassed its "
-            "kernel, or dropout ran fused")
-    # a WER a Trainer step; a beam launch an evaluation forward (beam 10)
-    # and a decode round
+            f"launches for {ran['steps']} steps of {layers} layers and "
+            f"{ran['forwards']} evaluation forwards of {lstm_per_pass()}: "
+            "a layer bypassed its kernel, or dropout ran fused")
+    # a WER and a CTC forward a Trainer step, a CTC backward a train step;
+    # a beam launch an evaluation forward (beam 10) and a decode round
     if not (new["greedy_wer"] >= ran["steps"]
+            and new["ctc_alpha"] == new["greedy_wer"]
+            and new["ctc_beta_grad"] == ran["steps"]
             and new["ctc_beam"] > ran["forwards"]):
         raise AssertionError(f"{new} for {ran['steps']} steps and "
                              f"{ran['forwards']} evaluation forwards: the WER "
@@ -4666,6 +5043,7 @@ def main() -> int:
     phase_kernel_staging(torch)
     wer_kernel = phase_kernel_wer(torch, card)
     beam_kernel = phase_kernel_beam(torch, card)
+    ctc_kernels = phase_kernel_ctc(torch, card)
     cfg, meta, state = phase_model(torch)
     vis = phase_visualize(torch, cfg, state, card)
     files = write_serving_files(cfg, meta, state)
@@ -4796,6 +5174,22 @@ def main() -> int:
         "launches": sum(PATH_LAUNCHES["ctc_beam"].values()),
         "launches_by_path": PATH_LAUNCHES["ctc_beam"],
         **beam_kernel,
+    }, {
+        "name": "ctc_alpha",
+        "route": "cuda",
+        "source": "mdd_tpu_torch/csrc/ctc_loss.cu",
+        "replaces": "mdd_tpu/ops/ctc_loss.py:69",
+        "launches": sum(PATH_LAUNCHES["ctc_alpha"].values()),
+        "launches_by_path": PATH_LAUNCHES["ctc_alpha"],
+        **ctc_kernels["ctc_alpha"],
+    }, {
+        "name": "ctc_beta_grad",
+        "route": "cuda",
+        "source": "mdd_tpu_torch/csrc/ctc_loss.cu",
+        "replaces": "mdd_tpu/ops/ctc_loss.py:113",
+        "launches": sum(PATH_LAUNCHES["ctc_beta_grad"].values()),
+        "launches_by_path": PATH_LAUNCHES["ctc_beta_grad"],
+        **ctc_kernels["ctc_beta_grad"],
     }]
     log(f"[time] every phase in {time.perf_counter() - started:.1f} s")
     print(smi)

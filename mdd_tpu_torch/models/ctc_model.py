@@ -8,7 +8,8 @@ Counterpart of mdd_tpu/models/ctc_model.py:
              -> flatten freq x channel -> 4 x BiLSTM(384) + dropout (BN
                 before layers 2..4, no recurrent bias) -> (B, T', 768)
   text:      (B, L) canonical phone ids -> Embedding(512)
-             -> BiLSTM(384) with bias -> values (B, L, 768)
+             -> BiLSTM(384) with bias (on the LSTM kernels in float32
+                with use_pallas_lstm) -> values (B, L, 768)
              -> keys = values @ W_key (768 x 768)
   fusion:    masked dot attention; concat -> (B, T', 1536)
   head:      BN + Dense(num_class, no bias) -> log_softmax -> (T', B, C)
@@ -64,7 +65,7 @@ class ModelConfig:
     compute_dtype: str = "float32"     # "bfloat16" for throughput runs
     use_pallas_lstm: bool = False      # acoustic recurrence in the fused
     # kernels (mdd_tpu: Pallas; here: csrc/lstm_{fwd,bwd}.cu via
-    # ops.lstm_cuda)
+    # ops.lstm_cuda), and here the text BiLSTM too in float32
     use_fused_dropout: bool = False    # dropout masks made in the kernel
     # from a seed (mdd_tpu: Pallas; here: csrc/dropout.cu via
     # ops.dropout_cuda); the backward regenerates the mask from the seed
@@ -245,6 +246,19 @@ class BiLstmLayer(nn.Module):
         return dropout(y.transpose(0, 1), self.dropout, train, generator)
 
 
+class _ZeroGrad(torch.autograd.Function):
+    """The identity, with a gradient of zeros (not None, so that Adam
+    still takes its step and weight decay on the parameter)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
 class ConvSubsampler(nn.Module):
     """Stacked Conv2d + BN + ReLU; (B, T, F) -> (B, T', F' * C)."""
 
@@ -268,11 +282,17 @@ class ConvSubsampler(nn.Module):
         for i, (s, p) in enumerate(zip(self.cfg.conv_strides,
                                        self.cfg.conv_padding)):
             conv = getattr(self, f"conv{i}")
+            # a train-mode BN subtracts the batch mean, the bias with it,
+            # so the bias's gradient is exactly 0 (weight decay apart);
+            # autograd's is rounding noise whose sign changes with the
+            # order of the sums (one process or several ranks), and Adam
+            # would scale it to steps of about lr
+            bias = _ZeroGrad.apply(conv.bias) if train else conv.bias
             # the bias is added after the product is rounded to `dtype`, as
             # flax's Conv adds it: in bfloat16 a fused bias rounds once
             # where flax rounds twice
             x = F.conv2d(x, conv.kernel.to(dtype), None, stride=tuple(s),
-                         padding=tuple(p)) + conv.bias.to(dtype).view(-1, 1, 1)
+                         padding=tuple(p)) + bias.to(dtype).view(-1, 1, 1)
             x = F.relu(getattr(self, f"bn{i}")(
                 x, dtype, axis=1, train=train, sample_mask=sample_mask))
             x = dropout(x, self.cfg.dropout, train, generator,
@@ -285,16 +305,23 @@ class ConvSubsampler(nn.Module):
 class TextEncoder(nn.Module):
     """Canonical-phone encoder: Embedding -> BiLSTM -> (values, keys).
 
-    The text BiLSTM stays on the plain loop, as in mdd_tpu (short L), and
-    has no BatchNorm and no dropout, so train mode changes nothing here."""
+    The text BiLSTM runs on the LSTM kernels (ops.lstm_cuda.bilstm_cuda)
+    when `use_pallas_lstm` is set and the compute dtype is float32, where
+    the kernels' contract (c carried in float32) is the plain loop's; in
+    bfloat16 it stays on the plain loop, which rounds h and c to bfloat16
+    every step as mdd_tpu's text scan does.  The route is fixed here, by
+    the configuration.  It has no BatchNorm and no dropout, so train mode
+    changes nothing here."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.embed = nn.Module()
         self.embed.embedding = nn.Parameter(
             torch.empty(cfg.text_vocab_size, cfg.text_embed_size))
-        self.lstm = BiLstmLayer(cfg.text_embed_size, cfg.rnn_hidden_size,
-                                use_batch_norm=False, use_bias=True)
+        self.lstm = BiLstmLayer(
+            cfg.text_embed_size, cfg.rnn_hidden_size, use_batch_norm=False,
+            use_bias=True, use_kernel=(cfg.use_pallas_lstm
+                                       and cfg.compute_dtype == "float32"))
         self.key_proj = Dense(cfg.encoder_dim, cfg.encoder_dim)
 
     def forward(self, trans: torch.Tensor, trans_lengths, dtype):

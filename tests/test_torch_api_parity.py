@@ -124,9 +124,9 @@ def test_ctc_loss_scan_matches_mdd_tpu_scan(seed):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ctc_loss_scan_matches_the_ports_ctc_loss(seed):
-    """Against F.ctc_loss under the port's conventions: the same losses
-    (1e30 on the infeasible row), the same gradient at the logits (where
-    F.ctc_loss's backward is the true one)."""
+    """Against the port's `ctc_loss` (mdd_tpu's custom VJP, on CPU tensors
+    the plain versions of its kernels): the same losses (1e30 on the
+    infeasible row), the same gradient at the logits."""
     logits, labels, input_lengths, label_lengths = _ctc_case(seed)
     args = (torch.from_numpy(input_lengths), torch.from_numpy(labels),
             torch.from_numpy(label_lengths))

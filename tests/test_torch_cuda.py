@@ -759,3 +759,133 @@ def test_trainer_and_eval_session_on_the_card_launch_both_kernels(cuda):
     torch.cuda.synchronize()
     assert beam_cuda.ctc_beam_kernel.launches == beam_before + 1
     assert len(decoded) == b and (frames > 0).all()
+
+
+# ------------------------------------------------- the CTC loss's kernels
+def _ctc_inputs(b, t, l, seed, case="random", c=43):
+    """Seeded CTC inputs on the card (chip_smoke.py's recipe): log-softmax
+    of N(0, 4) logits over c classes, labels 1..c-1 with a sixth repeated,
+    label lengths 16..l (the train cell's 16-40), input lengths t/2..t;
+    `case` adds rows of input length 0 and 1, label length 0 and rows no
+    alignment fits ("edges"), the model's transposed log-probs
+    ("strided"), or repeats the last rows as pad_batch_to does
+    ("padded")."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn((t, b, c), generator=g) * 2, -1)
+    labels = torch.randint(1, c, (b, max(l, 1)), generator=g)[:, :l]
+    if l > 1:
+        repeat = torch.rand((b, l - 1), generator=g) < 1 / 6
+        labels[:, 1:] = torch.where(repeat, labels[:, :-1], labels[:, 1:])
+    label_lengths = torch.randint(min(16, l), l + 1, (b,), generator=g)
+    input_lengths = torch.randint(max(1, t // 2), t + 1, (b,), generator=g)
+    if case == "edges":
+        input_lengths[:4] = torch.tensor([0, 0, 1, 1])
+        label_lengths[:6] = torch.tensor([0, 1, 0, 1, 0, l])
+        input_lengths[6] = label_lengths[6] // 2       # cannot fit
+    if case == "padded":
+        for x in (lp.transpose(0, 1), labels, label_lengths, input_lengths):
+            x[b // 2:] = x[b // 2 - 1]
+    lp = lp.cuda()
+    if case == "strided":           # log_softmax(...).transpose(0, 1)
+        lp = lp.transpose(0, 1).contiguous().transpose(0, 1)
+    return lp, input_lengths.cuda(), labels.cuda(), label_lengths.cuda()
+
+
+CTC_SHAPES = [(64, 110, 40, "random"), (64, 47, 16, "random"),
+              (64, 110, 40, "strided"), (512, 80, 40, "random"),
+              (64, 110, 40, "edges"), (16, 60, 24, "padded"),
+              (1, 1, 1, "random"), (3, 9, 0, "random"),
+              (4, 1100, 511, "random")]
+
+
+@pytest.mark.parametrize("b,t,l,case", CTC_SHAPES)
+def test_ctc_kernels_match_plain_versions(cuda, b, t, l, case):
+    """nll within 1e-5 relative (1e30 on rows no alignment fits), the
+    alphas of each row's frames and the gradient within 1e-5: both
+    versions take the same float steps in the same order (the plain
+    version's class sums use atomics)."""
+    from mdd_tpu_torch.ops import ctc_cuda
+
+    args = _ctc_inputs(b, t, l, seed=b + t + l, case=case)
+    launches = [k.launches for k in (ctc_cuda.ctc_alpha_kernel,
+                                     ctc_cuda.ctc_beta_grad_kernel)]
+    nll, alphas = ctc_cuda.ctc_loss_fwd(*args)
+    g = torch.rand(b, generator=torch.Generator().manual_seed(1)).cuda() + .5
+    grad = ctc_cuda.ctc_loss_bwd(*args, alphas, nll, g)
+    torch.cuda.synchronize()
+    assert [ctc_cuda.ctc_alpha_kernel.launches,
+            ctc_cuda.ctc_beta_grad_kernel.launches] == [n + 1
+                                                        for n in launches]
+    ref_nll, ref_alphas = ctc_cuda.ctc_loss_fwd_reference(*args)
+    ref_grad = ctc_cuda.ctc_loss_bwd_reference(*args, ref_alphas, ref_nll, g)
+    torch.testing.assert_close(nll, ref_nll, rtol=1e-5, atol=0)
+    frames = torch.arange(t, device="cuda")[:, None] < args[1][None]
+    torch.testing.assert_close(alphas[frames], ref_alphas[frames],
+                               rtol=1e-5, atol=1e-5)
+    assert grad.shape == args[0].shape and torch.isfinite(grad).all()
+    assert (grad - ref_grad).abs().max().item() <= 1e-5
+
+
+def test_ctc_kernels_are_the_same_from_run_to_run(cuda):
+    """No float atomics: two calls give the same bits."""
+    from mdd_tpu_torch.ops import ctc_cuda
+
+    args = _ctc_inputs(64, 110, 40, seed=3, case="edges")
+    g = torch.ones(64, device="cuda")
+    first = ctc_cuda.ctc_loss_fwd(*args)
+    first_grad = ctc_cuda.ctc_loss_bwd(*args, *first[::-1], g)
+    for _ in range(2):
+        nll, alphas = ctc_cuda.ctc_loss_fwd(*args)
+        assert torch.equal(nll, first[0])
+        assert torch.equal(ctc_cuda.ctc_loss_bwd(*args, alphas, nll, g),
+                           first_grad)
+
+
+def test_ctc_wrappers_refuse_on_the_card(cuda):
+    from mdd_tpu_torch.ops import ctc_cuda
+
+    lp, il, labels, ll = _ctc_inputs(4, 20, 8, seed=2)
+    with pytest.raises(ValueError, match="lies on"):
+        ctc_cuda.ctc_alpha_kernel(lp, il.cpu(), labels, ll)
+    with pytest.raises(TypeError, match="float32"):
+        ctc_cuda.ctc_alpha_kernel(lp.double(), il, labels, ll)
+    with pytest.raises(ValueError, match="1023"):
+        ctc_cuda.ctc_alpha_kernel(lp, il, labels.repeat(1, 64), ll)
+
+
+def test_float32_kernel_model_runs_every_lstm_and_the_ctc_on_kernels(cuda):
+    """A float32 use_pallas_lstm Trainer step: lstm_fwd and lstm_bwd once a
+    BiLSTM, the text one included (rnn_layers + 1), ctc_alpha and
+    ctc_beta_grad once; a bfloat16 step keeps the text BiLSTM on the plain
+    loop (rnn_layers)."""
+    from mdd_tpu_torch.data.dataset import Batch
+    from mdd_tpu_torch.models.ctc_model import ModelConfig
+    from mdd_tpu_torch.ops import ctc_cuda
+    from mdd_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(8)
+    b, t, l = 4, 40, 6
+    batch = Batch(
+        inputs=rng.standard_normal((b, t, 24)).astype(np.float32),
+        input_fracs=np.array([1.0, 0.9, 0.8, 1.0], np.float32),
+        targets=rng.integers(2, 8, (b, l)).astype(np.int32),
+        target_sizes=np.array([6, 5, 4, 6], np.int32),
+        trans=rng.integers(2, 16, (b, l)).astype(np.int32),
+        trans_sizes=np.array([6, 5, 4, 6], np.int32),
+        utt_ids=[f"u{i}" for i in range(b)])
+    kernels = (lstm_cuda.lstm_fwd_kernel, lstm_cuda.lstm_bwd_kernel,
+               ctc_cuda.ctc_alpha_kernel, ctc_cuda.ctc_beta_grad_kernel)
+    for dtype, lstm in (("float32", 3), ("bfloat16", 2)):
+        cfg = ModelConfig(input_dim=24, num_class=8, conv_channels=(4, 4),
+                          rnn_hidden_size=16, rnn_layers=2,
+                          text_embed_size=8, text_vocab_size=16, dropout=0.0,
+                          use_pallas_lstm=True, compute_dtype=dtype)
+        trainer = Trainer(cfg, device="cuda")
+        before = [k.launches for k in kernels]
+        acc = trainer.train_step(trainer.batch_arrays(batch,
+                                                      np.ones(b, bool)),
+                                 torch.zeros(4, device="cuda"))
+        torch.cuda.synchronize()
+        assert [k.launches - n for k, n in zip(kernels, before)] == [
+            lstm, lstm, 1, 1], dtype
+        assert math.isfinite(acc[0].item())

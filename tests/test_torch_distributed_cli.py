@@ -8,12 +8,12 @@ without dropout can 2 ranks equal 1.
 `batch_size` counts rows per rank: 2 ranks x 4 rows log the losses of 1
 process x 8 rows, on the row-sharded device cache and on the streaming
 loader's global schedule.  The train losses hold mdd_tpu's 1e-4.  The
-dev loss is read after the epoch's Adam steps, which move the conv
-biases by about lr * sign(rounding) (their gradient before a train-mode
-BatchNorm is 0 up to rounding, ROADMAP §3 item 8) and so shift the
-eval-mode BatchNorm's input by up to 2 lr a step.  Sixteen sound runs
+dev loss is read after the epoch's Adam steps.  Sixteen sound runs
 (corpus seeds 0-5, CPU kernels default / AVX2 / AVX-512) read 0 to
-2.2e-4, so it is held to 5e-4."""
+2.2e-4 while those steps moved the conv biases by about
+lr * sign(rounding), which shifted the eval-mode BatchNorm's input; the
+biases' gradient before a train-mode BatchNorm is now exactly 0 (ROADMAP
+§3 item 10).  It is held to 5e-4."""
 
 import json
 import re

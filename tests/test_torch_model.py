@@ -129,6 +129,71 @@ def test_train_mode_matches_jax(use_pallas_lstm):
                                    atol=1e-5, rtol=1e-5, err_msg=name)
 
 
+def test_conv_biases_get_a_zero_gradient_in_train_mode():
+    """A conv bias feeds a train-mode BN, which subtracts it again with the
+    batch mean: its gradient is 0, and the port returns zeros (a tensor,
+    so Adam still steps), where mdd_tpu's autodiff returns rounding noise.
+    Moving the biases leaves train-mode log-probs as they were, up to
+    rounding; in eval mode they count and get a gradient."""
+    kw = dict(SMALL, dropout=0.0)
+    jmodel = JaxModel(JaxConfig(**kw))
+    # flax's init (the perturbed weights of `_pair` saturate the LSTMs,
+    # and the log-probs would not see the convs at all)
+    variables = jax.device_get(jmodel.init(
+        jax.random.key(7), np.zeros((1, 16, 243), np.float32),
+        np.zeros((1, 4), np.int32), np.asarray([4], np.int32)))
+    tmodel = CTCAttentionModel(ModelConfig(**kw))
+    tmodel.load_state_dict(flax_to_torch(variables["params"],
+                                         variables["batch_stats"]))
+    feats, trans, lengths = _inputs(8)
+    mask = np.array([True, False, True])
+    w = np.random.default_rng(9).standard_normal((12, 3, 12)).astype(
+        np.float32)
+    args = (torch.from_numpy(feats), torch.from_numpy(trans).long(),
+            torch.from_numpy(lengths).long())
+    biases = [f"conv.conv{i}.bias" for i in range(2)]
+
+    def jax_loss(params):
+        out, _ = jmodel.apply({"params": params,
+                               "batch_stats": variables["batch_stats"]},
+                              feats, trans, lengths, train=True,
+                              sample_mask=mask, mutable=["batch_stats"])
+        return (out * w).sum()
+
+    g_j = flax_to_torch(jax.grad(jax_loss)(variables["params"]),
+                        variables["batch_stats"])
+    state = {k: v.clone() for k, v in tmodel.state_dict().items()}
+    out = tmodel(*args, train=True, sample_mask=torch.from_numpy(mask))
+    (out * torch.from_numpy(w)).sum().backward()
+    grads = {k: p.grad for k, p in tmodel.named_parameters()}
+    scale = g_j["conv.conv0.kernel"].abs().max().item()
+    for name in biases:
+        assert torch.equal(grads[name], torch.zeros_like(grads[name])), name
+        assert g_j[name].abs().max().item() <= 1e-5 * scale, name
+    np.testing.assert_allclose(grads["conv.conv0.kernel"].numpy(),
+                               g_j["conv.conv0.kernel"].numpy(),
+                               atol=1e-4, rtol=1e-3)
+
+    moved = dict(state, **{k: state[k] + 0.5 for k in biases})
+    tmodel.load_state_dict(moved)
+    with torch.no_grad():
+        again = tmodel(*args, train=True, sample_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(again.numpy(), out.detach().numpy(),
+                               atol=1e-4)
+    tmodel.load_state_dict(state)
+    with torch.no_grad():
+        before = tmodel(*args)
+    tmodel.load_state_dict(moved)
+    with torch.no_grad():
+        after = tmodel(*args)
+    assert (after - before).abs().max().item() > 1e-3
+    tmodel.zero_grad()
+    (tmodel(*args) * torch.from_numpy(w)).sum().backward()
+    for name, p in tmodel.named_parameters():
+        if name in biases:
+            assert p.grad.abs().max().item() > 1e-3, name
+
+
 @pytest.mark.parametrize("use_text_attention", [True, False])
 def test_random_flax_variables_has_the_flax_tree(use_text_attention):
     """The seeded weights chip_smoke.py runs have exactly the leaves and
