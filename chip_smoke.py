@@ -12,9 +12,11 @@ times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
             lstm_fwd.cu, lstm_bwd.cu, dropout.cu, wer.cu, ctc_beam.cu,
             ctc_loss.cu and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
-            the model's path); g++ the host C++ sources at the same time:
-            denoise.cc (the denoiser library and the mdd_denoise tool) and
-            ark_io.cc (the mmap ark reader).
+            the model's path), the skeleton builds of ctc_beam.cu and
+            ctc_loss.cu (the chain floors) and the parent tree's two
+            (PARENT_TREE, where there is one); g++ the host C++ sources at
+            the same time: denoise.cc (the denoiser library and the
+            mdd_denoise tool) and ark_io.cc (the mmap ark reader).
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
             serving and training shapes (H=384, B in {1, 4, 16, 64}, T' in
             {16, 80, 128}), at B=24, 256 and 512 (two unit groups a
@@ -42,25 +44,40 @@ times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
             decode/beam_jit.beam_search_batch on the card: profile-evaluate's
             shape (B=64, T'=110, K=10, C=43) with and without a bigram LM
             at alpha 0.5, benchmark's 512 x 80, ragged lengths, B=1, K=1,
-            K=16, K=16 with C=64 (the limits) and one-hot posteriors with
-            and without the LM: at least 99% of the sequences identical
-            (the share logged; every differing row printed with both
-            normalised scores), token error at most 0.002, zeros after
-            every prefix, the same bits twice; 16 rows against the host
-            beam (decode/beam.py) at BEAM_MATCH; then its time against the
-            plain loop's at profile-evaluate's shape (in turns).
+            K=16, K=16 with C=64 (the limits), one-hot posteriors with
+            and without the LM and log-probs (and LM) on a grid of 0.5, so
+            that ties decide the order: every sequence and normalised
+            score equal bit for bit (the bars of at least 99% identical
+            and a token error of at most 0.002 printed beside), zeros
+            after every prefix, the same bits twice, and the bits of the
+            parent tree's kernel where there is one (PARENT_TREE); 16 rows
+            against the host beam (decode/beam.py) at BEAM_MATCH; then its
+            time against the plain loop's at profile-evaluate's shape (in
+            turns), and at TURN_SHAPES (B=1, 64, 512 x 80) in turns with
+            the parent's kernel (parent, tree, tree, parent) beside its
+            chain floor (the -DMDD_CTC_BEAM_SKELETON build: the frame
+            loop, its barriers and shared-memory round trips, no
+            arithmetic) and its bound, in us a frame: device times, by
+            CUDA events over replays of a CUDA graph of ten calls
+            (ops/frame_stamps.graph_ms, the wrappers' host work left
+            out).
 3d. kernel-ctc  ctc_alpha and ctc_beta_grad (csrc/ctc_loss.cu, the CTC
             loss's two recursions and its gradient) against
             ops/ctc_cuda's plain versions on the card: the train cell's
             shapes (B=64, T' 47-110, L 16-40; the step's transposed
             log-probs), benchmark's 512 x 80, input lengths 0 and 1, label
             lengths 0, a row no alignment fits, repeated (padded) rows,
-            T'=1, L=0 and L=511 (S=1023, the largest the wrapper takes):
-            nll within 1e-5 relative, the alphas of each row's frames and
-            the gradient within 1e-5, the same bits twice; then their times
-            at B=64, T'=110, L=40 against the plain versions' and
-            F.ctc_loss's (the yardstick: forward, and forward + backward,
-            its host syncs included), in turns, the bound and us a frame.
+            T'=1, L=0, L=511 (S=1023, the largest the wrapper takes) and
+            labels repeated back to back (no skip allowed): nll within
+            1e-5 relative, the alphas of each row's frames and the gradient
+            within 1e-5, the same bits twice, and the gradient equal to the
+            parent tree's kernel's bit for bit where there is one; then
+            their times at B=64, T'=110, L=40 against the plain versions'
+            and F.ctc_loss's (the yardstick: forward, and forward +
+            backward, its host syncs included), in turns, the bound and us
+            a frame; ctc_beta_grad at TURN_SHAPES in turns with the
+            parent's kernel beside its chain floor and bound, and
+            ctc_alpha's device time, as in kernel-beam.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -478,21 +495,33 @@ def lstm_bound_ms(t: int, b: int, h: int, dtype: str) -> tuple:
 
 
 def phase_build() -> None:
-    from mdd_tpu_torch.ops import build
+    from mdd_tpu_torch.ops import build, frame_stamps
 
     t0 = time.time()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    procs = [(s, build.start_build(s)) for s in sources]   # all at once
+    # and the variants phases kernel-beam and kernel-ctc time: the chain
+    # floors' skeleton builds, the parent tree's kernels
+    parent = parent_tree()
+    variants = []
+    for name, (source, _, prefix, _) in frame_stamps.KERNELS.items():
+        variants.append((source, (f"-D{prefix}_SKELETON",)))
+        if parent:
+            variants.append((frame_stamps.parent_source(name, parent), ()))
+    procs = [(s, (), build.start_build(s))           # all at once
+             for s in sources] + [(s, f, build.start_build(s, f))
+                                  for s, f in variants]
     hosts = [(t, build.start_host_build(t)) for t in build.HOST_TARGETS]
     for target, proc in hosts:
         log(f"  g++ {target}: {build.finish_host_build(target, proc).name}")
-    for source, proc in procs:
-        out = build.finish_build(source, proc)
-        for line in out.splitlines():
+    for source, flags, proc in procs:
+        out = build.finish_build(source, proc, flags)
+        for line in out.splitlines() if not flags else []:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas {source}: {line.strip()}")
     log(f"[build] {len(sources)} source(s) {sources} and host targets "
-        f"{list(build.HOST_TARGETS)} in {time.time() - t0:.2f} s")
+        f"{list(build.HOST_TARGETS)}, {len(variants)} variant(s) "
+        f"{[(Path(s).name, f) for s, f in variants]} in "
+        f"{time.time() - t0:.2f} s; parent tree {parent}")
 
 
 def phase_kernel(torch) -> dict:
@@ -696,10 +725,68 @@ BEAM_CASES = [("profile-evaluate", 64, 110, 43, 10, 0, False, "random"),
               ("K=16 C=64", 16, 80, 64, 16, 7, True, "random"),
               ("one-hot (peaky) posteriors", 64, 110, 43, 10, 8, False,
                "peaky"),
-              ("one-hot (peaky) + LM", 64, 110, 43, 10, 9, True, "peaky")]
+              ("one-hot (peaky) + LM", 64, 110, 43, 10, 9, True, "peaky"),
+              ("log-probs on a grid of 0.5 (ties decide the order)", 64,
+               110, 43, 10, 10, False, "ties"),
+              ("log-probs and LM on a grid of 0.5", 64, 110, 43, 10, 11,
+               True, "ties")]
 BEAM_IDENTICAL = 0.99   # kernel vs plain, share of identical sequences
 BEAM_TOKEN_ERR = 0.002  # kernel vs plain, edits over the plain's tokens
 HOST_ROWS = 16          # kernel vs the host beam (decode/beam.py, Python)
+#: phases kernel-beam and kernel-ctc: (B, T') at which the kernel is timed
+#: in turns with the parent tree's (serving, the main path's batch,
+#: benchmark's 512 x 80)
+TURN_SHAPES = [(1, 110), (BATCH, 110), (512, 80)]
+#: the parent commit's `mdd_tpu_torch/csrc/` for those turns (gitignored):
+#: `git archive <parent> mdd_tpu_torch/csrc | tar -x -C _scratch/old`
+PARENT_TREE = ROOT / "_scratch" / "old"
+
+
+def parent_tree() -> Path | None:
+    """PARENT_TREE where it holds the kernels; else, in a git checkout,
+    HEAD~1's `mdd_tpu_torch/csrc/` unpacked there; else None (the turns
+    against the parent's kernels are then left out)."""
+    if (PARENT_TREE / "mdd_tpu_torch" / "csrc" / "ctc_beam.cu").exists():
+        return PARENT_TREE
+    if not (ROOT / ".git").exists():
+        return None
+    try:
+        tar = subprocess.run(["git", "-C", str(ROOT), "archive", "HEAD~1",
+                              "mdd_tpu_torch/csrc"], capture_output=True,
+                             check=True, timeout=60).stdout
+        PARENT_TREE.mkdir(parents=True, exist_ok=True)
+        subprocess.run(["tar", "-x", "-C", str(PARENT_TREE)], input=tar,
+                       check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return PARENT_TREE if (PARENT_TREE / "mdd_tpu_torch" / "csrc" /
+                           "ctc_beam.cu").exists() else None
+
+
+def frame_turns(name: str, parent, card: str) -> dict:
+    """frame_stamps' kernel `name` ("beam" or "beta_grad") at TURN_SHAPES:
+    device times (CUDA-graph replays) in turns with the parent tree's
+    kernel (parent, tree, tree, parent) where there is one, its chain floor
+    (the skeleton build) and its bound; -> "B=b T'=t" -> those numbers."""
+    from mdd_tpu_torch.ops import frame_stamps
+
+    out = {}
+    for b, t in TURN_SHAPES:
+        got = frame_stamps.time_kernel(name, None, parent and str(parent),
+                                       b, t)
+        if got["parent_ms"]:
+            got["faster_than_parent"] = max(got["ms"]) < min(
+                got["parent_ms"])
+        out[f"B={b} T'={t}"] = got
+    log(f"[frame-turns] {name}: "
+        + "; ".join(f"{k} {min(v['ms']):.4f} ms, {v['us_per_frame']:.3f} us "
+                    f"a frame, floor {v['chain_floor_ms']:.4f}, bound "
+                    f"{v['bound_ms']:.6f}"
+                    + (f", parent {min(v['parent_ms']):.4f} ms, faster "
+                       f"{v['faster_than_parent']}" if v["parent_ms"]
+                       else ", no parent tree") for k, v in out.items())
+        + f" ({card})")
+    return out
 
 
 def new_kernels() -> dict:
@@ -820,7 +907,9 @@ CTC_CASES = [("train T'=110 L=40", 64, 110, 40, 0, "random"),
              ("T'=1, L=1", 1, 1, 1, 6, "random"),
              ("no labels (L=0)", 3, 9, 0, 7, "random"),
              ("the largest L the wrapper takes (S=1023)", 4, 1100, 511, 8,
-              "random")]
+              "random"),
+             ("labels repeated back to back (no skip allowed)", 64, 110, 40,
+              9, "repeats")]
 CTC_NLL_RTOL = 1e-5    # kernel vs plain: both take the same float steps in
 CTC_GRAD_ATOL = 1e-5   # the same order; the plain class sums use atomics
 
@@ -832,7 +921,8 @@ def ctc_inputs(torch, b: int, t: int, l: int, seed: int, case: str,
     train cell's 16-40), input lengths t/2..t; "edges" adds rows of input
     length 0 and 1, label length 0 and one no alignment fits, "strided"
     lays the log-probs out as the model's log_softmax(...).transpose(0, 1),
-    "padded" repeats a row as pad_batch_to does."""
+    "padded" repeats a row as pad_batch_to does, "repeats" makes every
+    second label its predecessor (the skip between them forbidden)."""
     g = torch.Generator().manual_seed(SEED + 200 + seed)
     lp = torch.log_softmax(torch.randn((t, b, c), generator=g) * 2, -1)
     labels = torch.randint(1, c, (b, max(l, 1)), generator=g)[:, :l]
@@ -848,6 +938,8 @@ def ctc_inputs(torch, b: int, t: int, l: int, seed: int, case: str,
     if case == "padded":
         for x in (lp.transpose(0, 1), labels, label_lengths, input_lengths):
             x[b // 2:] = x[b // 2 - 1]
+    if case == "repeats":
+        labels[:, 1::2] = labels[:, 0::2][:, :l // 2]
     lp = lp.cuda()
     if case == "strided":
         lp = lp.transpose(0, 1).contiguous().transpose(0, 1)
@@ -883,9 +975,12 @@ def phase_kernel_ctc(torch, card: str) -> dict:
     the gradient within CTC_GRAD_ATOL, the same bits twice); their times at
     B=64, T'=110, L=40 against the plain versions' and F.ctc_loss's, in
     turns.  -> the two `kernels` entries' numbers."""
-    from mdd_tpu_torch.ops import ctc_cuda
+    from mdd_tpu_torch.ops import ctc_cuda, frame_stamps
 
     alpha_k, grad_k = ctc_cuda.ctc_alpha_kernel, ctc_cuda.ctc_beta_grad_kernel
+    parent = parent_tree()
+    parent_grad = parent and frame_stamps.binding(
+        "beta_grad", frame_stamps.parent_source("beta_grad", parent))
     worst = {"nll": 0.0, "nll_rel": 0.0, "grad": 0.0}
     for name, b, t, l, seed, case in CTC_CASES:
         args = ctc_inputs(torch, b, t, l, seed, case)
@@ -912,10 +1007,17 @@ def phase_kernel_ctc(torch, card: str) -> dict:
                            if feasible.any() else 0.0)
         worst["nll_rel"] = max(worst["nll_rel"], nll_rel)
         worst["grad"] = max(worst["grad"], grad_err)
+        same_parent = parent_grad is None or torch.equal(
+            grad, parent_grad(*args, alphas, nll, g))
         log(f"[kernel-ctc] {name} (B={b}, T'={t}, L={l}): nll rel err "
             f"{nll_rel:.2e}, alphas {alpha_err:.2e}, dlog_probs abs err "
             f"{grad_err:.2e}; {int((~feasible).sum())} row(s) no alignment "
-            f"fits")
+            f"fits; " + ("no parent tree" if parent_grad is None else
+                         f"dlog_probs = the parent's kernel's bit for bit: "
+                         f"{same_parent}"))
+        if not same_parent:
+            raise AssertionError(f"ctc_beta_grad {name}: not the parent "
+                                 "kernel's bits")
         if not (nll_rel <= CTC_NLL_RTOL and alpha_err <= CTC_NLL_RTOL
                 and grad_err <= CTC_GRAD_ATOL
                 and torch.isfinite(grad).all()):
@@ -973,6 +1075,20 @@ def phase_kernel_ctc(torch, card: str) -> dict:
                   "ms": best[k], "plain_ms": best[plain], "bound_ms": least,
                   "bound_by": by, "library_ms": lib,
                   "ms_per_frame": best[k] / t}
+    turns = frame_turns("beta_grad", parent, card)
+    main = turns[f"B={b} T'={t}"]
+    out["ctc_beta_grad"].update(
+        chain_floor_ms=main["chain_floor_ms"], device_ms=min(main["ms"]),
+        parent_ms=main["parent_ms"] and min(main["parent_ms"]), turns=turns)
+    # ctc_alpha's device time the same way (CUDA-graph replays, the
+    # wrapper's host work left out), for the two chains' us a frame
+    alpha_dev = frame_stamps.graph_ms(lambda: alpha_k(*args))
+    out["ctc_alpha"]["device_ms"] = alpha_dev
+    log(f"[kernel-ctc] device time (CUDA-graph replays) at B={b} T'={t} "
+        f"L={l}: ctc_alpha {alpha_dev:.4f} ms, {alpha_dev / t * 1e3:.3f} us "
+        f"a frame; ctc_beta_grad {min(main['ms']):.4f} ms, "
+        f"{main['us_per_frame']:.3f} us a frame, "
+        f"{main['us_per_frame'] / (alpha_dev / t * 1e3):.2f}x ({card})")
     out["ctc_alpha"]["max_rel_err"] = worst["nll_rel"]
     out["ctc_alpha"]["call_ms"] = calls["ctc_alpha"]
     out["ctc_beta_grad"]["fwd_bwd_ms"] = best["ours fwd+bwd"]
@@ -992,7 +1108,9 @@ def beam_inputs(torch, b: int, t: int, c: int, seed: int, lm: bool,
                 case: str):
     """Seeded log-probs (blank-boosted, or one-hot clamped at 1e-38 as
     BatchedBeamDecoder.decode clamps), lengths and an LM matrix on the
-    card: a Witten-Bell bigram trained on seeded sentences, times 0.5."""
+    card: a Witten-Bell bigram trained on seeded sentences, times 0.5;
+    "ties" rounds the log-probs and the LM to multiples of 0.5, so that
+    many candidates tie and the index order decides."""
     import numpy as np
 
     from mdd_tpu_torch.data.vocab import Vocab
@@ -1010,6 +1128,8 @@ def beam_inputs(torch, b: int, t: int, c: int, seed: int, lm: bool,
         logits = rng.standard_normal((b, t, c)).astype(np.float32)
         logits[:, :, 0] += 1.5
         lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    if case == "ties":
+        lp = np.round(lp * 2) / 2
     lengths = (rng.integers(0, t + 1, b) if case == "ragged"
                else np.full(b, t))
     vocab = Vocab([f"p{i}" for i in range(c - 2)])
@@ -1024,6 +1144,8 @@ def beam_inputs(torch, b: int, t: int, c: int, seed: int, lm: bool,
             lm_train.write_arpa(*lm_train.witten_bell_bigram(counts),
                                 str(path))
         matrix = ArpaBigramLM(str(path)).dense_matrix(vocab.index2word) * 0.5
+        if case == "ties":
+            matrix = np.round(matrix * 2) / 2
     else:
         matrix = np.zeros((c + 1, c + 1), np.float32)
     return (torch.from_numpy(lp.astype(np.float32)).cuda(),
@@ -1032,16 +1154,21 @@ def beam_inputs(torch, b: int, t: int, c: int, seed: int, lm: bool,
 
 
 def phase_kernel_beam(torch, card: str) -> dict:
-    """ctc_beam against decode/beam_jit.beam_search_batch on the card, and
-    against the host beam; its time against the plain loop's."""
+    """ctc_beam against decode/beam_jit.beam_search_batch on the card (every
+    sequence and normalised score bit for bit) and the parent tree's
+    kernel (the same bits), and against the host beam; its time against
+    the plain loop's, and in turns with the parent's at TURN_SHAPES."""
     import numpy as np
 
     from mdd_tpu_torch.align.levenshtein import edit_distance
     from mdd_tpu_torch.decode.beam import BeamSearchDecoder
     from mdd_tpu_torch.decode.beam_jit import beam_search_batch
-    from mdd_tpu_torch.ops import beam_cuda
+    from mdd_tpu_torch.ops import beam_cuda, frame_stamps
 
     kernel = beam_cuda.ctc_beam_kernel
+    parent = parent_tree()
+    parent_kernel = parent and frame_stamps.binding(
+        "beam", frame_stamps.parent_source("beam", parent))
     rows = same = bits = errs = tokens = 0
     worst = 0.0
     timing = None
@@ -1073,10 +1200,16 @@ def phase_kernel_beam(torch, card: str) -> dict:
         bits += n_bits
         errs += n_err
         tokens += sum(len(y) for y in want)
+        same_parent = parent_kernel is None or all(
+            torch.equal(x, y) for x, y in zip(
+                (pre, lens, score),
+                parent_kernel(lp, lengths, matrix, k, 0, 0.1, scores=True)))
         log(f"[kernel-beam] {name} (B={b}, T'={t}, C={c}, K={k}"
             f"{', LM 0.5' if lm else ''}): {n_same} / {b} sequences identical "
             f"to the plain version's, {n_bits} / {b} scores equal bit for "
-            f"bit, {n_err} token edits; zeros after each prefix: {tails}")
+            f"bit, {n_err} token edits; zeros after each prefix: {tails}; "
+            + ("no parent tree" if parent_kernel is None else
+               f"the parent's kernel's bits: {same_parent}"))
         for i in range(b):
             if got[i] != want[i]:
                 log(f"[kernel-beam]   row {i}: kernel {got[i]} score "
@@ -1085,6 +1218,11 @@ def phase_kernel_beam(torch, card: str) -> dict:
         if not tails:
             raise AssertionError(f"ctc_beam {name}: non-zero labels past a "
                                  "prefix")
+        if n_same != b or n_bits != b or not same_parent:
+            raise AssertionError(f"ctc_beam {name}: {n_same} / {b} "
+                                 f"sequences and {n_bits} / {b} scores "
+                                 "equal to the plain version's; the "
+                                 f"parent's bits: {same_parent}")
         if name == "profile-evaluate":
             host = BeamSearchDecoder(vocab.index2word, beam_width=k)
             probs = torch.exp(lp[:HOST_ROWS]).double().cpu().numpy()
@@ -1120,11 +1258,17 @@ def phase_kernel_beam(torch, card: str) -> dict:
         f"turns); {ms / t * 1e3:.3f} us a frame ({ms / kept * 1e3:.3f} a kept "
         f"frame of the longest row, {kept}); bound {least:.6f} ms ({by}) "
         f"({card})")
+    turns = frame_turns("beam", parent, card)
+    main = turns[f"B={lp.shape[0]} T'={t}"]
     return {"max_abs_err": worst, "identical_share": share,
             "token_error": err, "scores_bit_equal": bits / rows,
             "shape": f"B={lp.shape[0]} T'={t} C={lp.shape[2]} K={k} float32",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": least,
-            "bound_by": by, "library_ms": None, "ms_per_frame": ms / t}
+            "bound_by": by, "library_ms": None, "ms_per_frame": ms / t,
+            "chain_floor_ms": main["chain_floor_ms"],
+            "device_ms": min(main["ms"]),
+            "parent_ms": main["parent_ms"] and min(main["parent_ms"]),
+            "turns": turns}
 
 
 def phase_model(torch):

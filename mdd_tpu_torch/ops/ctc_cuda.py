@@ -32,6 +32,7 @@ LOG_EPS = -1e30
 #: the kernels' limits: a thread a slot (S = 2L + 1) and one a class
 MAX_SLOTS = 1023
 MAX_CLASSES = 1024
+MAX_FRAME_CLASSES = 2 ** 31 - 1
 #: H100 SXM (NVIDIA's data sheet): memory rate and float32 rate outside the
 #: tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -205,6 +206,10 @@ def _check(log_probs, input_lengths, labels, label_lengths, blank) -> None:
     if c > MAX_CLASSES:
         raise ValueError(f"the CTC kernels take at most {MAX_CLASSES} "
                          f"classes, got {c}")
+    if t * c > MAX_FRAME_CLASSES:
+        raise ValueError(f"the CTC kernels count a row's (frame, class) "
+                         f"pairs in 32 bits: T * C <= 2^31 - 1, got {t} * "
+                         f"{c}")
     if not 0 <= blank < c:
         raise ValueError(f"blank {blank} is not a class of {c}")
 
@@ -267,12 +272,18 @@ class CtcAlphaKernel(KernelBinding):
         return nll, alphas
 
 
+def weights_shape(log_probs, labels) -> tuple:
+    """The (T, B, S) float32 scratch of `ctc_beta_grad`: the posterior
+    weights its frame chain writes and its class sums read."""
+    return (log_probs.shape[0], log_probs.shape[1], 2 * labels.shape[1] + 1)
+
+
 class CtcBetaGradKernel(KernelBinding):
     """`mdd_ctc_beta_grad` of csrc/ctc_loss.cu: -> dlog_probs, laid out as
     log_probs, every entry written."""
 
     source, entry = "ctc_loss.cu", "mdd_ctc_beta_grad"
-    argtypes = _ARGS + (ctypes.c_void_p,) * 4 + (ctypes.c_longlong,) * 2
+    argtypes = _ARGS + (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) * 2
 
     def __call__(self, log_probs, input_lengths, labels, label_lengths,
                  alphas, nll, g, blank: int = 0):
@@ -286,10 +297,13 @@ class CtcBetaGradKernel(KernelBinding):
         if grad.stride(2) != 1:
             grad = torch.empty(log_probs.shape, dtype=torch.float32,
                                device=log_probs.device)
+        weights = torch.empty(weights_shape(log_probs, labels),
+                              dtype=torch.float32, device=log_probs.device)
         self._launch(log_probs.device, *_common(log_probs, input_lengths,
                                                 labels, label_lengths, blank),
                      alphas.data_ptr(), nll.data_ptr(), g.data_ptr(),
-                     grad.data_ptr(), grad.stride(0), grad.stride(1))
+                     weights.data_ptr(), grad.data_ptr(), grad.stride(0),
+                     grad.stride(1))
         return grad
 
 

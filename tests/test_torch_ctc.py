@@ -179,6 +179,8 @@ def _bad(which):
         lp = torch.zeros((4, labels.shape[0], 1025))
     elif which == "blank outside the classes":
         blank = lp.shape[2]
+    elif which == "2^31 frame-class pairs":
+        lp = torch.zeros((1, labels.shape[0], 1024)).expand(2 ** 21, -1, -1)
     return (lp, il, labels, ll), blank
 
 
@@ -191,6 +193,7 @@ REFUSALS = [("float64 log_probs", TypeError, "float32"),
             ("1,024 slots", ValueError, "1023"),
             ("1,025 classes", ValueError, "1024"),
             ("blank outside the classes", ValueError, "blank"),
+            ("2^31 frame-class pairs", ValueError, "32 bits"),
             ("cpu tensors", ValueError, "CUDA")]
 
 
@@ -206,7 +209,9 @@ def test_kernel_wrappers_refuse_on_the_cpu(monkeypatch, kernel, which, error,
     else:
         t, b = args[0].shape[:2]
         s = 2 * args[2].shape[-1] + 1
-        alphas, vec = torch.zeros((t, b, s)), torch.zeros(b)
+        alphas, vec = torch.zeros((1, 1, 1)).expand(t, b, s), torch.zeros(b)
+        if which == "cpu tensors":
+            alphas = alphas.contiguous()
         call = lambda: ctc_cuda.ctc_beta_grad_kernel(
             *args, alphas, vec, vec, blank=blank)
     with pytest.raises(error, match=match):
@@ -229,6 +234,53 @@ def test_backward_wrapper_refuses_bad_cotangents(monkeypatch, which, match):
         g = torch.zeros(b + 1)
     with pytest.raises(ValueError, match=match):
         ctc_cuda.ctc_beta_grad_kernel(lp, il, labels, ll, alphas, nll, g)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_gradient_scratch_holds_a_weight_a_frame_row_and_slot(name):
+    """ctc_beta_grad's (T, B, S) weights scratch: S the extended labels'
+    width that the plain version builds (mdd_tpu's `_prep`)."""
+    logits, il, labels, ll, _ = _case(name)
+    lp = torch.from_numpy(_log_softmax(logits))
+    labels = torch.from_numpy(labels)
+    ext, _, _ = ctc_cuda._extended_labels(labels, torch.from_numpy(ll), 0)
+    assert ctc_cuda.weights_shape(lp, labels) == (*lp.shape[:2],
+                                                  ext.shape[1])
+
+
+def test_backward_wrapper_hands_the_kernel_its_scratch(monkeypatch):
+    """On a stand-in for the launch: one argument a parameter of
+    `mdd_ctc_beta_grad` in csrc/ctc_loss.cu (its stream last), the weights
+    scratch (T, B, S) float32 before the gradient, the gradient laid out
+    as the log-probs."""
+    lp, il, labels, ll = _good()
+    t, b = lp.shape[:2]
+    s = 2 * labels.shape[1] + 1
+    made, seen = [], []
+    real_empty = torch.empty
+
+    def empty(*args, **kw):
+        out = real_empty(*args, **kw)
+        made.append(out)
+        return out
+
+    monkeypatch.setattr(ctc_cuda.torch, "empty", empty)
+    monkeypatch.setattr(ctc_cuda, "_check_device", lambda lp: None)
+    kernel = ctc_cuda.CtcBetaGradKernel()
+    monkeypatch.setattr(kernel, "_launch",
+                        lambda device, *args: seen.append(args))
+    grad = kernel(lp, il, labels, ll, torch.zeros((t, b, s)),
+                  torch.zeros(b), torch.ones(b))
+    args = seen[0]
+    source = (build.CSRC / "ctc_loss.cu").read_text()
+    params = source.split("int mdd_ctc_beta_grad(")[1].split(")")[0]
+    assert len(args) + 1 == len(kernel.argtypes) + 1 == params.count(",") + 1
+    weights = next(x for x in made if x.data_ptr() == args[-4])
+    assert tuple(weights.shape) == (t, b, s) == ctc_cuda.weights_shape(
+        lp, labels)
+    assert weights.dtype == torch.float32
+    assert args[-3:] == (grad.data_ptr(), grad.stride(0), grad.stride(1))
+    assert grad.shape == lp.shape and grad.stride() == lp.stride()
 
 
 def _count_lstm_seq(monkeypatch):

@@ -576,7 +576,9 @@ def test_wer_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 def _beam_inputs(b, t, c, seed, lm=False, case="random"):
     """Seeded log-probs (blank-boosted, or one-hot clamped at 1e-38),
     lengths and a dense LM matrix (log of seeded Dirichlet rows times
-    0.5, or zeros) on the card."""
+    0.5, or zeros) on the card; "ties" rounds the log-probs and the LM to
+    multiples of 0.5, so that many candidates tie and the index order
+    decides."""
     rng = np.random.default_rng(seed)
     if case == "peaky":
         ids = rng.integers(0, c, (b, t))
@@ -591,6 +593,8 @@ def _beam_inputs(b, t, c, seed, lm=False, case="random"):
     lengths = rng.integers(0, t + 1, b) if case == "ragged" else np.full(b, t)
     matrix = (np.log(rng.dirichlet(np.ones(c + 1), c + 1)) * 0.5 if lm
               else np.zeros((c + 1, c + 1)))
+    if case == "ties":
+        lp, matrix = np.round(lp * 2) / 2, np.round(matrix * 2) / 2
     return (torch.from_numpy(lp.astype(np.float32)).cuda(),
             torch.from_numpy(lengths.astype(np.int64)).cuda(),
             torch.from_numpy(matrix.astype(np.float32)).cuda())
@@ -636,10 +640,43 @@ def test_beam_kernel_matches_plain_version(cuda, b, t, c, k, lm, case):
     assert not pre[tail].any()
 
 
-def test_beam_kernel_is_the_same_from_run_to_run(cuda):
+# (B, T', C, K, LM, case): ties decide the order (with and without the LM);
+# K=16 over 2 and 3 classes, so that dead beams fill most slots of the
+# first frames; B=512 at K=16 (736 threads a row: more rows than the SMs
+# hold at once)
+BEAM_EXACT_SHAPES = [(64, 110, 43, 10, False, "ties"),
+                     (64, 110, 43, 10, True, "ties"),
+                     (32, 24, 2, 16, False, "random"),
+                     (32, 24, 3, 16, True, "ragged"),
+                     (512, 80, 43, 16, True, "random")]
+
+
+@pytest.mark.parametrize("b,t,c,k,lm,case", BEAM_EXACT_SHAPES)
+def test_beam_kernel_equals_plain_version_bit_for_bit(cuda, b, t, c, k, lm,
+                                                      case):
+    """Every sequence, length and normalised score of the plain version's,
+    bit for bit: the sort keys order the candidates as its stable sort
+    does."""
+    from mdd_tpu_torch.decode.beam_jit import beam_search_batch
     from mdd_tpu_torch.ops import beam_cuda
 
-    lp, lengths, matrix = _beam_inputs(64, 110, 43, seed=3, lm=True)
+    lp, lengths, matrix = _beam_inputs(b, t, c, seed=7 * b + t + c + k,
+                                       lm=lm, case=case)
+    got = beam_cuda.ctc_beam_kernel(lp, lengths, matrix, k, 0, 0.1,
+                                    scores=True)
+    want = beam_search_batch(lp, lengths, matrix, k, 0, 0.1,
+                             return_scores=True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("lm,case", [(True, "random"), (False, "ties"),
+                                     (True, "ties")])
+def test_beam_kernel_is_the_same_from_run_to_run(cuda, lm, case):
+    from mdd_tpu_torch.ops import beam_cuda
+
+    lp, lengths, matrix = _beam_inputs(64, 110, 43, seed=3, lm=lm, case=case)
     first = beam_cuda.ctc_beam_kernel(lp, lengths, matrix, 10, 0, 0.1,
                                       scores=True)
     for _ in range(3):
@@ -768,8 +805,9 @@ def _ctc_inputs(b, t, l, seed, case="random", c=43):
     label lengths 16..l (the train cell's 16-40), input lengths t/2..t;
     `case` adds rows of input length 0 and 1, label length 0 and rows no
     alignment fits ("edges"), the model's transposed log-probs
-    ("strided"), or repeats the last rows as pad_batch_to does
-    ("padded")."""
+    ("strided"), repeats the last rows as pad_batch_to does ("padded"), or
+    makes every second label its predecessor ("repeats": the skip between
+    them forbidden)."""
     g = torch.Generator().manual_seed(seed)
     lp = torch.log_softmax(torch.randn((t, b, c), generator=g) * 2, -1)
     labels = torch.randint(1, c, (b, max(l, 1)), generator=g)[:, :l]
@@ -785,6 +823,8 @@ def _ctc_inputs(b, t, l, seed, case="random", c=43):
     if case == "padded":
         for x in (lp.transpose(0, 1), labels, label_lengths, input_lengths):
             x[b // 2:] = x[b // 2 - 1]
+    if case == "repeats":
+        labels[:, 1::2] = labels[:, 0::2][:, :l // 2]
     lp = lp.cuda()
     if case == "strided":           # log_softmax(...).transpose(0, 1)
         lp = lp.transpose(0, 1).contiguous().transpose(0, 1)
@@ -795,7 +835,8 @@ CTC_SHAPES = [(64, 110, 40, "random"), (64, 47, 16, "random"),
               (64, 110, 40, "strided"), (512, 80, 40, "random"),
               (64, 110, 40, "edges"), (16, 60, 24, "padded"),
               (1, 1, 1, "random"), (3, 9, 0, "random"),
-              (4, 1100, 511, "random")]
+              (4, 1100, 511, "random"), (64, 110, 40, "repeats"),
+              (512, 80, 40, "repeats")]
 
 
 @pytest.mark.parametrize("b,t,l,case", CTC_SHAPES)
@@ -826,11 +867,12 @@ def test_ctc_kernels_match_plain_versions(cuda, b, t, l, case):
     assert (grad - ref_grad).abs().max().item() <= 1e-5
 
 
-def test_ctc_kernels_are_the_same_from_run_to_run(cuda):
+@pytest.mark.parametrize("case", ["edges", "repeats"])
+def test_ctc_kernels_are_the_same_from_run_to_run(cuda, case):
     """No float atomics: two calls give the same bits."""
     from mdd_tpu_torch.ops import ctc_cuda
 
-    args = _ctc_inputs(64, 110, 40, seed=3, case="edges")
+    args = _ctc_inputs(64, 110, 40, seed=3, case=case)
     g = torch.ones(64, device="cuda")
     first = ctc_cuda.ctc_loss_fwd(*args)
     first_grad = ctc_cuda.ctc_loss_bwd(*args, *first[::-1], g)
