@@ -5,11 +5,14 @@
 Phases, each printed as it ends; any failure raises and exits non-zero.
 A float32 forward of the flagship model launches lstm_fwd 5 times (4
 acoustic BiLSTM layers and the text BiLSTM) and its train step lstm_bwd 5
-times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
+times; in bfloat16 the text BiLSTM runs on the scan-contract kernels
+(lstm_fwd and lstm_bwd 4 each, lstm_scan_fwd once a forward and
+lstm_scan_bwd once a train step):
 
 
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
-            lstm_fwd.cu, lstm_bwd.cu, dropout.cu, wer.cu, ctc_beam.cu,
+            lstm_fwd.cu, lstm_bwd.cu (each with its scan-contract
+            instances), dropout.cu, wer.cu, ctc_beam.cu,
             ctc_loss.cu and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
             the model's path), the skeleton builds of ctc_beam.cu and
@@ -78,6 +81,24 @@ times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
             a frame; ctc_beta_grad at TURN_SHAPES in turns with the
             parent's kernel beside its chain floor and bound, and
             ctc_alpha's device time, as in kernel-beam.
+3e. kernel-scan  lstm_scan_fwd and lstm_scan_bwd (the scan contract of
+            lstm_fwd.cu and lstm_bwd.cu: mdd_tpu/ops/lstm.py's bilstm
+            and JAX's autodiff of it, the bfloat16 text BiLSTM's route)
+            against ops/lstm_cuda's plain versions on the card at the
+            text BiLSTM's shapes (T=L in {1, 7, 48}, B in {1, 64, 512,
+            513}, D=512, H=384, bfloat16): hs, cs, dx_proj and dW_hh
+            within SCAN_TOL of each tensor's largest magnitude, one count
+            a call, the same bits twice at 48 x 513; then their times
+            (CUDA events) at 48 x 512, 48 x 64 and 7 x 1 beside the
+            plain versions', their bounds, the backward's three launches
+            one by one and a bf16 torch.nn.LSTM(512, 384, bidirectional)
+            layer as the yardstick (cuDNN: another contract).
+3f. kernel-lstm-parent  lstm_fwd and lstm_bwd (the Pallas contract)
+            against the parent tree's build of the same two sources
+            (PARENT_TREE), float32 and bfloat16, T'=80 at B=64 and 512 and
+            T'=16 at B=1: hs, cs, dx_proj and dW_hh equal bit for bit (the
+            scan instances beside them change none of their bits); not
+            run without a parent tree.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -221,12 +242,19 @@ times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
 15. train-bf16  the flagship recipe with compute_dtype bfloat16 (the
             shipped recipes' dtype) and use_fused_dropout=True, through the
             entry points of phase 14 for one epoch: losses finite and
-            falling, every layer of every step on the kernels, the step
-            median; then 3 steps of that model at bench.py's cell (B=512 x
-            160 frames, the largest batch a train step gives the dropout
-            kernel): losses finite, fused_dropout 12 and lstm_bwd 4 counts
-            a step, the step times; then the step median there with the
-            loss on the CTC kernels against F.ctc_loss, in turns.
+            falling, every layer of every step on the kernels (the four
+            acoustic ones on lstm_fwd / lstm_bwd, the text BiLSTM on
+            lstm_scan_fwd / lstm_scan_bwd), the step median; the B=64
+            step median with the text BiLSTM on the scan kernels against
+            the plain loop (kernels, plain, plain, kernels) and the device
+            ops a step of each (torch.profiler); then 3 steps of that
+            model at bench.py's cell (B=512 x 160 frames, L=48, the
+            largest batch a train step gives the dropout kernel): losses
+            finite, fused_dropout 12, lstm_bwd 4 and lstm_scan_fwd /
+            lstm_scan_bwd 1 counts a step, the step times; then the step
+            median there with the loss on the CTC kernels against
+            F.ctc_loss, and with the text BiLSTM on the scan kernels
+            against the plain loop (with device ops a step), in turns.
 16. train-cached  the training path on the device-resident corpus: a
             hard-profile corpus (512 / 64 / 64 utterances of 16-40 phones,
             the recovered 41-unit inventory) from `python -m
@@ -344,8 +372,9 @@ times; in bfloat16 the text BiLSTM stays on the plain loop (4 each):
             against the listed bf16 peak, 900 utterances in every
             evaluation pass; lstm_fwd 4 counts a bfloat16 train step and
             5 an evaluation forward of the float32 trained model, lstm_bwd
-            4 a train step over the phase (every Trainer step and evaluation
-            forward counted apart), fused_dropout 0 (bench.py leaves it
+            4 a train step, lstm_scan_fwd and lstm_scan_bwd 1 a train step
+            over the phase (every Trainer step and evaluation forward
+            counted apart), fused_dropout 0 (bench.py leaves it
             off), greedy_wer at least once a step, ctc_alpha as often,
             ctc_beta_grad once a train step, ctc_beam more than once
             an evaluation forward (the decode section's rounds too); the
@@ -507,9 +536,16 @@ def phase_build() -> None:
         variants.append((source, (f"-D{prefix}_SKELETON",)))
         if parent:
             variants.append((frame_stamps.parent_source(name, parent), ()))
-    procs = [(s, (), build.start_build(s))           # all at once
-             for s in sources] + [(s, f, build.start_build(s, f))
-                                  for s, f in variants]
+    if parent:     # phase kernel-lstm-parent's
+        variants += [(str(parent / "mdd_tpu_torch" / "csrc" / s), ())
+                     for s in ("lstm_fwd.cu", "lstm_bwd.cu")]
+    # all at once; a parent source equal to the tree's builds to the same
+    # library, which one compile makes
+    procs, paths = [], set()
+    for s, f in [(s, ()) for s in sources] + variants:
+        if build.library_path(s, f) not in paths:
+            paths.add(build.library_path(s, f))
+            procs.append((s, f, build.start_build(s, f)))
     hosts = [(t, build.start_host_build(t)) for t in build.HOST_TARGETS]
     for target, proc in hosts:
         log(f"  g++ {target}: {build.finish_host_build(target, proc).name}")
@@ -686,11 +722,13 @@ def phase_kernel_staging(torch) -> None:
 # collapse + edit distance (csrc/wer.cu) and the CTC prefix beam
 # (csrc/ctc_beam.cu); each launch on a path is counted by path
 
-#: path -> launches of greedy_wer / ctc_beam / ctc_alpha / ctc_beta_grad on
-#: it (zeroed just before the path runs, read just after; launches that
-#: compare a kernel with its plain version are not counted)
+#: path -> launches of greedy_wer / ctc_beam / ctc_alpha / ctc_beta_grad /
+#: lstm_scan_fwd / lstm_scan_bwd on it (zeroed just before the path runs,
+#: read just after; launches that compare a kernel with its plain version
+#: are not counted)
 PATH_LAUNCHES = {"greedy_wer": {}, "ctc_beam": {}, "ctc_alpha": {},
-                 "ctc_beta_grad": {}}
+                 "ctc_beta_grad": {}, "lstm_scan_fwd": {},
+                 "lstm_scan_bwd": {}}
 #: the flagship model's acoustic BiLSTM layers
 FLAGSHIP_LAYERS = 4
 
@@ -698,8 +736,9 @@ FLAGSHIP_LAYERS = 4
 def lstm_per_pass(compute_dtype: str = "float32") -> int:
     """lstm_fwd launches a forward (and lstm_bwd launches a train step) of
     the flagship model with use_pallas_lstm: one an acoustic BiLSTM, and
-    in float32 one for the text BiLSTM (models/ctc_model.TextEncoder keeps
-    it on the plain loop in bfloat16)."""
+    in float32 one for the text BiLSTM (models/ctc_model.TextEncoder puts
+    it on the scan kernels in bfloat16: lstm_scan_fwd and lstm_scan_bwd
+    once a forward and a train step)."""
     return FLAGSHIP_LAYERS + (compute_dtype == "float32")
 
 
@@ -793,11 +832,15 @@ def new_kernels() -> dict:
     from mdd_tpu_torch.ops.beam_cuda import ctc_beam_kernel
     from mdd_tpu_torch.ops.ctc_cuda import (ctc_alpha_kernel,
                                             ctc_beta_grad_kernel)
+    from mdd_tpu_torch.ops.lstm_cuda import (lstm_scan_bwd_kernel,
+                                             lstm_scan_fwd_kernel)
     from mdd_tpu_torch.ops.wer_cuda import greedy_wer_kernel
 
     return {"greedy_wer": greedy_wer_kernel, "ctc_beam": ctc_beam_kernel,
             "ctc_alpha": ctc_alpha_kernel,
-            "ctc_beta_grad": ctc_beta_grad_kernel}
+            "ctc_beta_grad": ctc_beta_grad_kernel,
+            "lstm_scan_fwd": lstm_scan_fwd_kernel,
+            "lstm_scan_bwd": lstm_scan_bwd_kernel}
 
 
 def zero_path_launches() -> None:
@@ -1101,6 +1144,230 @@ def phase_kernel_ctc(torch, card: str) -> dict:
         f"{calls['F.ctc_loss fwd']:.4f}, ours forward + backward "
         f"{calls['ours fwd+bwd']:.4f}, F.ctc_loss forward + backward "
         f"{calls['F.ctc_loss fwd+bwd']:.4f} ms ({card})")
+    return out
+
+
+def phase_kernel_lstm_parent(torch, parent) -> None:
+    """lstm_fwd and lstm_bwd (the Pallas contract) against the parent
+    tree's build of their sources, bit for bit, float32 and bfloat16, at
+    train's, benchmark's and serving's shapes: the scan-contract instances
+    beside them in the same files change none of their bits.  Not run
+    without a parent tree."""
+    from mdd_tpu_torch.ops import lstm_cuda
+
+    if parent is None:
+        log("[kernel-lstm-parent] no parent tree: not run")
+        return
+    old = [lstm_cuda.LstmFwdKernel(), lstm_cuda.LstmBwdKernel()]
+    for k in old:
+        k.source = str(parent / "mdd_tpu_torch" / "csrc" / k.source)
+    g = torch.Generator().manual_seed(SEED + 50)
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, b in ((80, BATCH), (80, 512), (16, 1)):
+            x_proj = (torch.randn((t, 2, b, 4 * H), generator=g) * 0.5
+                      ).to("cuda", dtype)
+            w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
+                    / H ** 0.5).to("cuda", dtype)
+            dhs = torch.randn((t, 2, b, H), generator=g).cuda()
+            new = lstm_cuda.lstm_fwd_kernel(x_proj, w_hh)
+            got = new + lstm_cuda.lstm_bwd_kernel(x_proj, w_hh, *new, dhs)
+            want = old[0](x_proj, w_hh)
+            want += old[1](x_proj, w_hh, *new, dhs)
+            same = all(torch.equal(a, w) for a, w in zip(got, want))
+            log(f"[kernel-lstm-parent] {dtype} T'={t} B={b}: hs, cs, "
+                f"dx_proj, dW_hh equal to the parent tree's kernels bit "
+                f"for bit: {same}")
+            if not same:
+                raise AssertionError(f"lstm_fwd / lstm_bwd {dtype} T'={t} "
+                                     f"B={b}: not the parent's bits")
+
+
+#: phase kernel-scan: the text BiLSTM's (T = L, B): serving's L and B,
+#: train's B=64, benchmark's L=48 at B=512 (the forward in several
+#: launches) and a ragged 513; D=512 (text_embed_size), H=384
+SCAN_SHAPES = [(t, b) for t in (1, 7, 48) for b in (1, BATCH, 512, 513)]
+SCAN_D = 512
+SCAN_TOL = 2e-2   # scan kernels vs plain, each tensor relative to its
+# largest magnitude: the same float32 steps in the same order but for the
+# dots' sums (tensor cores against cuBLAS; the float32 dgates as three
+# exact TF32 passes), so a rounding to bfloat16 (2^-8) can flip and carry
+# through the later steps and dW_hh's bfloat16 sum
+#: (T, B) at which the scan kernels are timed: benchmark's cell and train's
+SCAN_TIMING = [(48, 512), (48, BATCH), (7, 1)]
+
+
+def scan_inputs(torch, t: int, b: int, seed: int):
+    """bfloat16 (x, w_ih_fwd, w_ih_bwd, x_proj, w_hh) on the card as the
+    text BiLSTM makes them: a (T, B, 512) input through both directions'
+    input projections."""
+    from mdd_tpu_torch.ops.lstm import input_projections
+
+    g = torch.Generator().manual_seed(seed)
+    s = H ** -0.5
+    x = torch.randn((t, b, SCAN_D), generator=g).to("cuda", torch.bfloat16)
+    w_ih = [((torch.rand((SCAN_D, 4 * H), generator=g) * 2 - 1) * s).to(
+        "cuda", torch.bfloat16) for _ in range(2)]
+    w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1) * s).to(
+        "cuda", torch.bfloat16)
+    xf, xb = input_projections(x, *w_ih)
+    return x, w_ih, torch.stack([xf, xb], dim=1).bfloat16(), w_hh
+
+
+def lstm_scan_bound_ms(t: int, b: int, h: int) -> tuple:
+    """Least time for the scan-contract forward: x_proj and w_hh (bf16)
+    read once, hs (bf16) and cs (float32) written once; the recurrent dots
+    at the bf16 rate plus the gate adds."""
+    seq = t * 2 * b
+    nbytes = 2 * (seq * 4 * h + 2 * h * 4 * h + seq * h) + 4 * seq * h
+    flops = 2 * seq * h * 4 * h + seq * 4 * h + 4 * seq * h
+    return bound(nbytes, flops, "bfloat16")
+
+
+def lstm_scan_bwd_bound_ms(t: int, b: int, h: int) -> tuple:
+    """Least time for the scan-contract backward: x_proj, w_hh, hs (bf16),
+    cs and dhs (float32, as the kernel takes them) read once, dx_proj and
+    dW_hh (bf16) written once.  Operations at the bf16 rate: the gate
+    recompute's dots once, the two products of float32 dgates against
+    bf16 operands (dh_{t-1}, dW_hh) three times each (a product exact to
+    float32 takes a three-way split of the float32 operand), plus ~20
+    operations of gate math per hidden unit and step."""
+    seq = t * 2 * b
+    nbytes = (2 * (seq * 4 * h + 2 * h * 4 * h + seq * h)
+              + 4 * (2 * seq * h) + 2 * (seq * 4 * h + 2 * h * 4 * h))
+    dot = 2 * seq * h * 4 * h
+    return bound(nbytes, dot + 3 * 2 * dot + 20 * seq * h, "bfloat16")
+
+
+def phase_kernel_scan(torch, card: str) -> dict:
+    """lstm_scan_fwd and lstm_scan_bwd (the scan contract of lstm_fwd.cu
+    and lstm_bwd.cu, the text BiLSTM's route in bfloat16) against their
+    plain versions at SCAN_SHAPES (the backward on the plain forward's hs
+    and cs and a bf16 cotangent), the same bits twice at the largest;
+    then their times at SCAN_TIMING (CUDA events) beside the plain
+    versions', their bounds and one bf16 torch.nn.LSTM(512, 384,
+    bidirectional) layer as the yardstick.  -> the two `kernels` entries'
+    numbers."""
+    from mdd_tpu_torch.ops.lstm_cuda import (
+        lstm_scan_bwd_kernel,
+        lstm_scan_bwd_reference,
+        lstm_scan_fwd_kernel,
+        lstm_scan_fwd_reference,
+    )
+    from mdd_tpu_torch.utils.precision import strict_float32
+
+    strict_float32("cuda", "float32")    # the plain versions' float32 dots
+    worst = {"fwd": 0.0, "bwd": 0.0, "fwd_abs": 0.0, "bwd_abs": 0.0}
+    for i, (t, b) in enumerate(SCAN_SHAPES):
+        _, _, x_proj, w_hh = scan_inputs(torch, t, b, SEED + 10 + i)
+        dhs = torch.randn((t, 2, b, H), generator=torch.Generator(
+            ).manual_seed(i)).to("cuda", torch.bfloat16).float()
+        before = (lstm_scan_fwd_kernel.launches, lstm_scan_bwd_kernel.launches)
+        hs, cs = lstm_scan_fwd_kernel(x_proj, w_hh)
+        ref_hs, ref_cs = lstm_scan_fwd_reference(x_proj, w_hh)
+        dxp, dw = lstm_scan_bwd_kernel(x_proj, w_hh, ref_hs, ref_cs, dhs)
+        torch.cuda.synchronize()
+        ref_dxp, ref_dw = lstm_scan_bwd_reference(x_proj, w_hh, ref_hs,
+                                                  ref_cs, dhs)
+        fwd = [rel_err(hs, ref_hs), rel_err(cs, ref_cs)]
+        bwd = [rel_err(dxp, ref_dxp),
+               rel_err(dw, ref_dw) if t > 1 else float(dw.abs().max())]
+        abs_err = [max((hs.float() - ref_hs.float()).abs().max().item(),
+                       (cs - ref_cs).abs().max().item()),
+                   max((dxp.float() - ref_dxp.float()).abs().max().item(),
+                       (dw.float() - ref_dw.float()).abs().max().item())]
+        same = ""
+        if (t, b) == SCAN_SHAPES[-1]:
+            again = lstm_scan_fwd_kernel(x_proj, w_hh)
+            again_b = lstm_scan_bwd_kernel(x_proj, w_hh, ref_hs, ref_cs, dhs)
+            if not (torch.equal(hs, again[0]) and torch.equal(cs, again[1])
+                    and torch.equal(dxp, again_b[0])
+                    and torch.equal(dw, again_b[1])):
+                raise AssertionError(f"the scan kernels at T={t} B={b} "
+                                     "changed their bits between two runs")
+            same = "; the same bits twice"
+        plan = lstm_scan_fwd_kernel.plan(b, H, torch.bfloat16)
+        log(f"  lstm_scan T={t} B={b}: fwd max rel err hs {fwd[0]:.3e}, cs "
+            f"{fwd[1]:.3e}; bwd dx_proj {bwd[0]:.3e}, dW_hh {bwd[1]:.3e}; "
+            f"max abs err fwd {abs_err[0]:.3e}, bwd {abs_err[1]:.3e}; "
+            f"forward in {plan['launches']} launch(es){same}")
+        if not (max(fwd) <= SCAN_TOL and max(bwd) <= SCAN_TOL
+                and hs.dtype == dxp.dtype == dw.dtype == torch.bfloat16
+                and cs.dtype == torch.float32):
+            raise AssertionError(f"the scan kernels at T={t} B={b} differ "
+                                 f"from their plain versions: fwd {fwd}, "
+                                 f"bwd {bwd} (tol {SCAN_TOL})")
+        launched = (lstm_scan_fwd_kernel.launches - before[0],
+                    lstm_scan_bwd_kernel.launches - before[1])
+        if launched != ((2, 2) if same else (1, 1)):
+            raise AssertionError(f"scan kernels counted {launched}")
+        worst["fwd"] = max(worst["fwd"], *fwd)
+        worst["bwd"] = max(worst["bwd"], *bwd)
+        worst["fwd_abs"] = max(worst["fwd_abs"], abs_err[0])
+        worst["bwd_abs"] = max(worst["bwd_abs"], abs_err[1])
+        if t == 1 and (dw.any() or ref_dw.any()):
+            raise AssertionError("dW_hh of one step (no h_{t-1}) is not 0")
+    log(f"[kernel-scan] lstm_scan_fwd / lstm_scan_bwd match their plain "
+        f"versions at {len(SCAN_SHAPES)} shapes: max rel err "
+        f"{worst['fwd']:.3e} / {worst['bwd']:.3e} (tol {SCAN_TOL})")
+    out = {"lstm_scan_fwd": {"max_abs_err": worst["fwd_abs"],
+                             "max_rel_err": worst["fwd"], "by_shape": {}},
+           "lstm_scan_bwd": {"max_abs_err": worst["bwd_abs"],
+                             "max_rel_err": worst["bwd"], "by_shape": {}}}
+    for i, (t, b) in enumerate(SCAN_TIMING):
+        x, _, x_proj, w_hh = scan_inputs(torch, t, b, SEED + 30 + i)
+        dhs = torch.randn((t, 2, b, H), device="cuda").bfloat16().float()
+        lib = torch.nn.LSTM(SCAN_D, H, bidirectional=True).to(
+            "cuda", torch.bfloat16)
+        x_grad = x.clone().requires_grad_()
+        dy = torch.randn((t, b, 2 * H), device="cuda").bfloat16()
+        with torch.no_grad():
+            hs, cs = lstm_scan_fwd_kernel(x_proj, w_hh)
+            k = lstm_scan_bwd_kernel
+            buffers = k.buffers(x_proj)
+            fns = {"fwd": lambda: lstm_scan_fwd_kernel(x_proj, w_hh),
+                   "bwd": lambda: k(x_proj, w_hh, hs, cs, dhs),
+                   "plain fwd": lambda: lstm_scan_fwd_reference(x_proj, w_hh),
+                   "plain bwd": lambda: lstm_scan_bwd_reference(
+                       x_proj, w_hh, hs, cs, dhs)}
+            fns.update({f"bwd {name}": (lambda part=part: k.run_parts(
+                x_proj, w_hh, hs, cs, dhs, buffers, part))
+                for name, part in (("z", k.Z_PRODUCT), ("chain", k.CHAIN),
+                                   ("dw", k.DW_PRODUCT))})
+            times = {name: cuda_ms(fn, 3 if name.startswith("plain") else 20)
+                     for name, fn in fns.items()}
+        lib_fwd = cuda_ms(lambda: lib(x_grad)[0], 20)
+        lib_both = cuda_ms(lambda: lib(x_grad)[0].backward(dy), 20)
+        shape = f"T={t} B={b}"
+        for name, bnd_fn, lib_ms in (
+                ("fwd", lstm_scan_bound_ms, lib_fwd),
+                ("bwd", lstm_scan_bwd_bound_ms, lib_both - lib_fwd)):
+            least, by = bnd_fn(t, b, H)
+            entry = {"ms": times[name], "plain_ms": times[f"plain {name}"],
+                     "bound_ms": least, "bound_by": by, "library_ms": lib_ms}
+            if name == "bwd":
+                entry["parts_ms"] = {p: times[f"bwd {p}"]
+                                     for p in ("z", "chain", "dw")}
+            out[f"lstm_scan_{name}"]["by_shape"][shape] = entry
+        plan = lstm_scan_bwd_kernel.plan(t, b, H, torch.bfloat16)
+        log(f"[kernel-scan] {shape} D={SCAN_D} H={H} bfloat16: lstm_scan_fwd "
+            f"{times['fwd']:.4f} ms (plain {times['plain fwd']:.4f}, bound "
+            f"{lstm_scan_bound_ms(t, b, H)[0]:.6f}); lstm_scan_bwd "
+            f"{times['bwd']:.4f} ms (pre-activation product "
+            f"{times['bwd z']:.4f}, recurrence {times['bwd chain']:.4f} in "
+            f"{plan['launches']} launch(es) of {plan['blocks']} blocks, "
+            f"dW_hh {times['bwd dw']:.4f}; plain {times['plain bwd']:.4f}, "
+            f"bound {lstm_scan_bwd_bound_ms(t, b, H)[0]:.6f}); yardstick "
+            f"torch.nn.LSTM({SCAN_D}, {H}, bidirectional) bf16 (cuDNN, "
+            f"another contract: c in float32, its own roundings; the input "
+            f"projection included) forward {lib_fwd:.4f} ms, backward "
+            f"{lib_both - lib_fwd:.4f} ms ({card})")
+    for name in out:
+        main = out[name]["by_shape"][f"T={SCAN_TIMING[0][0]} "
+                                     f"B={SCAN_TIMING[0][1]}"]
+        out[name].update(shape=f"T={SCAN_TIMING[0][0]} B={SCAN_TIMING[0][1]}"
+                         f" D={SCAN_D} H={H} bfloat16",
+                         **{k: v for k, v in main.items()
+                            if k != "parts_ms"})
     return out
 
 
@@ -3374,15 +3641,77 @@ def compare_dropout_steps(torch, cfg, vocab, card: str) -> None:
         f"{busy['fused'][0]:.2f} ms in {busy['fused'][1]} ops ({card})")
 
 
+def text_turns(torch, trainer, batches, tag: str, card: str) -> dict:
+    """Train steps over `batches` with the text BiLSTM on the scan-contract
+    kernels (bilstm_scan_cuda) and on the plain loop (bilstm), in turns
+    (kernels, plain, plain, kernels): the step medians; then
+    torch.profiler over the first batches (at most 3) of each: device ops
+    and busy share a step.  -> {"kernels" / "plain": {"median_ms": [..],
+    "ops_per_step": n}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch.ops.lstm import bilstm
+    from mdd_tpu_torch.ops.lstm_cuda import bilstm_scan_cuda
+
+    text = trainer.model.text.lstm
+    if text.rnn is not bilstm_scan_cuda:
+        raise AssertionError("the bfloat16 text BiLSTM is not on the scan "
+                             "kernels")
+    variants = {"kernels": bilstm_scan_cuda, "plain": bilstm}
+    out = {k: {"median_ms": []} for k in variants}
+    acc = torch.zeros(4, device="cuda")
+    try:
+        for which in ("kernels", "plain", "plain", "kernels"):
+            text.rnn = variants[which]
+            turn = []
+            for arrays in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                acc = trainer.train_step(arrays, acc)
+                torch.cuda.synchronize()
+                turn.append(time.perf_counter() - t0)
+            out[which]["median_ms"].append(
+                round(statistics.median(turn) * 1e3, 2))
+        for which in variants:
+            text.rnn = variants[which]
+            window = batches[:3]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for arrays in window:
+                    acc = trainer.train_step(arrays, acc)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            ops = report_profile(prof, wall_us, tag,
+                                 f"{len(window)} bf16 train steps, the text "
+                                 f"BiLSTM on {which}", card)
+            out[which]["ops_per_step"] = ops / len(window)
+    finally:
+        text.rnn = bilstm_scan_cuda
+    log(f"[{tag}] step median with the text BiLSTM on the scan kernels "
+        f"{out['kernels']['median_ms']} ms, on the plain loop "
+        f"{out['plain']['median_ms']} ms (in turns: kernels, plain, plain, "
+        f"kernels; {len(batches)} steps each); device ops a step "
+        f"{out['kernels']['ops_per_step']:.1f} against "
+        f"{out['plain']['ops_per_step']:.1f} ({card})")
+    return out
+
+
 def phase_train_bf16(torch, train, dev, card: str) -> dict:
     """One epoch of the flagship recipe in bfloat16 with use_fused_dropout
-    through the entry points `train` uses, then its step time; -> the
-    launch counts of the epoch."""
+    through the entry points `train` uses, then its step time, with the
+    text BiLSTM on the scan kernels against the plain loop; -> the launch
+    counts of the epoch."""
     from mdd_tpu_torch import cli
     from mdd_tpu_torch.data.dataset import pad_batch_to
     from mdd_tpu_torch.data.vocab import Vocab
     from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
-    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel, lstm_fwd_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import (
+        lstm_bwd_kernel,
+        lstm_fwd_kernel,
+        lstm_scan_bwd_kernel,
+        lstm_scan_fwd_kernel,
+    )
     from mdd_tpu_torch.utils.config import load_config
 
     cfg = load_config(write_train_yaml(train, dev, 1, "bfloat16"))
@@ -3409,6 +3738,8 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     drops, fwd, bwd = (k.launches for k in kernels)
+    scan_fwd, scan_bwd = (lstm_scan_fwd_kernel.launches,
+                          lstm_scan_bwd_kernel.launches)
     record_path_launches("train-bf16")
     steps = -(-TRAIN_UTTS // BATCH)
     forwards = steps + -(-DEV_UTTS // BATCH)
@@ -3418,18 +3749,22 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
         f"compute_dtype bfloat16, use_fused_dropout, in {wall:.1f} s: step "
         f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; {dev_line}; "
         f"fused_dropout launches {drops} over {steps} train steps, lstm_fwd "
-        f"{fwd} over {forwards} forwards, lstm_bwd {bwd}")
+        f"{fwd} over {forwards} forwards, lstm_bwd {bwd}, lstm_scan_fwd "
+        f"{scan_fwd}, lstm_scan_bwd {scan_bwd}")
     if len(losses) != steps or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"losses missing or not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the bfloat16 loss did not fall: {losses}")
-    # bfloat16 keeps the text BiLSTM on the plain loop
+    # in bfloat16 the text BiLSTM runs on the scan kernels, the acoustic
+    # layers on lstm_fwd / lstm_bwd
     layers = lstm_per_pass("bfloat16")
     if (drops != 12 * steps or bwd != layers * steps
-            or fwd != layers * forwards):
+            or fwd != layers * forwards or scan_fwd != forwards
+            or scan_bwd != steps):
         raise AssertionError(
-            f"{drops} dropout / {fwd} lstm_fwd / {bwd} lstm_bwd launches for "
-            f"{steps} train steps and {forwards} forwards: a site or a layer "
+            f"{drops} dropout / {fwd} lstm_fwd / {bwd} lstm_bwd / {scan_fwd} "
+            f"lstm_scan_fwd / {scan_bwd} lstm_scan_bwd launches for {steps} "
+            f"train steps and {forwards} forwards: a site or a layer "
             "bypassed its kernel")
     # the step time at B=64, one pass over the corpus from the epoch's state
     loader = cli._build_loader(cfg, vocab, cfg.train_scp_path,
@@ -3446,19 +3781,31 @@ def phase_train_bf16(torch, train, dev, card: str) -> dict:
     log(f"[train-bf16] step time at B={BATCH}: median "
         f"{statistics.median(secs) * 1e3:.2f} ms over {len(secs)} steps "
         f"(min {min(secs) * 1e3:.2f}, max {max(secs) * 1e3:.2f}) ({card})")
-    bench_cell_fused_step(torch, trainer.model_cfg, card)
-    return {"fused_dropout": drops, "lstm_fwd": fwd, "lstm_bwd": bwd}
+    batches = [trainer.batch_arrays(padded, valid) for padded, valid in
+               (pad_batch_to(b, BATCH) for b in loader)]
+    turns = {f"B={BATCH}": text_turns(torch, trainer, batches, "train-bf16",
+                                      card)}
+    turns["B=512 x 160"] = bench_cell_fused_step(torch, trainer.model_cfg,
+                                                 card)
+    return {"fused_dropout": drops, "lstm_fwd": fwd, "lstm_bwd": bwd,
+            "text_turns": turns}
 
 
-def bench_cell_fused_step(torch, model_cfg, card: str) -> None:
+def bench_cell_fused_step(torch, model_cfg, card: str) -> dict:
     """Trainer steps of the full-width bfloat16 model with fused dropout
     at bench.py's cell (B=512 x 160 frames, T'=80, 48 canonical phones, the
     benchmark's seeded batch), the largest batch a train step gives the
-    dropout kernel: each step's loss finite, fused_dropout 12 counts and
-    lstm_bwd one a layer a step."""
+    dropout kernel: each step's loss finite, fused_dropout 12 counts,
+    lstm_bwd one a layer and lstm_scan_fwd / lstm_scan_bwd one a step;
+    then the loss on the CTC kernels and the text BiLSTM on the scan
+    kernels, each against what it replaced, in turns; -> text_turns'."""
     from mdd_tpu_torch import bench
     from mdd_tpu_torch.ops.dropout_cuda import fused_dropout_kernel
-    from mdd_tpu_torch.ops.lstm_cuda import lstm_bwd_kernel
+    from mdd_tpu_torch.ops.lstm_cuda import (
+        lstm_bwd_kernel,
+        lstm_scan_bwd_kernel,
+        lstm_scan_fwd_kernel,
+    )
     from mdd_tpu_torch.train.loop import Trainer
 
     if not model_cfg.use_fused_dropout:
@@ -3466,7 +3813,8 @@ def bench_cell_fused_step(torch, model_cfg, card: str) -> None:
     tr = Trainer(model_cfg, device="cuda", device_frontend=False)
     arrays = tr.batch_arrays(bench.train_batch(
         model_cfg, bench.BATCH, bench.FRAMES, bench.LABEL_LEN))
-    kernels = (fused_dropout_kernel, lstm_bwd_kernel)
+    kernels = (fused_dropout_kernel, lstm_bwd_kernel, lstm_scan_fwd_kernel,
+               lstm_scan_bwd_kernel)
     before = [k.launches for k in kernels]
     losses, secs = [], []
     for _ in range(3):
@@ -3475,18 +3823,22 @@ def bench_cell_fused_step(torch, model_cfg, card: str) -> None:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(acc[0].item())
-    drops, bwd = (k.launches - b for k, b in zip(kernels, before))
+    drops, bwd, scan_fwd, scan_bwd = (k.launches - b
+                                      for k, b in zip(kernels, before))
     log(f"[train-bf16] bench.py's cell with fused dropout, B={bench.BATCH} "
         f"x {bench.FRAMES} frames (T'={model_cfg.output_frames(bench.FRAMES)}"
-        f"), bfloat16: step losses {' / '.join(f'{v:.4f}' for v in losses)}"
-        f"; fused_dropout {drops}, lstm_bwd {bwd} launches over "
-        f"{len(secs)} steps; step time "
+        f", L={bench.LABEL_LEN}), bfloat16: step losses "
+        f"{' / '.join(f'{v:.4f}' for v in losses)}; fused_dropout {drops}, "
+        f"lstm_bwd {bwd}, lstm_scan_fwd {scan_fwd}, lstm_scan_bwd "
+        f"{scan_bwd} launches over {len(secs)} steps; step time "
         f"{' / '.join(f'{v * 1e3:.1f}' for v in secs)} ms ({card})")
     if not all(math.isfinite(v) and 0 < v < 1e29 for v in losses):
         raise AssertionError(f"bench-cell fused-dropout step losses {losses}")
-    if drops != 12 * len(secs) or bwd != model_cfg.rnn_layers * len(secs):
+    if (drops != 12 * len(secs) or bwd != model_cfg.rnn_layers * len(secs)
+            or scan_fwd != len(secs) or scan_bwd != len(secs)):
         raise AssertionError(
-            f"{drops} fused_dropout / {bwd} lstm_bwd launches for "
+            f"{drops} fused_dropout / {bwd} lstm_bwd / {scan_fwd} "
+            f"lstm_scan_fwd / {scan_bwd} lstm_scan_bwd launches for "
             f"{len(secs)} steps of {model_cfg.rnn_layers} layers")
     # the loss on the CTC kernels against F.ctc_loss at this cell, in turns
     from mdd_tpu_torch.train import loop
@@ -3510,6 +3862,8 @@ def bench_cell_fused_step(torch, model_cfg, card: str) -> None:
     log(f"[train-bf16] bench.py's cell: step median with the loss on the "
         f"CTC kernels {medians['kernels']} ms, on F.ctc_loss "
         f"{medians['F.ctc_loss']} ms (in turns, 3 steps each) ({card})")
+    # the text BiLSTM on the scan kernels against the plain loop, in turns
+    return text_turns(torch, tr, [arrays] * 3, "train-bf16", card)
 
 
 def write_eval_yaml(conf: str, name: str, split: tuple, lm: str,
@@ -3581,7 +3935,8 @@ def phase_evaluate(torch, conf: str, train: tuple, dev: tuple,
     forwards = len(kinds) * -(-DEV_UTTS // BATCH)
     # a beam launch a batch of the two beam passes, none for greedy
     if new != {"greedy_wer": 0, "ctc_beam": 2 * -(-DEV_UTTS // BATCH),
-               "ctc_alpha": 0, "ctc_beta_grad": 0}:
+               "ctc_alpha": 0, "ctc_beta_grad": 0, "lstm_scan_fwd": 0,
+               "lstm_scan_bwd": 0}:
         raise AssertionError(f"{new} over the three passes: the beam "
                              "bypassed its kernel")
     result = run_cli(["mdd-result", "--ref", str(dumps["beam"] / "transcribe.log"),
@@ -4898,12 +5253,21 @@ def local_cards_kernels(torch, card: str) -> None:
     w_hh = ((torch.rand((2, H, 4 * H), generator=g) * 2 - 1)
             / H ** 0.5).to(dev)
     dhs = torch.randn((t, 2, b, H), generator=g).to(dev)
+    s_xp, s_w = (a.to(dev) for a in scan_inputs(torch, 48, b, SEED + 40)[2:])
+    s_dhs = torch.randn((48, 2, b, H), generator=g).to(dev, torch.bfloat16)
     lstm_cuda._barrier_counters = recorded
     try:
         hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
         dxp, dw = lstm_cuda.lstm_seq_bwd(x_proj, w_hh, hs, cs, dhs)
+        s_hs, s_cs = lstm_cuda.lstm_scan_fwd(s_xp, s_w)
+        s_dxp, s_dw = lstm_cuda.lstm_scan_bwd(s_xp, s_w, s_hs, s_cs, s_dhs)
     finally:
         lstm_cuda._barrier_counters = counters
+    s_ref = lstm_cuda.lstm_scan_fwd_reference(s_xp, s_w)
+    scan_rel = max(rel_err(a, r) for a, r in zip(
+        (s_hs, s_cs, s_dxp, s_dw),
+        s_ref + lstm_cuda.lstm_scan_bwd_reference(s_xp, s_w, s_hs, s_cs,
+                                                  s_dhs)))
     ref_hs, ref_cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
     ref_dxp, ref_dw = lstm_cuda.lstm_seq_bwd_reference(x_proj, w_hh, hs, cs,
                                                        dhs)
@@ -4921,10 +5285,12 @@ def local_cards_kernels(torch, card: str) -> None:
         f"H={H} float32: lstm_fwd max abs err {fwd_err:.2e} (tol "
         f"{TOL['float32']}), lstm_bwd rel err {bwd_rel:.2e} (tol "
         f"{BWD_TOL['float32']}), fused_dropout bit for bit "
-        f"{drop_same}; barrier counters on {where} ({card})")
+        f"{drop_same}; lstm_scan_fwd / lstm_scan_bwd at T=48 bf16 max rel "
+        f"err {scan_rel:.2e} (tol {SCAN_TOL}); barrier counters on {where} "
+        f"({card})")
     if (fwd_err > TOL["float32"] or bwd_rel > BWD_TOL["float32"]
-            or not drop_same or where != ["cuda:1"] or len(made) != 2
-            or torch.cuda.current_device() != 0):
+            or scan_rel > SCAN_TOL or not drop_same or where != ["cuda:1"]
+            or len(made) != 4 or torch.cuda.current_device() != 0):
         raise AssertionError("[local-cards] a kernel on cuda:1 differs from "
                              "its plain version or its counters are not on "
                              "its card")
@@ -4995,8 +5361,10 @@ def phase_benchmark(torch, card: str) -> dict:
     log(f"[benchmark] `benchmark` in {wall:.1f} s, rc {rc}, {len(lines)} "
         f"stdout line(s); {ran['steps']} Trainer steps, {ran['forwards']} "
         f"evaluation forwards; lstm_fwd {fwd}, lstm_bwd {bwd}, "
-        f"fused_dropout {drops}, greedy_wer {new['greedy_wer']}, ctc_beam "
-        f"{new['ctc_beam']}; lstm_bwd's recurrence at B={bench.BATCH}, "
+        f"lstm_scan_fwd {new['lstm_scan_fwd']}, lstm_scan_bwd "
+        f"{new['lstm_scan_bwd']}, fused_dropout {drops}, greedy_wer "
+        f"{new['greedy_wer']}, ctc_beam {new['ctc_beam']}; lstm_bwd's "
+        f"recurrence at B={bench.BATCH}, "
         f"T'={t_out} in {plan['launches']} launch(es) of "
         f"{plan['chunk_rows']} rows; peak device memory {peak_gib:.1f} GiB "
         f"({card})")
@@ -5029,9 +5397,16 @@ def phase_benchmark(torch, card: str) -> dict:
     if extra["eval_checkpoint"] != "syn_full/best":
         raise AssertionError(f"benchmark evaluated {extra['eval_checkpoint']}"
                              ", not the trained syn_full/best")
-    # the train steps in bfloat16 (the text BiLSTM on the plain loop), the
-    # evaluation forwards on the trained float32 model
+    # the train steps in bfloat16 (the text BiLSTM on the scan kernels),
+    # the evaluation forwards on the trained float32 model
     layers = lstm_per_pass(cfg.compute_dtype)
+    if not (cfg.compute_dtype == "bfloat16"
+            and new["lstm_scan_fwd"] == ran["steps"]
+            and new["lstm_scan_bwd"] == ran["steps"]):
+        raise AssertionError(
+            f"{new['lstm_scan_fwd']} lstm_scan_fwd / {new['lstm_scan_bwd']} "
+            f"lstm_scan_bwd launches for {ran['steps']} {cfg.compute_dtype} "
+            "train steps: the text BiLSTM bypassed its kernels")
     if not (ran["steps"] > bench.WARMUP_STEPS + bench.BENCH_STEPS
             and ran["forwards"] > 0 and bwd == layers * ran["steps"]
             and fwd == (layers * ran["steps"]
@@ -5188,6 +5563,8 @@ def main() -> int:
     wer_kernel = phase_kernel_wer(torch, card)
     beam_kernel = phase_kernel_beam(torch, card)
     ctc_kernels = phase_kernel_ctc(torch, card)
+    scan_kernels = phase_kernel_scan(torch, card)
+    phase_kernel_lstm_parent(torch, parent_tree())
     cfg, meta, state = phase_model(torch)
     vis = phase_visualize(torch, cfg, state, card)
     files = write_serving_files(cfg, meta, state)
@@ -5334,7 +5711,18 @@ def main() -> int:
         "launches": sum(PATH_LAUNCHES["ctc_beta_grad"].values()),
         "launches_by_path": PATH_LAUNCHES["ctc_beta_grad"],
         **ctc_kernels["ctc_beta_grad"],
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"mdd_tpu_torch/csrc/{source}",
+        "replaces": "mdd_tpu/ops/lstm.py:59",
+        "launches": sum(PATH_LAUNCHES[name].values()),
+        "launches_by_path": PATH_LAUNCHES[name],
+        **scan_kernels[name],
+        **({"text_turns": bf16["text_turns"]} if name == "lstm_scan_fwd"
+           else {}),
+    } for name, source in (("lstm_scan_fwd", "lstm_fwd.cu"),
+                           ("lstm_scan_bwd", "lstm_bwd.cu"))]
     log(f"[time] every phase in {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

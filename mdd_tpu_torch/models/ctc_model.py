@@ -41,7 +41,7 @@ from torch import nn
 from mdd_tpu_torch.ops.attention import dot_attention
 from mdd_tpu_torch.ops.dropout_cuda import fused_dropout
 from mdd_tpu_torch.ops.lstm import bilstm
-from mdd_tpu_torch.ops.lstm_cuda import bilstm_cuda
+from mdd_tpu_torch.ops.lstm_cuda import bilstm_cuda, bilstm_scan_cuda
 from mdd_tpu_torch.parallel import mesh
 
 BN_EPSILON = 1e-5    # flax.linen.BatchNorm's default
@@ -65,7 +65,7 @@ class ModelConfig:
     compute_dtype: str = "float32"     # "bfloat16" for throughput runs
     use_pallas_lstm: bool = False      # acoustic recurrence in the fused
     # kernels (mdd_tpu: Pallas; here: csrc/lstm_{fwd,bwd}.cu via
-    # ops.lstm_cuda), and here the text BiLSTM too in float32
+    # ops.lstm_cuda), and here the text BiLSTM too (TextEncoder)
     use_fused_dropout: bool = False    # dropout masks made in the kernel
     # from a seed (mdd_tpu: Pallas; here: csrc/dropout.cu via
     # ops.dropout_cuda); the backward regenerates the mask from the seed
@@ -203,12 +203,24 @@ class Dense(nn.Module):
         return torch.matmul(x.to(dtype), self.kernel.to(dtype))
 
 
+#: BiLstmLayer's recurrences by route: the plain loop (mdd_tpu's lax.scan,
+#: h and c rounded to the compute dtype every step; autograd's backward),
+#: the kernels under the Pallas contract (c carried in float32) and the
+#: kernels under the scan contract (the plain loop's function and
+#: gradients, bfloat16 only on the card)
+RECURRENCES = {"plain": bilstm, "pallas": bilstm_cuda,
+               "scan": bilstm_scan_cuda}
+
+
 class BiLstmLayer(nn.Module):
-    """BatchNorm -> BiLSTM (reference BatchRNN, model_ctc.py:15-49)."""
+    """BatchNorm -> BiLSTM (reference BatchRNN, model_ctc.py:15-49).
+
+    `route` picks the recurrence (RECURRENCES): "plain", "pallas" or
+    "scan"."""
 
     def __init__(self, d_in: int, hidden_size: int,
                  use_batch_norm: bool = True, use_bias: bool = False,
-                 use_kernel: bool = False, dropout: float = 0.0,
+                 route: str = "plain", dropout: float = 0.0,
                  fused_dropout: bool = False):
         super().__init__()
         four_h = 4 * hidden_size
@@ -223,7 +235,7 @@ class BiLstmLayer(nn.Module):
         if use_bias:
             self.b_fwd = nn.Parameter(torch.empty(four_h))
             self.b_bwd = nn.Parameter(torch.empty(four_h))
-        self.rnn = bilstm_cuda if use_kernel else bilstm
+        self.rnn = RECURRENCES[route]
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 train: bool = False, sample_mask: torch.Tensor | None = None,
@@ -305,23 +317,26 @@ class ConvSubsampler(nn.Module):
 class TextEncoder(nn.Module):
     """Canonical-phone encoder: Embedding -> BiLSTM -> (values, keys).
 
-    The text BiLSTM runs on the LSTM kernels (ops.lstm_cuda.bilstm_cuda)
-    when `use_pallas_lstm` is set and the compute dtype is float32, where
-    the kernels' contract (c carried in float32) is the plain loop's; in
-    bfloat16 it stays on the plain loop, which rounds h and c to bfloat16
-    every step as mdd_tpu's text scan does.  The route is fixed here, by
-    the configuration.  It has no BatchNorm and no dropout, so train mode
-    changes nothing here."""
+    mdd_tpu runs the text BiLSTM on its lax.scan whatever
+    `use_pallas_lstm` says.  With `use_pallas_lstm` set the port runs it on
+    the LSTM kernels: in float32 under the Pallas contract (bilstm_cuda,
+    whose function is then the scan's), in bfloat16 under the scan
+    contract (bilstm_scan_cuda: h and c rounded every step, bfloat16
+    cotangents, as mdd_tpu's scan and JAX's autodiff of it).  Without it,
+    the plain loop.  The route is fixed here, by the configuration.  It
+    has no BatchNorm and no dropout, so train mode changes nothing here."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.embed = nn.Module()
         self.embed.embedding = nn.Parameter(
             torch.empty(cfg.text_vocab_size, cfg.text_embed_size))
+        route = "plain"
+        if cfg.use_pallas_lstm:
+            route = "pallas" if cfg.compute_dtype == "float32" else "scan"
         self.lstm = BiLstmLayer(
             cfg.text_embed_size, cfg.rnn_hidden_size, use_batch_norm=False,
-            use_bias=True, use_kernel=(cfg.use_pallas_lstm
-                                       and cfg.compute_dtype == "float32"))
+            use_bias=True, route=route)
         self.key_proj = Dense(cfg.encoder_dim, cfg.encoder_dim)
 
     def forward(self, trans: torch.Tensor, trans_lengths, dtype):
@@ -349,7 +364,8 @@ class CTCAttentionModel(nn.Module):
         for i in range(cfg.rnn_layers):
             layer = BiLstmLayer(d_in, cfg.rnn_hidden_size,
                                 use_batch_norm=i > 0,
-                                use_kernel=cfg.use_pallas_lstm,
+                                route=("pallas" if cfg.use_pallas_lstm
+                                       else "plain"),
                                 dropout=cfg.dropout,
                                 fused_dropout=cfg.use_fused_dropout)
             self.add_module(f"rnn{i}", layer)

@@ -1,20 +1,31 @@
 """Fused two-direction LSTM recurrence: the Hopper kernels and their plain
-versions.
+versions, under two contracts.
 
-Counterpart of mdd_tpu/ops/lstm_pallas.py.  `lstm_seq` and the
-`bilstm_cuda` facade keep that module's contract and layout:
-projections (T, 2, B, 4H) with the direction axis separate from batch,
-recurrent weights (2, H, 4H), hidden states (T, 2, B, H); dot operands in
-the compute dtype, float32 accumulation and gate math, and the cell state
-carried in float32 for the whole sequence.
+Both keep mdd_tpu's layout: projections (T, 2, B, 4H) with the direction
+axis separate from batch, recurrent weights (2, H, 4H), hidden states
+(T, 2, B, H); dot operands in the compute dtype, float32 accumulation and
+gate math.  They differ in what is rounded to the compute dtype:
 
-On a CUDA tensor `lstm_seq_fwd` launches the kernel of
-`csrc/lstm_fwd.cu` and `lstm_seq_bwd` the kernels of `csrc/lstm_bwd.cu`
-(see the notes there for their design), or raise; on a CPU tensor they run
-`lstm_seq_fwd_reference` and `lstm_seq_bwd_reference`, the plain PyTorch
-versions that the tests and chip_smoke.py hold the kernels against.
-`LstmSeq` pairs the two as one autograd Function (the custom VJP of
-lstm_pallas.lstm_seq).
+- **The Pallas contract** (mdd_tpu/ops/lstm_pallas.py): `lstm_seq` and
+  the `bilstm_cuda` facade.  h is carried in the compute dtype and c in
+  float32 for the whole sequence; the backward carries dh and dc in
+  float32, rounds dgates before both products and sums dW_hh once in
+  float32.  On a CUDA tensor `lstm_seq_fwd` launches the kernel of
+  `csrc/lstm_fwd.cu` and `lstm_seq_bwd` the kernels of `csrc/lstm_bwd.cu`.
+- **The scan contract** (mdd_tpu/ops/lstm.py's `lax.scan` and JAX's
+  autodiff of it): `lstm_scan` and the `bilstm_scan_cuda` facade.  h and
+  c are rounded to the compute dtype every step (tanh takes the unrounded
+  c); the backward carries bfloat16 cotangents, as JAX's does (see
+  `lstm_scan_bwd_reference`).  On a CUDA tensor `lstm_scan_fwd` and
+  `lstm_scan_bwd` launch the scan variants of the same two sources, in
+  bfloat16 only: in float32 the two contracts are one, and the model
+  takes the Pallas one there.
+
+On a CPU tensor each wrapper runs its `*_reference` function, the plain
+PyTorch versions that the tests and chip_smoke.py hold the kernels
+against (see the notes in the `.cu` files for the kernels' design).
+`LstmSeq` and `LstmScan` pair each contract's two halves as one autograd
+Function.
 """
 
 from __future__ import annotations
@@ -95,6 +106,92 @@ def lstm_seq_bwd_reference(x_proj, w_hh, hs, cs, dhs):
     return dxp, dw
 
 
+def lstm_scan_fwd_reference(x_proj: torch.Tensor, w_hh: torch.Tensor):
+    """(T, 2, B, 4H), (2, H, 4H) -> (hs in x_proj.dtype, cs float32).
+
+    Step by step what mdd_tpu/ops/lstm.py's `bilstm` scan computes and the
+    scan kernel repeats: the recurrent dot in float32 over operands in
+    x_proj's dtype, the gates in float32, c_t = sig(f) c_{t-1} + sig(i)
+    tanh(g) from the ROUNDED c_{t-1}, h_t = sig(o) tanh(c_t) of the
+    unrounded c_t, and both carried rounded to x_proj's dtype.  cs keeps
+    the unrounded float32 c_t: the backward reads tanh(c_t) from it and
+    rounds c_{t-1} itself."""
+    t, d, b, four_h = x_proj.shape
+    h = four_h // 4
+    dtype = x_proj.dtype
+    w = w_hh.to(dtype).float()
+    h_prev = torch.zeros((d, b, h), dtype=dtype, device=x_proj.device)
+    c_prev = h_prev
+    hs, cs = [], []
+    for step in range(t):
+        gates = x_proj[step].float() + torch.bmm(h_prev.float(), w)
+        i, f, g, o = gates.split(h, dim=-1)
+        c = (torch.sigmoid(f) * c_prev.float()
+             + torch.sigmoid(i) * torch.tanh(g))
+        h_prev = (torch.sigmoid(o) * torch.tanh(c)).to(dtype)
+        c_prev = c.to(dtype)
+        hs.append(h_prev)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_scan_bwd_reference(x_proj, w_hh, hs, cs, dhs):
+    """The backward of `lstm_scan_fwd_reference` as JAX differentiates
+    mdd_tpu's scan: (x_proj, w_hh, hs, cs float32, dhs) -> (dx_proj,
+    dW_hh), both in x_proj.dtype.
+
+    Walks t from T-1 down to 0.  The gates are recomputed from h_{t-1}
+    (hs, zero at t = 0) as the forward computed them.  With rnd() the
+    rounding to x_proj's dtype, in this order (the places JAX's jaxpr of
+    the scan's transpose rounds, all else float32):
+
+    1. dh = rnd(dhs_t + dh_carry), a sum of two cotangents in the dtype;
+    2. with ef = sig(o) dh (1 - tanh c_t), where c_t is the unrounded
+       float32 c: dc = (dc_carry + ef) + ef tanh c_t (tanh's derivative
+       as autodiff writes it), and dc_carry' = rnd(sig(f) dc); c_{t-1}
+       in the f gate's term is the rounded carry of the forward;
+    3. dgates stay float32 in both products: dh_carry' = rnd(dgates @
+       w_hh^T); dx_proj_t = rnd(dgates);
+    4. dW_hh sums rnd(h_{t-1}^T @ dgates) in the dtype, from t = T-1
+       down: acc = rnd(acc + rnd(product));
+    5. dhs arrives in the dtype (the ys cotangent of the flip and concat
+       is added there before the scan)."""
+    t, d, b, four_h = x_proj.shape
+    h = four_h // 4
+    dtype = x_proj.dtype
+    w = w_hh.to(dtype).float()
+    w_t = w.transpose(1, 2)
+
+    def rnd(a):
+        return a.to(dtype).float()
+
+    zeros = torch.zeros((d, b, h), dtype=torch.float32, device=x_proj.device)
+    dh_carry, dc_carry = zeros, zeros
+    dw = torch.zeros((d, h, four_h), dtype=dtype, device=x_proj.device)
+    dxp = torch.empty_like(x_proj)
+    for step in range(t - 1, -1, -1):
+        h_prev = hs[step - 1].float() if step > 0 else zeros
+        c_prev = rnd(cs[step - 1]) if step > 0 else zeros
+        gates = x_proj[step].float() + torch.bmm(h_prev, w)
+        i, f, g, o = gates.split(h, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        tanh_c = torch.tanh(cs[step].float())
+        dh = rnd(dhs[step].float() + dh_carry)
+        ef = o * dh * (1.0 - tanh_c)
+        dc = (dc_carry + ef) + ef * tanh_c
+        em = i * dc * (1.0 - g)
+        dgates = torch.cat([dc * g * (i * (1.0 - i)),
+                            dc * c_prev * (f * (1.0 - f)),
+                            em + em * g,
+                            dh * tanh_c * (o * (1.0 - o))], dim=-1)
+        dxp[step] = dgates.to(dtype)
+        dh_carry = rnd(torch.bmm(dgates, w_t))
+        dw = dw + torch.bmm(h_prev.transpose(1, 2), dgates).to(dtype)
+        dc_carry = rnd(f * dc)
+    return dxp, dw
+
+
 def _check_lstm_inputs(x_proj, w_hh, units_per_block):
     """The shapes, dtypes and devices both LSTM kernels take; -> (T, B, H).
     The device and dtype are checked before `units_per_block()` builds or
@@ -127,6 +224,13 @@ class _LstmBinding(build.KernelBinding):
     """An LSTM kernel: n_pointers tensors, then T, B, H and the dtype."""
 
     n_pointers = 0
+    #: the scan contract's instance (bfloat16 only, cs in float32)
+    scan = False
+
+    def cs_dtype(self, x_proj) -> torch.dtype:
+        """The cs stream's dtype: the unrounded float32 c_t under the scan
+        contract, else x_proj's (c rounded to it)."""
+        return torch.float32 if self.scan else x_proj.dtype
 
     @property
     def argtypes(self):
@@ -170,7 +274,7 @@ class LstmFwdKernel(_LstmBinding):
         owns, whether the float32 w_hh slice is split into TF32 parts at
         load, blocks and shared bytes of a launch, batch rows a launch,
         launches a call."""
-        fn = self.library().mdd_lstm_fwd_plan
+        fn = getattr(self.library(), self.entry + "_plan")
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out = (ctypes.c_int * 6)()
@@ -188,7 +292,7 @@ class LstmFwdKernel(_LstmBinding):
             w_hh = w_hh.clone()
         dev = x_proj.device
         hs = torch.empty((t, 2, b, h), dtype=x_proj.dtype, device=dev)
-        cs = torch.empty_like(hs)
+        cs = torch.empty_like(hs, dtype=self.cs_dtype(x_proj))
         counters = _barrier_counters(b, dev)   # held until enqueued
         self._launch(dev, x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
                      cs.data_ptr(), counters.data_ptr(), t, b, h,
@@ -218,7 +322,7 @@ class LstmBwdKernel(_LstmBinding):
         the exchange, batch rows of a recurrence launch and recurrence
         launches a call (a batch too large for resident blocks runs as
         several)."""
-        fn = self.library().mdd_lstm_bwd_plan
+        fn = getattr(self.library(), self.entry + "_plan")
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         out = (ctypes.c_int * 7)()
@@ -234,7 +338,7 @@ class LstmBwdKernel(_LstmBinding):
         t, b, h = _check_lstm_inputs(x_proj, w_hh, self.units_per_block)
         want = (t, 2, b, h)
         for name, a, dtype in (("hs", hs, x_proj.dtype),
-                               ("cs", cs, x_proj.dtype),
+                               ("cs", cs, self.cs_dtype(x_proj)),
                                ("dhs", dhs, torch.float32)):
             if (tuple(a.shape) != want or a.dtype != dtype
                     or a.device != x_proj.device or not a.is_contiguous()):
@@ -280,9 +384,61 @@ class LstmBwdKernel(_LstmBinding):
         return buffers[0], buffers[1]
 
 
+def _check_scan_dtype(x_proj, w_hh) -> None:
+    """The scan kernels take bfloat16 only: in float32 the two contracts
+    are one, and the Pallas contract's kernels take it.  Checked before
+    anything is built."""
+    if x_proj.dtype != torch.bfloat16 or w_hh.dtype != torch.bfloat16:
+        raise TypeError("the scan-contract LSTM kernels take bfloat16 "
+                        f"x_proj and w_hh, got {x_proj.dtype} and "
+                        f"{w_hh.dtype}")
+
+
+class LstmScanFwdKernel(LstmFwdKernel):
+    """`mdd_lstm_scan_fwd` of csrc/lstm_fwd.cu, the scan contract in
+    bfloat16: (x_proj, w_hh) -> (hs, cs float32, the unrounded c_t)."""
+
+    entry, scan = "mdd_lstm_scan_fwd", True
+
+    def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor):
+        _check_scan_dtype(x_proj, w_hh)
+        return super().__call__(x_proj, w_hh)
+
+
+class LstmScanBwdKernel(LstmBwdKernel):
+    """`mdd_lstm_scan_bwd` of csrc/lstm_bwd.cu, the scan contract in
+    bfloat16: (x_proj, w_hh, hs, cs float32, dhs float32) -> (dx_proj,
+    dW_hh), both bfloat16.  Inside: the gate pre-activations as one
+    product, the recurrence (the float32 dgates kept for the next part),
+    and dW_hh summed in bfloat16 step by step; one count a backward."""
+
+    entry, scan = "mdd_lstm_scan_bwd", True
+
+    def _check(self, x_proj, w_hh, hs, cs, dhs):
+        _check_scan_dtype(x_proj, w_hh)
+        return super()._check(x_proj, w_hh, hs, cs, dhs)
+
+    def buffers(self, x_proj) -> tuple:
+        """(dx_proj, dW_hh, z, dgates, exchange) for a call on x_proj: the
+        bfloat16 outputs, the float32 gate pre-activations and dgates
+        (T, 2, B, 4H) each, and the float32 partial dh of the recurrence."""
+        t, _, b, four_h = x_proj.shape
+        h, dev = four_h // 4, x_proj.device
+        with torch.cuda.device(dev):
+            plan = self.plan(t, b, h, x_proj.dtype)
+        f32 = dict(dtype=torch.float32, device=dev)
+        return (torch.empty_like(x_proj),
+                torch.empty((2, h, four_h), dtype=x_proj.dtype, device=dev),
+                torch.empty((t, 2, b, four_h), **f32),
+                torch.empty((t, 2, b, four_h), **f32),
+                torch.empty(plan["exchange_elems"], **f32))
+
+
 #: the process's bindings; chip_smoke.py reads and resets their counters
 lstm_fwd_kernel = LstmFwdKernel()
 lstm_bwd_kernel = LstmBwdKernel()
+lstm_scan_fwd_kernel = LstmScanFwdKernel()
+lstm_scan_bwd_kernel = LstmScanBwdKernel()
 
 
 def lstm_seq_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor):
@@ -331,16 +487,82 @@ def lstm_seq(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return LstmSeq.apply(x_proj, w_hh)
 
 
-def bilstm_cuda(x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd,
-                b_fwd=None, b_bwd=None) -> torch.Tensor:
-    """Drop-in for ops.lstm.bilstm over (T, B, D) -> (T, B, 2H), with the
-    recurrence in `lstm_seq` (counterpart of bilstm_pallas)."""
+def _bilstm(recurrence, x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd, b_fwd,
+            b_bwd) -> torch.Tensor:
+    """(T, B, D) -> (T, B, 2H): the two directions' projections stacked
+    along axis 1, `recurrence` over them, the backward half flipped back."""
     xf, xb = input_projections(x, w_ih_fwd, w_ih_bwd)
     if b_fwd is not None:
         xf = xf + b_fwd
     if b_bwd is not None:
         xb = xb + b_bwd
     x_proj = torch.stack([xf, xb], dim=1).to(x.dtype)
-    hs = lstm_seq(x_proj, torch.stack([w_hh_fwd, w_hh_bwd]))
+    hs = recurrence(x_proj, torch.stack([w_hh_fwd, w_hh_bwd]))
     return torch.cat([hs[:, 0], torch.flip(hs[:, 1], (0,))],
                      dim=-1).to(x.dtype)
+
+
+def bilstm_cuda(x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd,
+                b_fwd=None, b_bwd=None) -> torch.Tensor:
+    """Drop-in for ops.lstm.bilstm over (T, B, D) -> (T, B, 2H), with the
+    recurrence in `lstm_seq` (counterpart of bilstm_pallas)."""
+    return _bilstm(lstm_seq, x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd,
+                   b_fwd, b_bwd)
+
+
+def lstm_scan_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor):
+    """(T, 2, B, 4H), (2, H, 4H) -> (hs, cs float32) under the scan
+    contract: the kernel on a CUDA tensor (bfloat16 only), the plain
+    version on a CPU tensor.  w_hh is cast to x_proj's dtype, as mdd_tpu's
+    model casts its parameters."""
+    w_hh = w_hh.to(x_proj.dtype)
+    if x_proj.device.type == "cpu":
+        return lstm_scan_fwd_reference(x_proj, w_hh)
+    return lstm_scan_fwd_kernel(x_proj.contiguous(), w_hh.contiguous())
+
+
+def lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs):
+    """-> (dx_proj, dW_hh), both in x_proj.dtype: the kernels on a CUDA
+    tensor (bfloat16 only), the plain version on a CPU tensor.  dhs is
+    rounded to x_proj's dtype (the dtype of JAX's cotangent of hs) and
+    widened to float32 for the kernels, which is exact."""
+    w_hh = w_hh.to(x_proj.dtype)
+    dhs = dhs.to(x_proj.dtype)
+    if x_proj.device.type == "cpu":
+        return lstm_scan_bwd_reference(x_proj, w_hh, hs, cs, dhs)
+    return lstm_scan_bwd_kernel(*(a.contiguous() for a in
+                                  (x_proj, w_hh, hs, cs, dhs.float())))
+
+
+class LstmScan(torch.autograd.Function):
+    """lstm_scan with its hand-written backward (JAX's autodiff of
+    mdd_tpu's scan): the forward saves (x_proj, w_hh, hs, cs), the backward
+    returns (dx_proj in x_proj.dtype, dW_hh in w_hh.dtype)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh):
+        hs, cs = lstm_scan_fwd(x_proj, w_hh)
+        ctx.save_for_backward(x_proj, w_hh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh, hs, cs = ctx.saved_tensors
+        dxp, dw = lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs)
+        return dxp.to(x_proj.dtype), dw.to(w_hh.dtype)
+
+
+def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """(T, 2, B, 4H) projections + (2, H, 4H) recurrent weights ->
+    (T, 2, B, H) hidden states under the scan contract, differentiable in
+    both."""
+    return LstmScan.apply(x_proj, w_hh)
+
+
+def bilstm_scan_cuda(x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd,
+                     b_fwd=None, b_bwd=None) -> torch.Tensor:
+    """Drop-in for ops.lstm.bilstm over (T, B, D) -> (T, B, 2H), with the
+    recurrence in `lstm_scan`: the same function and gradients as the
+    plain loop, in mdd_tpu/ops/lstm.py's roundings."""
+    return _bilstm(lstm_scan, x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd,
+                   b_fwd, b_bwd)

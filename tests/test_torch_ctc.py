@@ -346,20 +346,30 @@ def test_float32_kernel_model_runs_its_text_branch_on_lstm_seq(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,use_pallas_lstm,route", [
-    ("bfloat16", True, "plain"), ("float32", False, "plain"),
+    ("bfloat16", True, "scan"), ("float32", False, "plain"),
     ("bfloat16", False, "plain"), ("float32", True, "kernel")])
 def test_text_route_is_fixed_by_the_configuration(monkeypatch, dtype,
                                                   use_pallas_lstm, route):
-    """Only float32 with use_pallas_lstm puts the text BiLSTM on the
-    kernels; bfloat16 keeps the plain loop, which rounds h and c every
-    step as mdd_tpu's text scan does.  The acoustic layers follow
+    """use_pallas_lstm puts the text BiLSTM on the kernels: in float32
+    those of the Pallas contract (LstmSeq), in bfloat16 those of the scan
+    contract (LstmScan), which round h and c every step as mdd_tpu's text
+    scan does; without it the plain loop.  The acoustic layers follow
     use_pallas_lstm alone."""
     calls = _count_lstm_seq(monkeypatch)
+    scan = {"fwd": 0}
+    scan_fwd = lstm_cuda.lstm_scan_fwd
+
+    def counted_scan_fwd(*a):
+        scan["fwd"] += 1
+        return scan_fwd(*a)
+
+    monkeypatch.setattr(lstm_cuda, "lstm_scan_fwd", counted_scan_fwd)
     cfg = ModelConfig(**SMALL, use_pallas_lstm=use_pallas_lstm,
                       compute_dtype=dtype)
     model = CTCAttentionModel(cfg)
     model.init_parameters(torch.Generator().manual_seed(0))
-    want = lstm_cuda.bilstm_cuda if route == "kernel" else bilstm
+    want = {"kernel": lstm_cuda.bilstm_cuda, "plain": bilstm,
+            "scan": lstm_cuda.bilstm_scan_cuda}[route]
     assert model.text.lstm.rnn is want
     feats, trans, lengths = _inputs(2)
     with torch.inference_mode():
@@ -368,3 +378,4 @@ def test_text_route_is_fixed_by_the_configuration(monkeypatch, dtype,
     assert torch.isfinite(out).all()
     acoustic = cfg.rnn_layers if use_pallas_lstm else 0
     assert calls["fwd"] == acoustic + (route == "kernel")
+    assert scan["fwd"] == (route == "scan")

@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card (the LSTM recurrences and the fused
-dropout): against their plain versions, the refusals of the wrappers, and
-autograd through the backward kernels.
+"""The CUDA kernels on the card (the LSTM recurrences under both
+contracts, the fused dropout, the train WER, the beam and the CTC loss):
+against their plain versions, the refusals of the wrappers, and autograd
+through the backward kernels.
 Marked `cuda`; skips where there is no card.
 No JAX here, so the file runs on a GPU machine without it:
 
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from mdd_tpu_torch.ops import dropout_cuda, lstm_cuda
-from mdd_tpu_torch.ops.lstm import bilstm
+from mdd_tpu_torch.ops.lstm import bilstm, input_projections
 from mdd_tpu_torch.utils.precision import strict_float32
 
 pytestmark = pytest.mark.cuda
@@ -139,7 +140,8 @@ def test_backward_kernel_matches_plain_version(cuda, dtype, tol, t, b, h):
         assert (got - want).abs().max() <= tol * want.abs().max()
 
 
-@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd", "lstm_scan_fwd",
+                                    "lstm_scan_bwd"])
 def test_kernels_keep_their_counters_from_a_staging_thread(cuda, kernel):
     """A thread that puts small host arrays on the card while the kernel
     is launched over and over (evaluate's staging thread) changes none of
@@ -151,6 +153,18 @@ def test_kernels_keep_their_counters_from_a_staging_thread(cuda, kernel):
     if kernel == "lstm_fwd":
         def run():
             return lstm_cuda.lstm_fwd_kernel(x_proj, w_hh)
+    elif kernel == "lstm_scan_fwd":
+        x_proj, w_hh = x_proj.bfloat16(), w_hh.bfloat16()
+
+        def run():
+            return lstm_cuda.lstm_scan_fwd_kernel(x_proj, w_hh)
+    elif kernel == "lstm_scan_bwd":
+        x_proj, w_hh = x_proj.bfloat16(), w_hh.bfloat16()
+        dhs = torch.randn((t, 2, b, 384), device="cuda").bfloat16().float()
+        hs, cs = lstm_cuda.lstm_scan_fwd(x_proj, w_hh)
+
+        def run():
+            return lstm_cuda.lstm_scan_bwd_kernel(x_proj, w_hh, hs, cs, dhs)
     else:
         dhs = torch.randn((t, 2, b, 384), device="cuda")
         hs, cs = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
@@ -441,6 +455,131 @@ def test_orbax_latest_restores_alike_on_the_card_and_the_cpu(cuda, tmp_path):
         assert torch.equal(v, want[i][k]), (i, k)
 
 
+# ------------------------------------- the LSTM kernels' scan contract
+
+#: the scan kernels against their plain versions: each tensor relative to
+#: its largest magnitude.  Both take the same float32 steps in the same
+#: order but for the sums of the dots (the tensor cores' order against
+#: cuBLAS's, and for float32 dgates three exact TF32 passes), so a rounding
+#: to bfloat16 (2^-8) can flip on the other side and carry on through the
+#: later steps and the bfloat16 sum of dW_hh
+SCAN_TOL = 2e-2
+#: the text BiLSTM's shapes: serving's L and B, train's B=64, benchmark's
+#: L=48 at B=512 (several launches of the forward) and a ragged 513
+SCAN_SHAPES = [(t, b) for t in (1, 7, 48) for b in (1, 64, 512, 513)]
+
+
+def _scan_inputs(t, b, d=512, h=384, seed=0):
+    """bfloat16 (x_proj, w_hh) on the card as the text BiLSTM makes them:
+    a (T, B, D) embedding through both directions' input projections."""
+    g = torch.Generator().manual_seed(seed)
+    s = h ** -0.5
+    x = torch.randn((t, b, d), generator=g).to("cuda", torch.bfloat16)
+    w_ih = [((torch.rand((d, 4 * h), generator=g) * 2 - 1) * s).to(
+        "cuda", torch.bfloat16) for _ in range(2)]
+    w_hh = ((torch.rand((2, h, 4 * h), generator=g) * 2 - 1) * s).to(
+        "cuda", torch.bfloat16)
+    xf, xb = input_projections(x, *w_ih)
+    return torch.stack([xf, xb], dim=1).bfloat16(), w_hh
+
+
+def _close(got, want, tol=SCAN_TOL) -> bool:
+    got, want = got.float(), want.float()
+    return (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("t,b", SCAN_SHAPES)
+def test_scan_kernels_match_plain_versions(cuda, t, b):
+    """lstm_scan_fwd (hs, and cs: the unrounded float32 c_t) and
+    lstm_scan_bwd (dx_proj, dW_hh, both bfloat16) against their plain
+    versions at the text BiLSTM's shapes (D=512, H=384), the backward on
+    the plain forward's hs and cs and a bfloat16 cotangent; one count a
+    call each."""
+    x_proj, w_hh = _scan_inputs(t, b)
+    dhs = torch.randn((t, 2, b, 384), generator=torch.Generator(
+        ).manual_seed(1)).to("cuda", torch.bfloat16)
+    before = [lstm_cuda.lstm_scan_fwd_kernel.launches,
+              lstm_cuda.lstm_scan_bwd_kernel.launches]
+    hs, cs = lstm_cuda.lstm_scan_fwd(x_proj, w_hh)
+    ref_hs, ref_cs = lstm_cuda.lstm_scan_fwd_reference(x_proj, w_hh)
+    dxp, dw = lstm_cuda.lstm_scan_bwd(x_proj, w_hh, ref_hs, ref_cs, dhs)
+    torch.cuda.synchronize()
+    assert [lstm_cuda.lstm_scan_fwd_kernel.launches,
+            lstm_cuda.lstm_scan_bwd_kernel.launches] == [n + 1 for n in before]
+    assert hs.dtype == torch.bfloat16 and cs.dtype == torch.float32
+    assert _close(hs, ref_hs) and _close(cs, ref_cs)
+    ref_dxp, ref_dw = lstm_cuda.lstm_scan_bwd_reference(x_proj, w_hh, ref_hs,
+                                                        ref_cs, dhs)
+    assert dxp.dtype == dw.dtype == torch.bfloat16
+    assert _close(dxp, ref_dxp)
+    if t > 1:
+        assert _close(dw, ref_dw)
+    else:                  # no step has an h_{t-1}: dW_hh is exactly 0
+        assert not dw.any() and not ref_dw.any()
+
+
+def test_scan_kernels_are_the_same_from_run_to_run(cuda):
+    """Every sum of both runs in a fixed order (no atomics on data), at
+    the largest shape: several forward launches and a ragged batch."""
+    x_proj, w_hh = _scan_inputs(48, 513)
+    dhs = torch.randn((48, 2, 513, 384), device="cuda").bfloat16()
+    hs, cs = lstm_cuda.lstm_scan_fwd(x_proj, w_hh)
+    again = lstm_cuda.lstm_scan_fwd(x_proj, w_hh)
+    assert torch.equal(hs, again[0]) and torch.equal(cs, again[1])
+    first = lstm_cuda.lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs)
+    again = lstm_cuda.lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_float32_on_the_card_keeps_the_pallas_contract(cuda):
+    """The scan kernels take bfloat16 only and do not fall back: a float32
+    CUDA tensor is refused before any launch, and the float32 text BiLSTM
+    (bilstm_cuda) launches lstm_fwd / lstm_bwd and no scan kernel."""
+    x_proj, w_hh = _inputs(5, 4, 64, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        lstm_cuda.lstm_scan_fwd(x_proj, w_hh)
+    kernels = (lstm_cuda.lstm_fwd_kernel, lstm_cuda.lstm_bwd_kernel,
+               lstm_cuda.lstm_scan_fwd_kernel, lstm_cuda.lstm_scan_bwd_kernel)
+    before = [k.launches for k in kernels]
+    x = torch.randn((5, 4, 16), device="cuda", requires_grad=True)
+    ws = [torch.randn(shape, device="cuda") * 0.1
+          for shape in ((16, 256), (64, 256)) * 2]
+    lstm_cuda.bilstm_cuda(x, *ws).sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(kernels, before)] == [1, 1, 0, 0]
+
+
+def test_loss_backward_through_bilstm_scan_cuda_launches_the_kernels(cuda):
+    """Autograd through the scan facade in bfloat16: one forward and one
+    backward launch a call, the output equal to the plain loop's within a
+    bfloat16 ulp or two, every gradient (x, W_ih, W_hh, biases) within
+    SCAN_TOL of autograd through the plain loop (the same contract)."""
+    g = torch.Generator().manual_seed(2)
+    t, b, d_in, h = 12, 5, 24, 32
+    s = h ** -0.5
+    x = torch.randn((t, b, d_in), generator=g)
+    ws = [(torch.rand(shape, generator=g) * 2 - 1) * s
+          for shape in ((d_in, 4 * h), (h, 4 * h)) * 2]
+    biases = [torch.randn(4 * h, generator=g) * 0.5 for _ in range(2)]
+    outs, grads = [], []
+    before = [lstm_cuda.lstm_scan_fwd_kernel.launches,
+              lstm_cuda.lstm_scan_bwd_kernel.launches]
+    for fn in (lstm_cuda.bilstm_scan_cuda, bilstm):
+        args = [a.to("cuda", torch.bfloat16).requires_grad_()
+                for a in [x] + ws + biases]
+        y = fn(*args)
+        (y.float() * torch.linspace(-1, 1, 2 * h, device="cuda")).sum(
+            ).backward()
+        outs.append(y.detach())
+        grads.append([a.grad for a in args])
+    torch.cuda.synchronize()
+    assert [lstm_cuda.lstm_scan_fwd_kernel.launches,
+            lstm_cuda.lstm_scan_bwd_kernel.launches] == [n + 1 for n in before]
+    assert _close(outs[0], outs[1])
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16 and _close(got, want)
+
+
 @pytest.fixture
 def second_card(cuda):
     """cuda:1 where the host has two cards; the current device stays 0,
@@ -451,7 +590,8 @@ def second_card(cuda):
     return torch.device("cuda", 1)
 
 
-@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd", "lstm_scan_fwd",
+                                    "lstm_scan_bwd"])
 def test_lstm_kernels_on_a_second_card(second_card, monkeypatch, kernel):
     """Each LSTM wrapper on cuda:1 with cuda:0 current: the launch goes to
     the tensors' card and stream, its barrier counters are allocated
@@ -466,7 +606,21 @@ def test_lstm_kernels_on_a_second_card(second_card, monkeypatch, kernel):
     monkeypatch.setattr(lstm_cuda, "_barrier_counters", recorded)
     x_proj, w_hh = (a.to(second_card) for a in _inputs(80, 64, 384,
                                                        torch.float32))
-    if kernel == "lstm_fwd":
+    if kernel.startswith("lstm_scan"):
+        x_proj, w_hh = (a.to(second_card) for a in _scan_inputs(48, 64))
+        g = torch.Generator().manual_seed(1)
+        dhs = torch.randn((48, 2, 64, 384), generator=g).to(
+            second_card, torch.bfloat16)
+        hs, cs = lstm_cuda.lstm_scan_fwd_reference(x_proj, w_hh)
+        if kernel == "lstm_scan_fwd":
+            got = lstm_cuda.lstm_scan_fwd(x_proj, w_hh)
+            want = hs, cs
+        else:
+            got = lstm_cuda.lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs)
+            want = lstm_cuda.lstm_scan_bwd_reference(x_proj, w_hh, hs, cs,
+                                                     dhs)
+        tol = [SCAN_TOL * w.float().abs().max().item() for w in want]
+    elif kernel == "lstm_fwd":
         got = lstm_cuda.lstm_seq_fwd(x_proj, w_hh)
         want = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
         tol = [2e-5, 2e-5]
@@ -898,8 +1052,9 @@ def test_ctc_wrappers_refuse_on_the_card(cuda):
 def test_float32_kernel_model_runs_every_lstm_and_the_ctc_on_kernels(cuda):
     """A float32 use_pallas_lstm Trainer step: lstm_fwd and lstm_bwd once a
     BiLSTM, the text one included (rnn_layers + 1), ctc_alpha and
-    ctc_beta_grad once; a bfloat16 step keeps the text BiLSTM on the plain
-    loop (rnn_layers)."""
+    ctc_beta_grad once, no scan-contract launch; a bfloat16 step runs the
+    text BiLSTM on the scan-contract kernels (lstm_scan_fwd and
+    lstm_scan_bwd once, lstm_fwd and lstm_bwd rnn_layers times)."""
     from mdd_tpu_torch.data.dataset import Batch
     from mdd_tpu_torch.models.ctc_model import ModelConfig
     from mdd_tpu_torch.ops import ctc_cuda
@@ -916,8 +1071,9 @@ def test_float32_kernel_model_runs_every_lstm_and_the_ctc_on_kernels(cuda):
         trans_sizes=np.array([6, 5, 4, 6], np.int32),
         utt_ids=[f"u{i}" for i in range(b)])
     kernels = (lstm_cuda.lstm_fwd_kernel, lstm_cuda.lstm_bwd_kernel,
-               ctc_cuda.ctc_alpha_kernel, ctc_cuda.ctc_beta_grad_kernel)
-    for dtype, lstm in (("float32", 3), ("bfloat16", 2)):
+               ctc_cuda.ctc_alpha_kernel, ctc_cuda.ctc_beta_grad_kernel,
+               lstm_cuda.lstm_scan_fwd_kernel, lstm_cuda.lstm_scan_bwd_kernel)
+    for dtype, lstm, scan in (("float32", 3, 0), ("bfloat16", 2, 1)):
         cfg = ModelConfig(input_dim=24, num_class=8, conv_channels=(4, 4),
                           rnn_hidden_size=16, rnn_layers=2,
                           text_embed_size=8, text_vocab_size=16, dropout=0.0,
@@ -929,5 +1085,5 @@ def test_float32_kernel_model_runs_every_lstm_and_the_ctc_on_kernels(cuda):
                                  torch.zeros(4, device="cuda"))
         torch.cuda.synchronize()
         assert [k.launches - n for k, n in zip(kernels, before)] == [
-            lstm, lstm, 1, 1], dtype
+            lstm, lstm, 1, 1, scan, scan], dtype
         assert math.isfinite(acc[0].item())

@@ -130,7 +130,8 @@ def test_kernel_binding_refuses_cpu_tensors():
     assert lstm_cuda.lstm_fwd_kernel.launches == 0
 
 
-@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd"])
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_bwd", "lstm_scan_fwd",
+                                    "lstm_scan_bwd"])
 def test_wrappers_hold_their_barrier_counters_until_the_launch(monkeypatch,
                                                                kernel):
     """The zeroed barrier counters a launch gets are alive, and zero, when
@@ -160,6 +161,17 @@ def test_wrappers_hold_their_barrier_counters_until_the_launch(monkeypatch,
     x_proj, w_hh = (torch.from_numpy(a) for a in _seq_inputs(9, t, b, h))
     if kernel == "lstm_fwd":
         lstm_cuda.LstmFwdKernel()(x_proj, w_hh)
+    elif kernel == "lstm_scan_fwd":
+        lstm_cuda.LstmScanFwdKernel()(x_proj.bfloat16(), w_hh.bfloat16())
+    elif kernel == "lstm_scan_bwd":
+        x_proj, w_hh = x_proj.bfloat16(), w_hh.bfloat16()
+        hs, cs = lstm_cuda.lstm_scan_fwd_reference(x_proj, w_hh)
+        four_h = torch.empty((t, 2, b, 4 * h))
+        buffers = (torch.empty_like(x_proj), torch.empty_like(w_hh), four_h,
+                   torch.empty_like(four_h), torch.empty(1))
+        k = lstm_cuda.LstmScanBwdKernel()
+        k.run_parts(x_proj, w_hh, hs, cs, torch.ones((t, 2, b, h)), buffers,
+                    k.ALL)
     else:
         hs, cs = lstm_cuda.lstm_seq_fwd_reference(x_proj, w_hh)
         buffers = (torch.empty_like(x_proj), torch.empty((2, h, 4 * h)),
