@@ -11,8 +11,8 @@ lstm_scan_bwd once a train step):
 
 
 1. build    nvcc every CUDA source of the port for sm_90a (in parallel):
-            lstm_fwd.cu, lstm_bwd.cu (each with its scan-contract
-            instances), dropout.cu, wer.cu, ctc_beam.cu,
+            lstm_fwd.cu, lstm_bwd.cu, lstm_scan.cu (the scan contract's
+            kernels), dropout.cu, wer.cu, ctc_beam.cu,
             ctc_loss.cu and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
             the model's path), the skeleton builds of ctc_beam.cu and
@@ -81,24 +81,29 @@ lstm_scan_bwd once a train step):
             a frame; ctc_beta_grad at TURN_SHAPES in turns with the
             parent's kernel beside its chain floor and bound, and
             ctc_alpha's device time, as in kernel-beam.
-3e. kernel-scan  lstm_scan_fwd and lstm_scan_bwd (the scan contract of
-            lstm_fwd.cu and lstm_bwd.cu: mdd_tpu/ops/lstm.py's bilstm
-            and JAX's autodiff of it, the bfloat16 text BiLSTM's route)
-            against ops/lstm_cuda's plain versions on the card at the
-            text BiLSTM's shapes (T=L in {1, 7, 48}, B in {1, 64, 512,
-            513}, D=512, H=384, bfloat16): hs, cs, dx_proj and dW_hh
-            within SCAN_TOL of each tensor's largest magnitude, one count
-            a call, the same bits twice at 48 x 513; then their times
-            (CUDA events) at 48 x 512, 48 x 64 and 7 x 1 beside the
-            plain versions', their bounds, the backward's three launches
-            one by one and a bf16 torch.nn.LSTM(512, 384, bidirectional)
-            layer as the yardstick (cuDNN: another contract).
+3e. kernel-scan  lstm_scan_fwd and lstm_scan_bwd (csrc/lstm_scan.cu:
+            mdd_tpu/ops/lstm.py's bilstm and JAX's autodiff of it, the
+            bfloat16 text BiLSTM's route) against ops/lstm_cuda's plain
+            versions on the card at the text BiLSTM's shapes (T=L in {1,
+            7, 48}, B in {1, 64, 512, 513}, and 48 x 1040, past one
+            launch of either recurrence; D=512, H=384, bfloat16): hs, cs,
+            dx_proj and dW_hh within SCAN_TOL of each tensor's largest
+            magnitude, one count a call, each call's plans printed, the
+            same bits twice at 48 x 513; then their times (CUDA events)
+            at 48 x 512, 48 x 64 and 7 x 1 beside the plain versions',
+            their bounds, the backward's launches one by one and a bf16
+            torch.nn.LSTM(512, 384, bidirectional) layer as the
+            yardstick (cuDNN: another contract), and their device times
+            (CUDA-graph replays) in turns with the parent tree's scan
+            kernels (parent, tree, tree, parent), bound by what its
+            sources hold (ops/lstm_stamps.scan_bindings; no turns where
+            it holds none this package can call).
 3f. kernel-lstm-parent  lstm_fwd and lstm_bwd (the Pallas contract)
             against the parent tree's build of the same two sources
             (PARENT_TREE), float32 and bfloat16, T'=80 at B=64 and 512 and
-            T'=16 at B=1: hs, cs, dx_proj and dW_hh equal bit for bit (the
-            scan instances beside them change none of their bits); not
-            run without a parent tree.
+            T'=16 at B=1: hs, cs, dx_proj and dW_hh equal bit for bit
+            (taking the scan instances out of those files changed none of
+            their bits); not run without a parent tree.
 4. model    the full-width flagship model (model_config of
             checkpoints/syn_full/best.meta.json) with seeded weights made in
             the flax layout and passed through convert.flax_to_torch: one
@@ -524,7 +529,7 @@ def lstm_bound_ms(t: int, b: int, h: int, dtype: str) -> tuple:
 
 
 def phase_build() -> None:
-    from mdd_tpu_torch.ops import build, frame_stamps
+    from mdd_tpu_torch.ops import build, frame_stamps, lstm_stamps
 
     t0 = time.time()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
@@ -536,9 +541,11 @@ def phase_build() -> None:
         variants.append((source, (f"-D{prefix}_SKELETON",)))
         if parent:
             variants.append((frame_stamps.parent_source(name, parent), ()))
-    if parent:     # phase kernel-lstm-parent's
+    if parent:     # phase kernel-lstm-parent's, and kernel-scan's turns
         variants += [(str(parent / "mdd_tpu_torch" / "csrc" / s), ())
                      for s in ("lstm_fwd.cu", "lstm_bwd.cu")]
+        variants += [(k.source, ())
+                     for k in lstm_stamps.scan_bindings(parent) or ()]
     # all at once; a parent source equal to the tree's builds to the same
     # library, which one compile makes
     procs, paths = [], set()
@@ -1183,15 +1190,17 @@ def phase_kernel_lstm_parent(torch, parent) -> None:
 
 
 #: phase kernel-scan: the text BiLSTM's (T = L, B): serving's L and B,
-#: train's B=64, benchmark's L=48 at B=512 (the forward in several
-#: launches) and a ragged 513; D=512 (text_embed_size), H=384
-SCAN_SHAPES = [(t, b) for t in (1, 7, 48) for b in (1, BATCH, 512, 513)]
+#: train's B=64, benchmark's L=48 at B=512 (the forward in one launch), a
+#: ragged 513 and 1040 (past one launch of either recurrence); D=512
+#: (text_embed_size), H=384
+SCAN_SHAPES = ([(t, b) for t in (1, 7, 48) for b in (1, BATCH, 512, 513)]
+               + [(48, 1040)])
 SCAN_D = 512
 SCAN_TOL = 2e-2   # scan kernels vs plain, each tensor relative to its
 # largest magnitude: the same float32 steps in the same order but for the
 # dots' sums (tensor cores against cuBLAS; the float32 dgates as three
-# exact TF32 passes), so a rounding to bfloat16 (2^-8) can flip and carry
-# through the later steps and dW_hh's bfloat16 sum
+# exact bfloat16 passes), so a rounding to bfloat16 (2^-8) can flip and
+# carry through the later steps and dW_hh's bfloat16 sum
 #: (T, B) at which the scan kernels are timed: benchmark's cell and train's
 SCAN_TIMING = [(48, 512), (48, BATCH), (7, 1)]
 
@@ -1239,14 +1248,18 @@ def lstm_scan_bwd_bound_ms(t: int, b: int, h: int) -> tuple:
 
 
 def phase_kernel_scan(torch, card: str) -> dict:
-    """lstm_scan_fwd and lstm_scan_bwd (the scan contract of lstm_fwd.cu
-    and lstm_bwd.cu, the text BiLSTM's route in bfloat16) against their
-    plain versions at SCAN_SHAPES (the backward on the plain forward's hs
-    and cs and a bf16 cotangent), the same bits twice at the largest;
-    then their times at SCAN_TIMING (CUDA events) beside the plain
-    versions', their bounds and one bf16 torch.nn.LSTM(512, 384,
-    bidirectional) layer as the yardstick.  -> the two `kernels` entries'
+    """lstm_scan_fwd and lstm_scan_bwd (csrc/lstm_scan.cu, the text
+    BiLSTM's route in bfloat16) against their plain versions at
+    SCAN_SHAPES (the backward on the plain forward's hs and cs and a bf16
+    cotangent), each call's plans, the same bits twice at 48 x 513; then
+    their times at SCAN_TIMING (CUDA events) beside the plain versions',
+    their bounds and one bf16 torch.nn.LSTM(512, 384, bidirectional)
+    layer as the yardstick, and their device times (CUDA-graph replays,
+    ops/lstm_stamps.scan_turns) in turns with the parent tree's scan
+    kernels (parent, tree, tree, parent) where it holds some that
+    lstm_stamps.scan_bindings can bind.  -> the two `kernels` entries'
     numbers."""
+    from mdd_tpu_torch.ops import lstm_stamps
     from mdd_tpu_torch.ops.lstm_cuda import (
         lstm_scan_bwd_kernel,
         lstm_scan_bwd_reference,
@@ -1276,7 +1289,7 @@ def phase_kernel_scan(torch, card: str) -> dict:
                    max((dxp.float() - ref_dxp.float()).abs().max().item(),
                        (dw.float() - ref_dw.float()).abs().max().item())]
         same = ""
-        if (t, b) == SCAN_SHAPES[-1]:
+        if (t, b) == (48, 513):
             again = lstm_scan_fwd_kernel(x_proj, w_hh)
             again_b = lstm_scan_bwd_kernel(x_proj, w_hh, ref_hs, ref_cs, dhs)
             if not (torch.equal(hs, again[0]) and torch.equal(cs, again[1])
@@ -1286,10 +1299,11 @@ def phase_kernel_scan(torch, card: str) -> dict:
                                      "changed their bits between two runs")
             same = "; the same bits twice"
         plan = lstm_scan_fwd_kernel.plan(b, H, torch.bfloat16)
+        plan_b = lstm_scan_bwd_kernel.plan(t, b, H, torch.bfloat16)
         log(f"  lstm_scan T={t} B={b}: fwd max rel err hs {fwd[0]:.3e}, cs "
             f"{fwd[1]:.3e}; bwd dx_proj {bwd[0]:.3e}, dW_hh {bwd[1]:.3e}; "
-            f"max abs err fwd {abs_err[0]:.3e}, bwd {abs_err[1]:.3e}; "
-            f"forward in {plan['launches']} launch(es){same}")
+            f"max abs err fwd {abs_err[0]:.3e}, bwd {abs_err[1]:.3e}{same}; "
+            f"forward plan {plan}; backward plan {plan_b}")
         if not (max(fwd) <= SCAN_TOL and max(bwd) <= SCAN_TOL
                 and hs.dtype == dxp.dtype == dw.dtype == torch.bfloat16
                 and cs.dtype == torch.float32):
@@ -1313,6 +1327,8 @@ def phase_kernel_scan(torch, card: str) -> dict:
                              "max_rel_err": worst["fwd"], "by_shape": {}},
            "lstm_scan_bwd": {"max_abs_err": worst["bwd_abs"],
                              "max_rel_err": worst["bwd"], "by_shape": {}}}
+    parent = parent_tree()
+    old = parent and lstm_stamps.scan_bindings(parent)
     for i, (t, b) in enumerate(SCAN_TIMING):
         x, _, x_proj, w_hh = scan_inputs(torch, t, b, SEED + 30 + i)
         dhs = torch.randn((t, 2, b, H), device="cuda").bfloat16().float()
@@ -1335,6 +1351,12 @@ def phase_kernel_scan(torch, card: str) -> dict:
                                    ("dw", k.DW_PRODUCT))})
             times = {name: cuda_ms(fn, 3 if name.startswith("plain") else 20)
                      for name, fn in fns.items()}
+        # a call's time (events) and its device time (CUDA-graph replays)
+        # in turns with the parent tree's kernels: parent, tree, tree,
+        # parent
+        turns = {name: lstm_stamps.scan_turns(f"scan-{name}", b, t,
+                                              old and parent, H)
+                 for name in ("fwd", "bwd")}
         lib_fwd = cuda_ms(lambda: lib(x_grad)[0], 20)
         lib_both = cuda_ms(lambda: lib(x_grad)[0].backward(dy), 20)
         shape = f"T={t} B={b}"
@@ -1343,31 +1365,46 @@ def phase_kernel_scan(torch, card: str) -> dict:
                 ("bwd", lstm_scan_bwd_bound_ms, lib_both - lib_fwd)):
             least, by = bnd_fn(t, b, H)
             entry = {"ms": times[name], "plain_ms": times[f"plain {name}"],
-                     "bound_ms": least, "bound_by": by, "library_ms": lib_ms}
+                     "bound_ms": least, "bound_by": by, "library_ms": lib_ms,
+                     "turns": turns[name]}
             if name == "bwd":
                 entry["parts_ms"] = {p: times[f"bwd {p}"]
                                      for p in ("z", "chain", "dw")}
             out[f"lstm_scan_{name}"]["by_shape"][shape] = entry
-        plan = lstm_scan_bwd_kernel.plan(t, b, H, torch.bfloat16)
+        plan = lstm_scan_fwd_kernel.plan(b, H, torch.bfloat16)
+        plan_b = lstm_scan_bwd_kernel.plan(t, b, H, torch.bfloat16)
         log(f"[kernel-scan] {shape} D={SCAN_D} H={H} bfloat16: lstm_scan_fwd "
-            f"{times['fwd']:.4f} ms (plain {times['plain fwd']:.4f}, bound "
+            f"{times['fwd']:.4f} ms in {plan['launches']} launch(es) of "
+            f"{plan['blocks']} blocks of {plan['tiles_per_block']} tiles "
+            f"(plain {times['plain fwd']:.4f}, bound "
             f"{lstm_scan_bound_ms(t, b, H)[0]:.6f}); lstm_scan_bwd "
             f"{times['bwd']:.4f} ms (pre-activation product "
             f"{times['bwd z']:.4f}, recurrence {times['bwd chain']:.4f} in "
-            f"{plan['launches']} launch(es) of {plan['blocks']} blocks, "
-            f"dW_hh {times['bwd dw']:.4f}; plain {times['plain bwd']:.4f}, "
+            f"{plan_b['launches']} launch(es) of {plan_b['blocks']} blocks "
+            f"of {plan_b['tiles_per_block']} tiles, dW_hh "
+            f"{times['bwd dw']:.4f}; plain {times['plain bwd']:.4f}, "
             f"bound {lstm_scan_bwd_bound_ms(t, b, H)[0]:.6f}); yardstick "
             f"torch.nn.LSTM({SCAN_D}, {H}, bidirectional) bf16 (cuDNN, "
             f"another contract: c in float32, its own roundings; the input "
             f"projection included) forward {lib_fwd:.4f} ms, backward "
             f"{lib_both - lib_fwd:.4f} ms ({card})")
+        log(f"[kernel-scan] {shape} a call (events) / its device time "
+            f"(CUDA-graph replays)"
+            + "".join(f"; lstm_scan_{n} tree {v['call_ms']} / {v['ms']} ms"
+                      + (f", parent {v['parent_call_ms']} / "
+                         f"{v['parent_ms']} ms" if old else "")
+                      for n, v in turns.items())
+            + (" (in turns: parent, tree, tree, parent)" if old else
+               "; the parent tree holds no scan kernels this package can "
+               "call: no turns" if parent else "; no parent tree: no turns")
+            + f" ({card})")
     for name in out:
         main = out[name]["by_shape"][f"T={SCAN_TIMING[0][0]} "
                                      f"B={SCAN_TIMING[0][1]}"]
         out[name].update(shape=f"T={SCAN_TIMING[0][0]} B={SCAN_TIMING[0][1]}"
                          f" D={SCAN_D} H={H} bfloat16",
                          **{k: v for k, v in main.items()
-                            if k != "parts_ms"})
+                            if k not in ("parts_ms", "turns")})
     return out
 
 
@@ -2554,7 +2591,8 @@ def phase_profile(torch, engine, files, card: str) -> None:
 #: the device names of the package's own kernels (report_profile lists them)
 PACKAGE_KERNELS = ("lstm_", "dropout_kernel", "greedy_wer_kernel",
                    "ctc_beam_kernel", "ctc_alpha_kernel",
-                   "ctc_beta_grad_kernel")
+                   "ctc_beta_grad_kernel", "scan_fwd_kernel",
+                   "scan_chain_kernel", "scan_z_kernel", "scan_dw")
 
 
 def report_profile(prof, wall_us: float, tag: str, what: str,
@@ -5714,15 +5752,14 @@ def main() -> int:
     }] + [{
         "name": name,
         "route": "cuda",
-        "source": f"mdd_tpu_torch/csrc/{source}",
+        "source": "mdd_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "mdd_tpu/ops/lstm.py:59",
         "launches": sum(PATH_LAUNCHES[name].values()),
         "launches_by_path": PATH_LAUNCHES[name],
         **scan_kernels[name],
         **({"text_turns": bf16["text_turns"]} if name == "lstm_scan_fwd"
            else {}),
-    } for name, source in (("lstm_scan_fwd", "lstm_fwd.cu"),
-                           ("lstm_scan_bwd", "lstm_bwd.cu"))]
+    } for name in ("lstm_scan_fwd", "lstm_scan_bwd")]
     log(f"[time] every phase in {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -68,29 +68,8 @@
 //    partial sums go to scratch and
 // 4. lstm_dw_reduce_kernel adds them in a fixed order.
 //
-// The scan contract (kScan, bfloat16 only; mdd_lstm_scan_bwd) is JAX's
-// transpose of mdd_tpu/ops/lstm.py's bilstm scan, the backward of
-// lstm_fwd.cu's kScan instance (cs there is the unrounded float32 c_t).
-// The jaxpr of that transpose rounds at five places where the Pallas
-// contract does not, and the design changes only there:
-//   - dh and dc are carried as bfloat16 values (dh = rnd(dhs + dh'), dc' =
-//     rnd(sig(f) dc)) in the chain's registers, and the step's arithmetic
-//     is written out in the transpose's order without FMA contraction
-//     (scan_step());
-//   - dgates stay float32 for both products.  In the chain, dh_{t-1} =
-//     dgates @ w_hh^T takes the float32 dgates against the bfloat16 w_hh
-//     columns: the tensor cores take no float32 x bfloat16 product, so
-//     dgates are split exactly into three TF32 parts (tf32_split3), three
-//     passes of exact products with float32 sums; the FMA pipe would have
-//     to read w_hh as floats from shared memory for 24 G products a row
-//     and unit, where the split costs four integer and float operations an
-//     element of the A fragment.  The chain also stores the float32
-//     dgates (dg) for the third kernel;
-//   - dW_hh is a bfloat16 sum, step by step from t = T-1 down, of each
-//     step's product rounded to bfloat16: lstm_scan_dw_kernel owns a tile
-//     of dW_hh across all steps (its notes say how), in place of the
-//     one-shot float32 product and its reduce.
-// Its first kernel, the gate pre-activations, is the same.
+// The scan contract (JAX's transpose of mdd_tpu/ops/lstm.py's bilstm scan,
+// bfloat16 only) has kernels of its own in csrc/lstm_scan.cu.
 //
 // Every product runs on the tensor cores through mma.sync m16n8k8 with
 // float32 accumulators: bfloat16 operands are exact in TF32, so one pass
@@ -155,11 +134,9 @@ struct StepInputs {
   float z[4], c, c_prev, dhs;
 };
 
-// Under kScan cs holds the unrounded float32 c_t: c_{t-1} is rounded to T
-// here, as the forward carried it.
-template <typename T, bool kScan, typename CT>
+template <typename T>
 __device__ __forceinline__ StepInputs load_step(const float* __restrict__ z,
-                                                const CT* __restrict__ cs,
+                                                const T* __restrict__ cs,
                                                 const float* __restrict__ dhs,
                                                 size_t row, size_t plane_rows,
                                                 int hidden, int j,
@@ -171,7 +148,6 @@ __device__ __forceinline__ StepInputs load_step(const float* __restrict__ z,
   const size_t idx = row * hidden + j;
   in.c = to_f(cs[idx]);
   in.c_prev = first ? 0.0f : to_f(cs[idx - plane_rows * hidden]);
-  if (kScan) in.c_prev = round_to<T>(in.c_prev);
   in.dhs = dhs[idx];
   return in;
 }
@@ -199,49 +175,6 @@ __device__ __forceinline__ Coefs step_coefs(const StepInputs& in) {
   return k;
 }
 
-// ... and under kScan: the activations and the factors of JAX's transpose
-// of mdd_tpu's scan step (see scan_step()), each as the forward made it
-struct ScanCoefs {
-  float dhs, i, f, g, o, tanh_c, c_prev;
-  float one_m_g, one_m_tc, di, df, d_o;   // 1 - g, 1 - tanh c, sig'
-};
-
-__device__ __forceinline__ ScanCoefs scan_coefs(const StepInputs& in) {
-  ScanCoefs k;
-  k.dhs = in.dhs;
-  k.i = sigmoid(in.z[0]);
-  k.f = sigmoid(in.z[1]);
-  k.g = tanhf(in.z[2]);
-  k.o = sigmoid(in.z[3]);
-  k.tanh_c = tanhf(in.c);
-  k.c_prev = in.c_prev;
-  k.one_m_g = 1.0f - k.g;
-  k.one_m_tc = 1.0f - k.tanh_c;
-  k.di = __fmul_rn(k.i, 1.0f - k.i);
-  k.df = __fmul_rn(k.f, 1.0f - k.f);
-  k.d_o = __fmul_rn(k.o, 1.0f - k.o);
-  return k;
-}
-
-// One step of the scan contract's chain for one (row, unit), in the order
-// and with the roundings of JAX's transpose (lstm_scan_bwd_reference):
-// dh and the carried dc arrive as values of T; -> the float32 dgates, the
-// next dc (rounded to T).  Written with __fmul_rn / __fadd_rn so that nvcc
-// contracts nothing into an FMA.
-template <typename T>
-__device__ __forceinline__ float scan_step(const ScanCoefs& k, float dh_in,
-                                           float dc_in, float (&dg)[4]) {
-  const float dh = round_to<T>(__fadd_rn(k.dhs, dh_in));
-  const float ef = __fmul_rn(__fmul_rn(k.o, dh), k.one_m_tc);
-  const float dc = __fadd_rn(__fadd_rn(dc_in, ef), __fmul_rn(ef, k.tanh_c));
-  const float em = __fmul_rn(__fmul_rn(k.i, dc), k.one_m_g);
-  dg[0] = __fmul_rn(__fmul_rn(dc, k.g), k.di);
-  dg[1] = __fmul_rn(__fmul_rn(dc, k.c_prev), k.df);
-  dg[2] = __fadd_rn(em, __fmul_rn(em, k.g));
-  dg[3] = __fmul_rn(__fmul_rn(dh, k.tanh_c), k.d_o);
-  return round_to<T>(__fmul_rn(k.f, dc));
-}
-
 // float32 elements of the exchange scratch: per parity of t, direction and
 // batch tile of a launch's chunk of `rows`, one [16][H] partial dh from
 // each of the H / (8 G) producers
@@ -250,25 +183,15 @@ inline size_t exchange_elems(int rows, int hidden, int g) {
   return 2 * 2 * chunk_tiles * (hidden / (kUnits * g)) * kRowsTile * hidden;
 }
 
-// the cs stream (the compute dtype, or the scan contract's float32 c_t) and
-// the dgates operand of the dh product (the compute dtype, or float32)
-template <typename T, bool kScan>
-using CState = typename std::conditional<kScan, float, T>::type;
-template <typename T, bool kScan>
-using GradT = typename std::conditional<kScan, float, T>::type;
-
-// rows [row_lo, row_hi) of the batch are this launch's.  Under kScan the
-// chain also writes the float32 dgates to dg (the dW product reads them);
-// dg is unused otherwise.
-template <typename T, int G, bool kScan>
+// rows [row_lo, row_hi) of the batch are this launch's
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
-                      const CState<T, kScan>* __restrict__ cs,
+                      const T* __restrict__ cs,
                       const float* __restrict__ dhs, T* dxp,
-                      float* __restrict__ dg_out, float* exchange,
+                      float* exchange,
                       unsigned* barrier, int n_steps, int batch, int hidden,
                       int row_lo, int row_hi) {
-  using AT = GradT<T, kScan>;
   constexpr int kBlockUnits = kUnits * G;
   constexpr int kCols = 4 * kBlockUnits;          // this block's gate columns
   constexpr int kTileItems = kRowsTile * kBlockUnits;
@@ -283,7 +206,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
   extern __shared__ __align__(16) unsigned char smem[];
   const int four_h = 4 * hidden;
   T* w_s = reinterpret_cast<T*>(smem);   // [H][kStride]: w_hh[d, j', col]
-  AT* a_s = reinterpret_cast<AT*>(w_s + static_cast<size_t>(hidden) * kStride);
+  T* a_s = w_s + static_cast<size_t>(hidden) * kStride;
   // a_s: [16][kStride], this block's dgates of the step
   float* p_s = reinterpret_cast<float*>(a_s + kRowsTile * kStride);
   // p_s: [producer][16][8 G], the group's partial dh for this block's units
@@ -342,7 +265,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
   };
 
   StepInputs inputs[kRounds];
-  typename std::conditional<kScan, ScanCoefs, Coefs>::type coef[kRounds];
+  Coefs coef[kRounds];
   float dh[kRounds], dc[kRounds];
   auto load_inputs = [&](int s) {
 #pragma unroll
@@ -350,19 +273,14 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
       if (item_valid(r)) {
         const size_t row =
             (static_cast<size_t>(s) * 2 + d) * batch + b_base + item_row[r];
-        inputs[r] = load_step<T, kScan>(z, cs, dhs, row, plane_rows,
-                                        hidden, j0 + item_u[r], s == 0);
+        inputs[r] = load_step<T>(z, cs, dhs, row, plane_rows, hidden,
+                                 j0 + item_u[r], s == 0);
       }
   };
   auto make_coefs = [&]() {
 #pragma unroll
     for (int r = 0; r < kRounds; ++r)
-      if (item_valid(r)) {
-        if constexpr (kScan)
-          coef[r] = scan_coefs(inputs[r]);
-        else
-          coef[r] = step_coefs(inputs[r]);
-      }
+      if (item_valid(r)) coef[r] = step_coefs(inputs[r]);
   };
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) dh[r] = dc[r] = 0.0f;
@@ -377,35 +295,28 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
   for (int t = n_steps - 1; t >= 0; --t) {
     const size_t step_row = (static_cast<size_t>(t) * 2 + d) * batch + b_base;
     // ---- dgates of step t for this block's (row, unit) items: to dx_proj
-    // and, as the A operand of the product, to a_s (zeros in padding rows;
-    // the compute dtype, or float32 under kScan)
+    // and, as the A operand of the product, to a_s (zeros in padding rows)
 #pragma unroll
     for (int r = 0; r < kRounds; ++r)
       if (item_live(r)) {
-        AT dg[4] = {from_f<AT>(0.0f), from_f<AT>(0.0f), from_f<AT>(0.0f),
-                    from_f<AT>(0.0f)};
+        T dg[4] = {from_f<T>(0.0f), from_f<T>(0.0f), from_f<T>(0.0f),
+                   from_f<T>(0.0f)};
         if (item_valid(r)) {
           const size_t at =
               (step_row + item_row[r]) * four_h + j0 + item_u[r];
-          if constexpr (kScan) {
-            dc[r] = scan_step<T>(coef[r], dh[r], dc[r], dg);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) dg_out[at + q * hidden] = dg[q];
-          } else {
-            const Coefs& c = coef[r];
-            const float dh_total = c.dhs + dh[r];
-            const float dc_t = fmaf(dh_total, c.p, dc[r]);
-            dg[0] = from_f<T>(dc_t * c.ai);
-            dg[1] = from_f<T>(dc_t * c.af);
-            dg[2] = from_f<T>(dc_t * c.ag);
-            dg[3] = from_f<T>(dh_total * c.ao);
-            dc[r] = dc_t * c.f;
-          }
+          const Coefs& c = coef[r];
+          const float dh_total = c.dhs + dh[r];
+          const float dc_t = fmaf(dh_total, c.p, dc[r]);
+          dg[0] = from_f<T>(dc_t * c.ai);
+          dg[1] = from_f<T>(dc_t * c.af);
+          dg[2] = from_f<T>(dc_t * c.ag);
+          dg[3] = from_f<T>(dh_total * c.ao);
+          dc[r] = dc_t * c.f;
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             dxp[at + q * hidden] = from_f<T>(to_f(dg[q]));
         }
-        AT* a_row = a_s + item_row[r] * kStride + item_u[r];
+        T* a_row = a_s + item_row[r] * kStride + item_u[r];
 #pragma unroll
         for (int q = 0; q < 4; ++q) a_row[q * kBlockUnits] = dg[q];
       }
@@ -442,7 +353,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
           float4 b_v[kNBatch];
 #pragma unroll
           for (int i = 0; i < kNBatch; ++i) b_v[i] = load4(b_rows[i] + k0);
-          typename std::conditional<kScan, Frag3<4>, Frag<T, 4>>::type a;
+          Frag<T, 4> a;
           Frag<T, 2> b[kNBatch];
           a.set(0, a_r0.x);
           a.set(1, a_r8.x);
@@ -506,7 +417,7 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
           float sum = 0.0f;
           for (int p = 0; p < unit_groups; ++p)
             sum += p_s[p * kTileItems + item];
-          dh[r] = kScan ? round_to<T>(sum) : sum;
+          dh[r] = sum;
         }
       }
     }
@@ -516,11 +427,11 @@ lstm_bwd_chain_kernel(const float* __restrict__ z, const T* __restrict__ whh,
   }
 }
 
-template <typename T, bool kScan>
+template <typename T>
 size_t chain_smem_bytes(int hidden, int g) {
   const size_t stride = 4 * kUnits * g + kChainPad;
   return static_cast<size_t>(hidden) * stride * sizeof(T)
-         + kRowsTile * stride * sizeof(GradT<T, kScan>)
+         + kRowsTile * stride * sizeof(T)
          + static_cast<size_t>(kRowsTile) * hidden * sizeof(float);
 }
 
@@ -762,150 +673,6 @@ lstm_dw_reduce_kernel(const float4* __restrict__ partial,
   dw[i] = sum;
 }
 
-// dW_hh of the scan contract (bfloat16): JAX's transpose of the scan adds
-// each step's product to a bfloat16 carry, from t = T-1 down,
-//   acc = rnd(acc + rnd(h_{t-1}^T @ dgates_t)),
-// with dgates_t in float32 (the chain's dg stream) and rnd() the rounding
-// to bfloat16; no one-shot float32 product computes that.  A block owns a
-// 64 x 64 tile of dW_hh[d] (rows i of H, columns n of 4H) for every t, so
-// the carry stays in its registers: a step is an (64 x B) @ (B x 64)
-// product (K = the batch) of bfloat16 h against float32 dgates, three
-// passes of exact products (tf32_split3 of dgates) into float32
-// accumulators, then the two roundings.  The K-tiles of all steps form one
-// sequence through a 3-stage cp.async ring, so the loads run ahead across
-// the steps.  4 warps of 32 x 32.
-constexpr int kSdM = 64, kSdN = 64, kSdK = 32, kSdStages = 3;
-constexpr int kSdThreads = 128;
-constexpr int kSdAStride = kSdM + 16;   // bfloat16, conflict-free fragments
-constexpr int kSdBStride = kSdN + 8;    // float32, conflict-free fragments
-constexpr int kSdMT = 2, kSdNT = 4;     // m- and n-tiles of a warp
-
-__global__ void __launch_bounds__(kSdThreads)
-lstm_scan_dw_kernel(const __nv_bfloat16* __restrict__ hs,
-                    const float* __restrict__ dg, __nv_bfloat16* __restrict__ dw,
-                    int n_steps, int batch, int hidden) {
-  __shared__ __align__(16) __nv_bfloat16 a_s[kSdStages][kSdK * kSdAStride];
-  __shared__ __align__(16) float b_s[kSdStages][kSdK * kSdBStride];
-
-  const int four_h = 4 * hidden;
-  const int d = blockIdx.z;
-  const int m0 = blockIdx.y * kSdM;
-  const int n0 = blockIdx.x * kSdN;
-  const int k_tiles = (batch + kSdK - 1) / kSdK;     // a step's K-tiles
-  const int n_iters = (n_steps - 1) * k_tiles;       // steps t >= 1
-
-  // K-tile `it` of the sequence: step t = T-1 - it / k_tiles, batch rows
-  // from (it % k_tiles) * 32; A[k][m] = hs[t-1, d, b, i], B[k][n] =
-  // dg[t, d, b, n]
-  auto load_tile = [&](int stage, int it) {
-    const int t = n_steps - 1 - it / k_tiles;
-    const int b0 = (it % k_tiles) * kSdK;
-#pragma unroll
-    for (int c = 0; c < kSdK * kSdM / 8 / kSdThreads; ++c) {
-      const int idx = threadIdx.x + c * kSdThreads;
-      const int row = idx / (kSdM / 8), col = idx % (kSdM / 8) * 8;
-      const bool valid = b0 + row < batch && m0 + col < hidden;
-      const size_t src =
-          valid ? ((static_cast<size_t>(t - 1) * 2 + d) * batch + b0 + row)
-                          * hidden + m0 + col
-                : 0;
-      cp_async16(&a_s[stage][row * kSdAStride + col], hs + src, valid);
-    }
-#pragma unroll
-    for (int c = 0; c < kSdK * kSdN / 4 / kSdThreads; ++c) {
-      const int idx = threadIdx.x + c * kSdThreads;
-      const int row = idx / (kSdN / 4), col = idx % (kSdN / 4) * 4;
-      const bool valid = b0 + row < batch && n0 + col < four_h;
-      const size_t src =
-          valid ? ((static_cast<size_t>(t) * 2 + d) * batch + b0 + row)
-                          * four_h + n0 + col
-                : 0;
-      cp_async16(&b_s[stage][row * kSdBStride + col], dg + src, valid);
-    }
-  };
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int gid = lane / 4;
-  const int tig = lane % 4;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-
-  float acc[kSdMT][kSdNT][4], carry[kSdMT][kSdNT][4];
-#pragma unroll
-  for (int i = 0; i < kSdMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kSdNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = carry[i][j][e] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kSdStages - 1; ++s) {
-    if (s < n_iters) load_tile(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_iters; ++it) {
-    cp_async_wait<kSdStages - 2>();
-    __syncthreads();   // tile `it` has landed; tile it-1 is read by all
-    if (it + kSdStages - 1 < n_iters)
-      load_tile((it + kSdStages - 1) % kSdStages, it + kSdStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* a = a_s[it % kSdStages];
-    const float* b = b_s[it % kSdStages];
-#pragma unroll
-    for (int k0 = 0; k0 < kSdK; k0 += 8) {
-      Frag3<2> bf[kSdNT];
-#pragma unroll
-      for (int j = 0; j < kSdNT; ++j) {
-        const int n = wn + j * 8 + gid;
-        bf[j].set(0, b[(k0 + tig) * kSdBStride + n]);
-        bf[j].set(1, b[(k0 + tig + 4) * kSdBStride + n]);
-      }
-#pragma unroll
-      for (int i = 0; i < kSdMT; ++i) {
-        const int m = wm + i * 16 + gid;
-        Frag<__nv_bfloat16, 4> af;
-        af.set(0, to_f(a[(k0 + tig) * kSdAStride + m]));
-        af.set(1, to_f(a[(k0 + tig) * kSdAStride + m + 8]));
-        af.set(2, to_f(a[(k0 + tig + 4) * kSdAStride + m]));
-        af.set(3, to_f(a[(k0 + tig + 4) * kSdAStride + m + 8]));
-        mma_frags(acc[i], af, bf);
-      }
-    }
-    if (it % k_tiles == k_tiles - 1) {   // the step's product is complete
-#pragma unroll
-      for (int i = 0; i < kSdMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kSdNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            carry[i][j][e] = round_to<__nv_bfloat16>(
-                carry[i][j][e] + round_to<__nv_bfloat16>(acc[i][j][e]));
-            acc[i][j][e] = 0.0f;
-          }
-    }
-  }
-  cp_async_wait<0>();
-
-  // a lane holds rows m, m + 8 and columns n, n + 1 of each 16 x 8 tile
-#pragma unroll
-  for (int i = 0; i < kSdMT; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + i * 16 + gid + half * 8;
-      if (m >= hidden) continue;
-#pragma unroll
-      for (int j = 0; j < kSdNT; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * tig;
-        if (n >= four_h) continue;
-        *reinterpret_cast<__nv_bfloat162*>(
-            dw + (static_cast<size_t>(d) * hidden + m) * four_h + n) =
-            __floats2bfloat162_rn(carry[i][j][half * 2],
-                                  carry[i][j][half * 2 + 1]);
-      }
-    }
-}
-
 // ------------------------------------------------------------------------
 // Host side
 // ------------------------------------------------------------------------
@@ -943,7 +710,7 @@ struct Capacity {
   int smem[kMaxGroups], blocks[kMaxGroups];
 };
 
-template <typename T, bool kScan>
+template <typename T>
 cudaError_t capacity(int device, int hidden, Capacity* out) {
   thread_local std::vector<Capacity> memo;
   for (const Capacity& c : memo)
@@ -958,8 +725,8 @@ cudaError_t capacity(int device, int hidden, Capacity* out) {
                          device);
   for (int g = 1; g <= kMaxGroups; ++g) {
     const cudaError_t err = for_chain(g, [&](auto G) {
-      auto kernel = lstm_bwd_chain_kernel<T, decltype(G)::value, kScan>;
-      const size_t smem = chain_smem_bytes<T, kScan>(hidden, g);
+      auto kernel = lstm_bwd_chain_kernel<T, decltype(G)::value>;
+      const size_t smem = chain_smem_bytes<T>(hidden, g);
       cap.smem[g - 1] = static_cast<int>(smem);
       cap.blocks[g - 1] = 0;
       if (smem > static_cast<size_t>(optin)) return cudaSuccess;
@@ -984,15 +751,14 @@ cudaError_t capacity(int device, int hidden, Capacity* out) {
 // least work an SM and step: a block's product grows with G, and two
 // blocks on one SM take turns.  Only the last launch may be ragged.
 // cudaErrorInvalidConfiguration when there is none (H too large for a
-// block's shared memory).  The scan contract's dW_hh needs no slices
-// (k_slices 0).
-template <typename T, bool kScan>
+// block's shared memory).
+template <typename T>
 cudaError_t make_plan(int n_steps, int batch, int hidden, Plan* plan) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   Capacity cap;
-  err = capacity<T, kScan>(device, hidden, &cap);
+  err = capacity<T>(device, hidden, &cap);
   if (err != cudaSuccess) return err;
   const int batch_tiles = (batch + kRowsTile - 1) / kRowsTile;
   Plan best = {};
@@ -1019,20 +785,18 @@ cudaError_t make_plan(int n_steps, int batch, int hidden, Plan* plan) {
   const int out_tiles = 2 * ((hidden + kBM - 1) / kBM)
                         * ((4 * hidden + kBN - 1) / kBN);
   const int k_tiles = ((n_steps - 1) * batch + kBK - 1) / kBK;
-  best.k_slices = kScan ? 0
-                        : max(1, min(min(16, k_tiles / 2),
-                                     (4 * cap.sms + out_tiles - 1)
-                                         / out_tiles));
+  best.k_slices = max(1, min(min(16, k_tiles / 2),
+                             (4 * cap.sms + out_tiles - 1) / out_tiles));
   *plan = best;
   return cudaSuccess;
 }
 
 constexpr int kPartZ = 1, kPartChain = 2, kPartDw = 4;
 
-template <typename T, int G, bool kScan>
+template <typename T, int G>
 cudaError_t launch_chain(const Plan& plan, const float* z, const T* whh,
-                         const CState<T, kScan>* cs, const float* dhs,
-                         T* dxp, float* dg, float* exchange,
+                         const T* cs, const float* dhs, T* dxp,
+                         float* exchange,
                          unsigned* barrier, int n_steps, int batch,
                          int hidden, cudaStream_t stream) {
   const int unit_groups = hidden / (kUnits * G);
@@ -1046,13 +810,13 @@ cudaError_t launch_chain(const Plan& plan, const float* z, const T* whh,
     // reused, since the launches run one after another on the stream
     unsigned* counters = barrier + static_cast<size_t>(i) * 2 * chunk_tiles
                                        * kCounterStride;
-    void* args[] = {&z, &whh, &cs, &dhs, &dxp, &dg, &exchange, &counters,
+    void* args[] = {&z, &whh, &cs, &dhs, &dxp, &exchange, &counters,
                     &n_steps, &batch, &hidden, &row_lo, &row_hi};
     // cooperative: the launch fails (cudaErrorCooperativeLaunchTooLarge)
     // instead of deadlocking at a barrier when the blocks cannot all be
     // resident at once
     const cudaError_t err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(lstm_bwd_chain_kernel<T, G, kScan>),
+        reinterpret_cast<void*>(lstm_bwd_chain_kernel<T, G>),
         dim3(blocks),
         dim3(kThreads), args, plan.smem, stream);
     if (err != cudaSuccess) return err;
@@ -1060,23 +824,20 @@ cudaError_t launch_chain(const Plan& plan, const float* z, const T* whh,
   return cudaSuccess;
 }
 
-// kScan: cs is the float32 c_t stream, dw_v the bfloat16 dW_hh and
-// dw_partial the float32 dgates (T, 2, B, 4H) that the chain writes for
-// lstm_scan_dw_kernel.  Otherwise dw_v is the float32 dW_hh and
-// dw_partial the slices' partial sums.
-template <typename T, bool kScan>
+// dw is the float32 dW_hh, dw_partial the slices' partial sums
+template <typename T>
 cudaError_t launch(const void* xp_v, const void* whh_v, const void* hs_v,
                    const void* cs_v, const float* dhs, void* dxp_v,
-                   void* dw_v, float* z, float* dw_partial, float* exchange,
+                   float* dw, float* z, float* dw_partial, float* exchange,
                    unsigned* barrier, int n_steps, int batch, int hidden,
                    int parts, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(xp_v);
   const T* whh = static_cast<const T*>(whh_v);
   const T* hs = static_cast<const T*>(hs_v);
-  const auto* cs = static_cast<const CState<T, kScan>*>(cs_v);
+  const T* cs = static_cast<const T*>(cs_v);
   T* dxp = static_cast<T*>(dxp_v);
   Plan plan;
-  cudaError_t err = make_plan<T, kScan>(n_steps, batch, hidden, &plan);
+  cudaError_t err = make_plan<T>(n_steps, batch, hidden, &plan);
   if (err != cudaSuccess) return err;
   const int four_h = 4 * hidden;
   const int n_tiles = (four_h + kBN - 1) / kBN;
@@ -1094,39 +855,28 @@ cudaError_t launch(const void* xp_v, const void* whh_v, const void* hs_v,
   }
   if (parts & kPartChain) {
     err = for_chain(plan.groups, [&](auto G) {
-      return launch_chain<T, decltype(G)::value, kScan>(
-          plan, z, whh, cs, dhs, dxp, dw_partial, exchange, barrier,
-          n_steps, batch, hidden, stream);
+      return launch_chain<T, decltype(G)::value>(
+          plan, z, whh, cs, dhs, dxp, exchange, barrier, n_steps, batch,
+          hidden, stream);
     });
     if (err != cudaSuccess) return err;
   }
   if (!(parts & kPartDw)) return err;
-  if constexpr (kScan) {
-    const dim3 grid((four_h + kSdN - 1) / kSdN, (hidden + kSdM - 1) / kSdM,
-                    2);
-    lstm_scan_dw_kernel<<<grid, kSdThreads, 0, stream>>>(
-        hs, dw_partial, static_cast<__nv_bfloat16*>(dw_v), n_steps, batch,
-        hidden);
-    err = cudaGetLastError();
-  } else {
-    float* dw = static_cast<float*>(dw_v);
-    constexpr size_t smem = product_smem_bytes<T, true>();
-    err = cudaFuncSetAttribute(lstm_product_kernel<T, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid(n_tiles, (hidden + kBM - 1) / kBM, 2 * plan.k_slices);
-    lstm_product_kernel<T, true><<<grid, kPThreads, smem, stream>>>(
-        hs, dxp, nullptr, dw_partial, n_steps, batch, hidden, plan.k_slices);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int n_vec = 2 * hidden * four_h / 4;
-    lstm_dw_reduce_kernel<<<(n_vec + 255) / 256, 256, 0, stream>>>(
-        reinterpret_cast<const float4*>(dw_partial),
-        reinterpret_cast<float4*>(dw), n_vec, plan.k_slices);
-    err = cudaGetLastError();
-  }
-  return err;
+  constexpr size_t smem = product_smem_bytes<T, true>();
+  err = cudaFuncSetAttribute(lstm_product_kernel<T, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_tiles, (hidden + kBM - 1) / kBM, 2 * plan.k_slices);
+  lstm_product_kernel<T, true><<<grid, kPThreads, smem, stream>>>(
+      hs, dxp, nullptr, dw_partial, n_steps, batch, hidden, plan.k_slices);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_vec = 2 * hidden * four_h / 4;
+  lstm_dw_reduce_kernel<<<(n_vec + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(dw_partial),
+      reinterpret_cast<float4*>(dw), n_vec, plan.k_slices);
+  return cudaGetLastError();
 }
 
 bool shapes_ok(int n_steps, int batch, int hidden) {
@@ -1164,9 +914,8 @@ int mdd_lstm_bwd_plan(int n_steps, int batch, int hidden, int dtype,
     return cudaErrorInvalidValue;
   Plan plan;
   const cudaError_t err =
-      dtype == 0 ? make_plan<float, false>(n_steps, batch, hidden, &plan)
-                 : make_plan<__nv_bfloat16, false>(n_steps, batch, hidden,
-                                                   &plan);
+      dtype == 0 ? make_plan<float>(n_steps, batch, hidden, &plan)
+                 : make_plan<__nv_bfloat16>(n_steps, batch, hidden, &plan);
   if (err == cudaSuccess) write_plan(plan, hidden, out);
   return err;
 }
@@ -1188,47 +937,14 @@ int mdd_lstm_bwd(const void* x_proj, const void* w_hh, const void* hs,
   if (!shapes_ok(n_steps, batch, hidden)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, false>(x_proj, w_hh, hs, cs, dhs, dx_proj, dw_hh,
-                                z, dw_partial, exchange, barrier, n_steps,
-                                batch, hidden, parts, s);
+    return launch<float>(x_proj, w_hh, hs, cs, dhs, dx_proj, dw_hh, z,
+                         dw_partial, exchange, barrier, n_steps, batch,
+                         hidden, parts, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(x_proj, w_hh, hs, cs, dhs, dx_proj,
-                                        dw_hh, z, dw_partial, exchange,
-                                        barrier, n_steps, batch, hidden,
-                                        parts, s);
+    return launch<__nv_bfloat16>(x_proj, w_hh, hs, cs, dhs, dx_proj, dw_hh,
+                                 z, dw_partial, exchange, barrier, n_steps,
+                                 batch, hidden, parts, s);
   return cudaErrorInvalidValue;
-}
-
-// The scan contract (JAX's transpose of mdd_tpu/ops/lstm.py's bilstm),
-// bfloat16 only (dtype 1): cs is the forward's float32 c_t stream, dhs the
-// float32 widening of the bfloat16 cotangent; dx_proj and dw_hh come out
-// in bfloat16; dg (T, 2, B, 4H) float32 takes the place of dw_partial (the
-// chain's float32 dgates); mdd_lstm_scan_bwd_plan sizes the exchange.
-// Otherwise as mdd_lstm_bwd (the same parts).
-int mdd_lstm_scan_bwd_units_per_block() { return kUnits; }
-
-int mdd_lstm_scan_bwd_plan(int n_steps, int batch, int hidden, int dtype,
-                           int* out) {
-  if (!shapes_ok(n_steps, batch, hidden) || dtype != 1)
-    return cudaErrorInvalidValue;
-  Plan plan;
-  const cudaError_t err =
-      make_plan<__nv_bfloat16, true>(n_steps, batch, hidden, &plan);
-  if (err == cudaSuccess) write_plan(plan, hidden, out);
-  return err;
-}
-
-int mdd_lstm_scan_bwd(const void* x_proj, const void* w_hh, const void* hs,
-                      const void* cs, const float* dhs, void* dx_proj,
-                      void* dw_hh, float* z, float* dg, float* exchange,
-                      unsigned* barrier, int n_steps, int batch, int hidden,
-                      int dtype, int parts, void* stream) {
-  if (!shapes_ok(n_steps, batch, hidden) || dtype != 1)
-    return cudaErrorInvalidValue;
-  return launch<__nv_bfloat16, true>(x_proj, w_hh, hs, cs, dhs, dx_proj,
-                                     dw_hh, z, dg, exchange, barrier,
-                                     n_steps, batch, hidden, parts,
-                                     static_cast<cudaStream_t>(stream));
 }
 
 #ifdef MDD_LSTM_BWD_STAMPS

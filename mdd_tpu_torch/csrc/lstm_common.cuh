@@ -1,9 +1,9 @@
 // Helpers shared by the package's kernels: dtype conversions, rounding and
-// 4-wide loads and stores (lstm_fwd.cu, lstm_bwd.cu, dropout.cu); and what
-// the LSTM recurrences share: the L2 read of data other blocks wrote, a
-// barrier over a group of blocks whose arrival and wait are separate
-// calls, the TF32 splits, the warp-level TF32 products and 16-byte
-// asynchronous copies into shared memory.
+// 4-wide loads and stores (lstm_fwd.cu, lstm_bwd.cu, lstm_scan.cu,
+// dropout.cu); and what the LSTM recurrences share: the L2 read of data
+// other blocks wrote, a barrier over a group of blocks whose arrival and
+// wait are separate calls, the TF32 split, the warp-level TF32 products
+// and 16-byte asynchronous copies into shared memory.
 #pragma once
 
 #include <cstdint>
@@ -150,21 +150,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// x = hi + mid + lo EXACTLY, each a valid TF32: hi is x cut to TF32, mid
-// the remainder (exact in float32, at most 13 significant bits) cut to
-// TF32, lo what is left (at most 2 significant bits).  A float32 x times a
-// value exact in TF32 (a bfloat16) is then three exact products, so three
-// passes on the tensor cores give the float32 product x * b as a float32
-// product would, up to the order of the float32 sums.
-__device__ __forceinline__ void tf32_split3(float x, uint32_t& hi,
-                                            uint32_t& mid, uint32_t& lo) {
-  constexpr uint32_t kTf32Mask = 0xffffe000u;
-  hi = __float_as_uint(x) & kTf32Mask;
-  const float r = x - __uint_as_float(hi);
-  mid = __float_as_uint(r) & kTf32Mask;
-  lo = __float_as_uint(r - __uint_as_float(mid));
-}
-
 // N operand registers of a fragment as the tensor cores take them, set from
 // values of type T widened to float.  float32 operands are split (hi, lo)
 // for the three-pass product; bfloat16 operands are exact in TF32 (8
@@ -190,16 +175,6 @@ struct Frag<__nv_bfloat16, N> {
   }
 };
 
-// N operand registers of a float32 fragment split exactly in three
-// (tf32_split3), for products against bfloat16 operands
-template <int N>
-struct Frag3 {
-  uint32_t hi[N], mid[N], lo[N];
-  __device__ __forceinline__ void set(int i, float x) {
-    tf32_split3(x, hi[i], mid[i], lo[i]);
-  }
-};
-
 // c[j] += a @ b[j] for N tiles that share a, in the operands' own precision
 // (small terms first).  Each pass runs over all N tiles before the next, so
 // that consecutive mma.sync never wait for each other's accumulator.
@@ -218,32 +193,6 @@ template <int N>
 __device__ __forceinline__ void mma_frags(
     float (&c)[N][4], const Frag<__nv_bfloat16, 4>& a,
     const Frag<__nv_bfloat16, 2> (&b)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.hi, b[j].hi);
-}
-
-// c[j] += a @ b[j] with a float32 A against bfloat16 B tiles, or a
-// bfloat16 A against float32 B tiles: three passes of exact products
-// (small terms first), float32 sums
-template <int N>
-__device__ __forceinline__ void mma_frags(
-    float (&c)[N][4], const Frag3<4>& a,
-    const Frag<__nv_bfloat16, 2> (&b)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.lo, b[j].hi);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.mid, b[j].hi);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.hi, b[j].hi);
-}
-template <int N>
-__device__ __forceinline__ void mma_frags(
-    float (&c)[N][4], const Frag<__nv_bfloat16, 4>& a,
-    const Frag3<2> (&b)[N]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.hi, b[j].lo);
-#pragma unroll
-  for (int j = 0; j < N; ++j) mma_tf32(c[j], a.hi, b[j].mid);
 #pragma unroll
   for (int j = 0; j < N; ++j) mma_tf32(c[j], a.hi, b[j].hi);
 }

@@ -13,17 +13,8 @@
 // c_scr contract).  Both directions walk time forwards: the caller has
 // already time-reversed direction 1's projections.
 //
-// The scan contract (kScan, bfloat16 only; mdd_lstm_scan_fwd) computes
-// instead mdd_tpu/ops/lstm.py's bilstm, the lax.scan that runs mdd_tpu's
-// canonical-phone BiLSTM (models/ctc_model.py's TextEncoder) and that
-// mdd_tpu compiles whole, not as a Pallas kernel: c is rounded to bfloat16
-// after every step and the next step starts from the rounded value, while
-// h takes tanh of the unrounded c.  cs then holds that unrounded float32
-// c_t: the backward reads tanh(c_t) from it and rounds c_{t-1} itself, so
-// nothing of the forward has to be recomputed bit for bit.  The c update
-// is written with __fmul_rn / __fadd_rn, so that nvcc does not contract it
-// into an FMA where the scan rounds the product.  The rest of the design
-// is the same: the rounding costs a conversion a (row, unit) and step.
+// The scan contract (mdd_tpu/ops/lstm.py's bilstm, c rounded to bfloat16
+// every step) has kernels of its own in csrc/lstm_scan.cu.
 //
 // What bounds it on an H100.  The T steps form a serial chain: step t needs
 // every hidden unit of step t-1, so the wall time is T times the latency of
@@ -206,16 +197,11 @@ size_t smem_bytes(int hidden) {
                * sizeof(float);
 }
 
-// the cs stream: c in the compute dtype (the Pallas contract), or the
-// unrounded float32 c_t (the scan contract)
-template <typename T, bool kScan>
-using CState = typename std::conditional<kScan, float, T>::type;
-
 // rows [row_lo, row_hi) of the batch are this launch's
-template <typename T, int G, bool kSplit, bool kScan>
+template <typename T, int G, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whh, T* hs,
-                CState<T, kScan>* __restrict__ cs, unsigned* barrier,
+                T* __restrict__ cs, unsigned* barrier,
                 int n_steps, int batch, int hidden, int row_lo, int row_hi) {
   constexpr int kBlockUnits = kUnits * G;
   constexpr int kCols = 4 * kBlockUnits;       // this block's gate columns
@@ -285,8 +271,7 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whh, T* hs,
     item_valid[r] = item < kTileItems && row0 + item_row[r] < row_hi;
   }
 
-  // c_reg: the carried c (rounded every step under kScan); c_out: c_t as
-  // the cs stream keeps it
+  // c_reg: the carried c; c_out: c_t as the cs stream keeps it
   float c_reg[kRounds], c_out[kRounds], xg[kRounds][4];
   auto load_x = [&](int s) {
     const size_t rows = (static_cast<size_t>(s) * 2 + d) * batch + row0;
@@ -304,7 +289,7 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whh, T* hs,
     for (int r = 0; r < kRounds; ++r)
       if (item_valid[r])
         cs[(rows + item_row[r]) * hidden + j0 + item_u[r]] =
-            from_f<CState<T, kScan>>(c_out[r]);
+            from_f<T>(c_out[r]);
   };
 #pragma unroll
   for (int r = 0; r < kRounds; ++r) c_reg[r] = 0.0f;
@@ -398,17 +383,8 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whh, T* hs,
             g[q] += dot;
           }
         }
-        float c;
-        if constexpr (kScan) {
-          // mdd_tpu's scan step, not contracted into an FMA: c from the
-          // rounded c_{t-1}, carried rounded, h from the unrounded c
-          c = __fadd_rn(__fmul_rn(sigmoid(g[1]), c_reg[r]),
-                        __fmul_rn(sigmoid(g[0]), tanhf(g[2])));
-          c_reg[r] = round_to<T>(c);
-        } else {
-          c = sigmoid(g[1]) * c_reg[r] + sigmoid(g[0]) * tanhf(g[2]);
-          c_reg[r] = c;
-        }
+        const float c = sigmoid(g[1]) * c_reg[r] + sigmoid(g[0]) * tanhf(g[2]);
+        c_reg[r] = c;
         c_out[r] = c;
         hs[(step_row + row0 + item_row[r]) * hidden + j0 + item_u[r]] =
             from_f<T>(sigmoid(g[3]) * tanhf(c));
@@ -466,7 +442,7 @@ struct Capacity {
   int smem[kMaxGroups], blocks[kMaxGroups];
 };
 
-template <typename T, bool kScan>
+template <typename T>
 cudaError_t capacity(int device, int hidden, Capacity* out) {
   thread_local std::vector<Capacity> memo;
   for (const Capacity& c : memo)
@@ -482,7 +458,7 @@ cudaError_t capacity(int device, int hidden, Capacity* out) {
   for (int g = 1; g <= kMaxGroups; ++g) {
     const cudaError_t err = for_instance<T>(g, [&](auto G, auto kSplit) {
       auto kernel = lstm_fwd_kernel<T, decltype(G)::value,
-                                    decltype(kSplit)::value, kScan>;
+                                    decltype(kSplit)::value>;
       const size_t smem =
           smem_bytes<T, decltype(G)::value, decltype(kSplit)::value>(hidden);
       cap.smem[g - 1] = static_cast<int>(smem);
@@ -512,13 +488,13 @@ cudaError_t capacity(int device, int hidden, Capacity* out) {
 // G = 2 at B = 24 and G = 3 at B = 64 (one launch each).
 // cudaErrorInvalidConfiguration when there is none (H too large for a
 // block's shared memory).
-template <typename T, bool kScan>
+template <typename T>
 cudaError_t make_plan(int batch, int hidden, Plan* plan) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   Capacity cap;
-  err = capacity<T, kScan>(device, hidden, &cap);
+  err = capacity<T>(device, hidden, &cap);
   if (err != cudaSuccess) return err;
   const int batch_tiles = (batch + kRowsTile - 1) / kRowsTile;
   Plan best = {};
@@ -544,20 +520,20 @@ cudaError_t make_plan(int batch, int hidden, Plan* plan) {
   return cudaSuccess;
 }
 
-template <typename T, bool kScan>
+template <typename T>
 cudaError_t launch(const void* xp_v, const void* whh_v, void* hs_v,
                    void* cs_v, unsigned* barrier, int n_steps, int batch,
                    int hidden, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(xp_v);
   const T* whh = static_cast<const T*>(whh_v);
   T* hs = static_cast<T*>(hs_v);
-  CState<T, kScan>* cs = static_cast<CState<T, kScan>*>(cs_v);
+  T* cs = static_cast<T*>(cs_v);
   Plan plan;
-  cudaError_t err = make_plan<T, kScan>(batch, hidden, &plan);
+  cudaError_t err = make_plan<T>(batch, hidden, &plan);
   if (err != cudaSuccess) return err;
   return for_instance<T>(plan.groups, [&](auto G, auto kSplit) {
     auto kernel = lstm_fwd_kernel<T, decltype(G)::value,
-                                  decltype(kSplit)::value, kScan>;
+                                  decltype(kSplit)::value>;
     const int unit_groups = hidden / (kUnits * decltype(G)::value);
     for (int i = 0; i < plan.launches; ++i) {
       int row_lo = i * plan.chunk_rows;
@@ -611,8 +587,8 @@ int mdd_lstm_fwd_plan(int batch, int hidden, int dtype, int* out) {
     return cudaErrorInvalidValue;
   Plan plan;
   const cudaError_t err =
-      dtype == 0 ? make_plan<float, false>(batch, hidden, &plan)
-                 : make_plan<__nv_bfloat16, false>(batch, hidden, &plan);
+      dtype == 0 ? make_plan<float>(batch, hidden, &plan)
+                 : make_plan<__nv_bfloat16>(batch, hidden, &plan);
   if (err == cudaSuccess) write_plan(plan, out);
   return err;
 }
@@ -627,40 +603,13 @@ int mdd_lstm_fwd(const void* x_proj, const void* w_hh, void* hs, void* cs,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch<float, false>(x_proj, w_hh, hs, cs, barrier, n_steps,
-                               batch, hidden, s);
+    err = launch<float>(x_proj, w_hh, hs, cs, barrier, n_steps, batch,
+                        hidden, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16, false>(x_proj, w_hh, hs, cs, barrier,
-                                       n_steps, batch, hidden, s);
+    err = launch<__nv_bfloat16>(x_proj, w_hh, hs, cs, barrier, n_steps,
+                                batch, hidden, s);
   else
     return cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// The scan contract (mdd_tpu/ops/lstm.py's bilstm), bfloat16 only
-// (dtype 1): c rounded to bfloat16 every step, cs the unrounded float32
-// c_t.  Otherwise as mdd_lstm_fwd, with the same plan.
-int mdd_lstm_scan_fwd_units_per_block() { return kUnits; }
-
-int mdd_lstm_scan_fwd_plan(int batch, int hidden, int dtype, int* out) {
-  if (!shapes_ok(1, batch, hidden) || dtype != 1)
-    return cudaErrorInvalidValue;
-  Plan plan;
-  const cudaError_t err =
-      make_plan<__nv_bfloat16, true>(batch, hidden, &plan);
-  if (err == cudaSuccess) write_plan(plan, out);
-  return err;
-}
-
-int mdd_lstm_scan_fwd(const void* x_proj, const void* w_hh, void* hs,
-                      void* cs, unsigned* barrier, int n_steps, int batch,
-                      int hidden, int dtype, void* stream) {
-  if (!shapes_ok(n_steps, batch, hidden) || dtype != 1)
-    return cudaErrorInvalidValue;
-  const cudaError_t err = launch<__nv_bfloat16, true>(
-      x_proj, w_hh, hs, cs, barrier, n_steps, batch, hidden,
-      static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

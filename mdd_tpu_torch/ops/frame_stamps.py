@@ -39,7 +39,7 @@ import torch
 
 from mdd_tpu_torch.ops import beam_cuda, ctc_cuda
 from mdd_tpu_torch.ops.build import KernelBinding
-from mdd_tpu_torch.ops.lstm_stamps import event_ms
+from mdd_tpu_torch.ops.lstm_stamps import event_ms, graph_ms, in_turns
 
 MAX_PHASES = 8
 CLASSES = 43
@@ -141,39 +141,12 @@ def runner(name: str, kernel, b: int, t: int, seed: int = 0):
             ctc_cuda.bound_ms(*args, kernel="ctc_beta_grad"))
 
 
-def graph_ms(fn, iters: int = 20, calls: int = 10) -> float:
-    """The device time of one fn() by CUDA events over replays of a CUDA
-    graph of `calls` calls: the wrapper's host work (checks, allocations,
-    the ctypes call) is left out, so that a kernel shorter than it is
-    timed, not the host."""
-    fn()                                    # builds and loads the kernel
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return event_ms(graph.replay, iters) / calls
-
-
 def chain_floor_ms(name: str, b: int, t: int, iters: int = 20,
                    source: str | None = None) -> float:
     """The skeleton build's device time at (b, t) (graph_ms)."""
     kernel = binding(name, source, (f"-D{KERNELS[name][2]}_SKELETON",))
     with torch.no_grad():
         return graph_ms(runner(name, kernel, b, t)[0], iters)
-
-
-def in_turns(fns: dict, order: tuple, iters: int) -> dict:
-    """name -> the device times of fns[name] (graph_ms), taken in
-    `order`."""
-    times = {k: [] for k in fns}
-    for k in order:
-        times[k].append(graph_ms(fns[k], iters))
-    return times
 
 
 def sm_clock() -> str:

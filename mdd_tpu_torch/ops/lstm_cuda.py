@@ -17,9 +17,12 @@ gate math.  They differ in what is rounded to the compute dtype:
   c are rounded to the compute dtype every step (tanh takes the unrounded
   c); the backward carries bfloat16 cotangents, as JAX's does (see
   `lstm_scan_bwd_reference`).  On a CUDA tensor `lstm_scan_fwd` and
-  `lstm_scan_bwd` launch the scan variants of the same two sources, in
-  bfloat16 only: in float32 the two contracts are one, and the model
-  takes the Pallas one there.
+  `lstm_scan_bwd` launch the kernels of `csrc/lstm_scan.cu`, in bfloat16
+  only: in float32 the two contracts are one, and the model takes the
+  Pallas one there.  Their products of float32 dgates against bfloat16
+  operands split each dgate exactly into three bfloat16 parts
+  (`bf16_split3`), and dW_hh is summed in the order `lstm_scan_dw_reference`
+  models: every step's rounded product, then the ordered bfloat16 carry.
 
 On a CPU tensor each wrapper runs its `*_reference` function, the plain
 PyTorch versions that the tests and chip_smoke.py hold the kernels
@@ -135,10 +138,12 @@ def lstm_scan_fwd_reference(x_proj: torch.Tensor, w_hh: torch.Tensor):
     return torch.stack(hs), torch.stack(cs)
 
 
-def lstm_scan_bwd_reference(x_proj, w_hh, hs, cs, dhs):
+def lstm_scan_bwd_reference(x_proj, w_hh, hs, cs, dhs,
+                            return_dgates: bool = False):
     """The backward of `lstm_scan_fwd_reference` as JAX differentiates
     mdd_tpu's scan: (x_proj, w_hh, hs, cs float32, dhs) -> (dx_proj,
-    dW_hh), both in x_proj.dtype.
+    dW_hh), both in x_proj.dtype, and with `return_dgates` the float32
+    dgates (T, 2, B, 4H) of every step as a third output.
 
     Walks t from T-1 down to 0.  The gates are recomputed from h_{t-1}
     (hs, zero at t = 0) as the forward computed them.  With rnd() the
@@ -169,6 +174,8 @@ def lstm_scan_bwd_reference(x_proj, w_hh, hs, cs, dhs):
     dh_carry, dc_carry = zeros, zeros
     dw = torch.zeros((d, h, four_h), dtype=dtype, device=x_proj.device)
     dxp = torch.empty_like(x_proj)
+    all_dgates = torch.empty(x_proj.shape, dtype=torch.float32,
+                             device=x_proj.device) if return_dgates else None
     for step in range(t - 1, -1, -1):
         h_prev = hs[step - 1].float() if step > 0 else zeros
         c_prev = rnd(cs[step - 1]) if step > 0 else zeros
@@ -186,10 +193,50 @@ def lstm_scan_bwd_reference(x_proj, w_hh, hs, cs, dhs):
                             em + em * g,
                             dh * tanh_c * (o * (1.0 - o))], dim=-1)
         dxp[step] = dgates.to(dtype)
+        if return_dgates:
+            all_dgates[step] = dgates
         dh_carry = rnd(torch.bmm(dgates, w_t))
         dw = dw + torch.bmm(h_prev.transpose(1, 2), dgates).to(dtype)
         dc_carry = rnd(f * dc)
-    return dxp, dw
+    return (dxp, dw, all_dgates) if return_dgates else (dxp, dw)
+
+
+def bf16_split3(x: torch.Tensor):
+    """float32 x -> (hi, mid, lo), bfloat16 tensors with hi + mid + lo == x
+    exactly (summed in float32 in any order) wherever |x| >= 2^-110: hi is
+    x cut to bfloat16's 8 significant bits, mid the remainder (exact in
+    float32) cut likewise, lo what is left (at most 8 significant bits); a
+    zero part takes x's sign, so -0 splits into three -0.  A float32 times
+    a bfloat16 is then three exact products, as csrc/lstm_scan.cu's
+    `split3` feeds its bfloat16 tensor-core passes."""
+    high = torch.tensor(-65536, dtype=torch.int32, device=x.device)
+    sign = x.view(torch.int32) & torch.tensor(
+        -2 ** 31, dtype=torch.int32, device=x.device)
+    hi = (x.view(torch.int32) & high).view(torch.float32)
+    rest = ((x - hi).view(torch.int32) | sign).view(torch.float32)
+    mid = (rest.view(torch.int32) & high).view(torch.float32)
+    lo = ((rest - mid).view(torch.int32) | sign).view(torch.float32)
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
+
+
+def lstm_scan_dw_reference(hs: torch.Tensor, dgates: torch.Tensor):
+    """dW_hh of the scan contract in the order csrc/lstm_scan.cu computes
+    it: (hs (T, 2, B, H) in the compute dtype, float32 dgates (T, 2, B, 4H))
+    -> (2, H, 4H) in hs.dtype.  Every step's product rnd(h_{t-1}^T @
+    dgates_t) at once (t >= 1; h_{-1} = 0 contributes nothing), then one
+    ordered carry acc = rnd(acc + P_t) from t = T-1 down: equal bit for bit
+    to `lstm_scan_bwd_reference`'s serial sum."""
+    t, d, b, h = hs.shape
+    dtype = hs.dtype
+    dw = torch.zeros((d, h, dgates.shape[-1]), dtype=dtype, device=hs.device)
+    if t < 2:
+        return dw
+    steps = torch.bmm(hs[:-1].float().reshape(-1, b, h).transpose(1, 2),
+                      dgates[1:].reshape(-1, b, dgates.shape[-1]))
+    steps = steps.to(dtype).reshape(t - 1, d, h, -1)
+    for step in range(t - 2, -1, -1):
+        dw = dw + steps[step]
+    return dw
 
 
 def _check_lstm_inputs(x_proj, w_hh, units_per_block):
@@ -237,11 +284,14 @@ class _LstmBinding(build.KernelBinding):
         return (ctypes.c_void_p,) * self.n_pointers + (ctypes.c_int,) * 4
 
     def units_per_block(self) -> int:
-        """Hidden units each block owns; H must be a multiple of it."""
-        units = getattr(self.library(), self.entry + "_units_per_block")
-        units.argtypes = []
-        units.restype = ctypes.c_int
-        return units()
+        """Hidden units each block owns; H must be a multiple of it (a
+        constant of the library, read once)."""
+        if self.__dict__.get("_units") is None:
+            units = getattr(self.library(), self.entry + "_units_per_block")
+            units.argtypes = []
+            units.restype = ctypes.c_int
+            self._units = units()
+        return self._units
 
 
 #: one zeroed 128-byte line of counters per barrier group of the kernels
@@ -364,18 +414,18 @@ class LstmBwdKernel(_LstmBinding):
                 torch.empty(plan["exchange_elems"], **f32))
 
     def run_parts(self, x_proj, w_hh, hs, cs, dhs, buffers, parts) -> None:
-        """Launch the kernels that `parts` names into `buffers`.  A part
-        reads what the earlier ones left there; anything but ALL exists to
-        time the launches one by one."""
-        t, b, h = self._check(x_proj, w_hh, hs, cs, dhs)
-        dxp, dw, z, dw_partial, exchange = buffers
+        """Launch the kernels that `parts` names into `buffers` (as
+        `buffers()` makes them).  A part reads what the earlier ones left
+        there; anything but ALL exists to time the launches one by one."""
+        self._enqueue(x_proj, w_hh, hs, cs, dhs, buffers, parts,
+                      *self._check(x_proj, w_hh, hs, cs, dhs))
+
+    def _enqueue(self, x_proj, w_hh, hs, cs, dhs, buffers, parts, t, b, h):
         counters = _barrier_counters(b, x_proj.device)  # held until enqueued
         self._launch(x_proj.device, x_proj.data_ptr(), w_hh.data_ptr(),
                      hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
-                     dxp.data_ptr(), dw.data_ptr(), z.data_ptr(),
-                     dw_partial.data_ptr(), exchange.data_ptr(),
-                     counters.data_ptr(), t, b, h,
-                     _DTYPE_CODES[x_proj.dtype], parts)
+                     *(a.data_ptr() for a in buffers), counters.data_ptr(),
+                     t, b, h, _DTYPE_CODES[x_proj.dtype], parts)
 
     def __call__(self, x_proj, w_hh, hs, cs, dhs):
         self._check(x_proj, w_hh, hs, cs, dhs)
@@ -394,11 +444,46 @@ def _check_scan_dtype(x_proj, w_hh) -> None:
                         f"{w_hh.dtype}")
 
 
+#: the plan entries of csrc/lstm_scan.cu: a recurrence's layout ...
+_SCAN_PLAN = ("unit_groups", "tiles_per_block", "blocks", "smem_bytes",
+              "chunk_rows", "launches")
+#: ... and the backward's scratch and dW_hh layout after it
+_SCAN_BWD_PLAN = _SCAN_PLAN + ("exchange_elems", "dw_steps_per_block",
+                               "dw_carry_in_block", "dw_scratch_elems")
+
+
+def _scan_plan(kernel, args: tuple, names: tuple, what: str) -> dict:
+    """The plan entry's answer for `args` on the current device, asked once
+    a process: it depends on nothing else (the wrapper reads it every
+    backward, where a small call is host-bound)."""
+    plans = kernel.__dict__.setdefault("_plans", {})
+    key = (torch.cuda.current_device(), args)
+    if key not in plans:
+        fn = getattr(kernel.library(), kernel.entry + "_plan")
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * len(names))()
+        err = fn(*args, out)
+        if err != 0:
+            raise ValueError(f"{what} has no layout for {args}: "
+                             + kernel.library().mdd_cuda_error_string(
+                                 err).decode())
+        plans[key] = dict(zip(names, out))
+    return dict(plans[key])
+
+
 class LstmScanFwdKernel(LstmFwdKernel):
-    """`mdd_lstm_scan_fwd` of csrc/lstm_fwd.cu, the scan contract in
+    """`mdd_lstm_scan_fwd` of csrc/lstm_scan.cu, the scan contract in
     bfloat16: (x_proj, w_hh) -> (hs, cs float32, the unrounded c_t)."""
 
-    entry, scan = "mdd_lstm_scan_fwd", True
+    source, entry, scan = "lstm_scan.cu", "mdd_lstm_scan_fwd", True
+
+    def plan(self, b: int, h: int, dtype: torch.dtype) -> dict:
+        """How the kernel lays a batch of b rows out on the current card:
+        unit groups of 8 and 16-row tiles a block owns, blocks and shared
+        bytes of a launch, batch rows a launch, launches a call."""
+        return _scan_plan(self, (b, h, _DTYPE_CODES[dtype]), _SCAN_PLAN,
+                          "lstm_scan_fwd")
 
     def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor):
         _check_scan_dtype(x_proj, w_hh)
@@ -406,32 +491,55 @@ class LstmScanFwdKernel(LstmFwdKernel):
 
 
 class LstmScanBwdKernel(LstmBwdKernel):
-    """`mdd_lstm_scan_bwd` of csrc/lstm_bwd.cu, the scan contract in
+    """`mdd_lstm_scan_bwd` of csrc/lstm_scan.cu, the scan contract in
     bfloat16: (x_proj, w_hh, hs, cs float32, dhs float32) -> (dx_proj,
     dW_hh), both bfloat16.  Inside: the gate pre-activations as one
     product, the recurrence (the float32 dgates kept for the next part),
-    and dW_hh summed in bfloat16 step by step; one count a backward."""
+    every step's dW_hh product at once and their ordered bfloat16 carry;
+    one count a backward."""
 
-    entry, scan = "mdd_lstm_scan_bwd", True
+    source, entry, scan = "lstm_scan.cu", "mdd_lstm_scan_bwd", True
+    n_pointers = 12
+
+    def plan(self, t: int, b: int, h: int, dtype: torch.dtype) -> dict:
+        """The recurrence's layout as `LstmScanFwdKernel.plan` gives it,
+        the float32 elements of its exchange, the steps a dW_hh block
+        walks, whether one block a tile carries dW_hh in registers (then
+        no step scratch) and the bfloat16 elements of that scratch."""
+        return _scan_plan(self, (t, b, h, _DTYPE_CODES[dtype]),
+                          _SCAN_BWD_PLAN, "lstm_scan_bwd")
 
     def _check(self, x_proj, w_hh, hs, cs, dhs):
         _check_scan_dtype(x_proj, w_hh)
         return super()._check(x_proj, w_hh, hs, cs, dhs)
 
     def buffers(self, x_proj) -> tuple:
-        """(dx_proj, dW_hh, z, dgates, exchange) for a call on x_proj: the
-        bfloat16 outputs, the float32 gate pre-activations and dgates
-        (T, 2, B, 4H) each, and the float32 partial dh of the recurrence."""
+        """(dx_proj, dW_hh, z, dgates, exchange, dW_hh step scratch) for a
+        call on x_proj: the bfloat16 outputs, the float32 gate
+        pre-activations and dgates (T, 2, B, 4H) each, the float32 partial
+        dh of the recurrence and the bfloat16 step products of dW_hh
+        (T-1, 2, H, 4H) unless one block a tile carries it."""
         t, _, b, four_h = x_proj.shape
         h, dev = four_h // 4, x_proj.device
-        with torch.cuda.device(dev):
+        if dev.index in (None, torch.cuda.current_device()):
             plan = self.plan(t, b, h, x_proj.dtype)
+        else:
+            with torch.cuda.device(dev):
+                plan = self.plan(t, b, h, x_proj.dtype)
         f32 = dict(dtype=torch.float32, device=dev)
         return (torch.empty_like(x_proj),
                 torch.empty((2, h, four_h), dtype=x_proj.dtype, device=dev),
                 torch.empty((t, 2, b, four_h), **f32),
                 torch.empty((t, 2, b, four_h), **f32),
-                torch.empty(plan["exchange_elems"], **f32))
+                torch.empty(plan["exchange_elems"], **f32),
+                torch.empty(plan["dw_scratch_elems"], dtype=x_proj.dtype,
+                            device=dev))
+
+    def __call__(self, x_proj, w_hh, hs, cs, dhs):
+        shape = self._check(x_proj, w_hh, hs, cs, dhs)   # checked once
+        buffers = self.buffers(x_proj)
+        self._enqueue(x_proj, w_hh, hs, cs, dhs, buffers, self.ALL, *shape)
+        return buffers[0], buffers[1]
 
 
 #: the process's bindings; chip_smoke.py reads and resets their counters

@@ -460,13 +460,15 @@ def test_orbax_latest_restores_alike_on_the_card_and_the_cpu(cuda, tmp_path):
 #: the scan kernels against their plain versions: each tensor relative to
 #: its largest magnitude.  Both take the same float32 steps in the same
 #: order but for the sums of the dots (the tensor cores' order against
-#: cuBLAS's, and for float32 dgates three exact TF32 passes), so a rounding
-#: to bfloat16 (2^-8) can flip on the other side and carry on through the
-#: later steps and the bfloat16 sum of dW_hh
+#: cuBLAS's, and for float32 dgates three exact bfloat16 passes), so a
+#: rounding to bfloat16 (2^-8) can flip on the other side and carry on
+#: through the later steps and the bfloat16 sum of dW_hh
 SCAN_TOL = 2e-2
 #: the text BiLSTM's shapes: serving's L and B, train's B=64, benchmark's
-#: L=48 at B=512 (several launches of the forward) and a ragged 513
-SCAN_SHAPES = [(t, b) for t in (1, 7, 48) for b in (1, 64, 512, 513)]
+#: L=48 at B=512 (one forward launch), a ragged 513 (two) and 1040, past
+#: one launch of either recurrence and ragged
+SCAN_SHAPES = [(t, b) for t in (1, 7, 48)
+               for b in (1, 64, 512, 513)] + [(48, 1040)]
 
 
 def _scan_inputs(t, b, d=512, h=384, seed=0):
@@ -529,6 +531,20 @@ def test_scan_kernels_are_the_same_from_run_to_run(cuda):
     first = lstm_cuda.lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs)
     again = lstm_cuda.lstm_scan_bwd(x_proj, w_hh, hs, cs, dhs)
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_scan_forward_runs_the_benchmark_batch_in_one_launch(cuda):
+    """The forward's plan at benchmark's 48 x 512 (H=384): every row in
+    one cooperative launch of blocks that own several 16-row tiles; a
+    batch past the card's residency still runs, as several launches."""
+    plan = lstm_cuda.lstm_scan_fwd_kernel.plan(512, 384, torch.bfloat16)
+    assert plan["launches"] == 1 and plan["tiles_per_block"] > 1
+    assert plan["chunk_rows"] == 512
+    big = lstm_cuda.lstm_scan_fwd_kernel.plan(1040, 384, torch.bfloat16)
+    assert big["launches"] > 1
+    bwd = lstm_cuda.lstm_scan_bwd_kernel.plan(48, 512, 384, torch.bfloat16)
+    assert bwd["chunk_rows"] * bwd["launches"] >= 512
+    assert bwd["dw_scratch_elems"] == 47 * 2 * 384 * 4 * 384
 
 
 def test_float32_on_the_card_keeps_the_pallas_contract(cuda):

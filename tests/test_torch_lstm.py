@@ -167,8 +167,9 @@ def test_wrappers_hold_their_barrier_counters_until_the_launch(monkeypatch,
         x_proj, w_hh = x_proj.bfloat16(), w_hh.bfloat16()
         hs, cs = lstm_cuda.lstm_scan_fwd_reference(x_proj, w_hh)
         four_h = torch.empty((t, 2, b, 4 * h))
+        # dx_proj, dW_hh, z, dgates, the exchange, dW_hh's step scratch
         buffers = (torch.empty_like(x_proj), torch.empty_like(w_hh), four_h,
-                   torch.empty_like(four_h), torch.empty(1))
+                   torch.empty_like(four_h), torch.empty(1), torch.empty(1))
         k = lstm_cuda.LstmScanBwdKernel()
         k.run_parts(x_proj, w_hh, hs, cs, torch.ones((t, 2, b, h)), buffers,
                     k.ALL)
