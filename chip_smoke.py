@@ -15,9 +15,10 @@ lstm_scan_bwd once a train step):
             kernels), dropout.cu, wer.cu, ctc_beam.cu,
             ctc_loss.cu and mma_rate.cu (the
             mma.sync-rate yardstick of ops/mma_rate.py, no kernel of
-            the model's path), the skeleton builds of ctc_beam.cu and
-            ctc_loss.cu (the chain floors) and the parent tree's two
-            (PARENT_TREE, where there is one); g++ the host C++ sources at
+            the model's path), the skeleton builds of ctc_beam.cu,
+            ctc_loss.cu and wer.cu (the chain floors) and the parent
+            tree's three (PARENT_TREE, where there is one); g++ the host
+            C++ sources at
             the same time: denoise.cc (the denoiser library and the
             mdd_denoise tool) and ark_io.cc (the mmap ark reader).
 2. kernel   lstm_fwd against its plain PyTorch version on the card, at the
@@ -40,9 +41,15 @@ lstm_scan_bwd once a train step):
             on the card, errors and tokens equal exactly, twice each: the
             train cell's shapes (B=64, T' 47-110, L 16-40, a sixth of the
             rows invalid, the step's transposed ids), benchmark's 512 x
-            80, rows with no frames, no targets or only blanks, and
-            L=1023, the largest the wrapper takes; then its time against
-            the plain loop's at B=64, T'=110, L=40 (CUDA events, in turns).
+            80, rows with no frames, no targets or only blanks, ids and
+            targets outside the kernel's table (>= 128 and < 0), L=64 and
+            65 (one word of the bit-vectors and two), and L=1023, the
+            largest the wrapper takes; the distances and counts equal to
+            the parent tree's kernel's where there is one (PARENT_TREE);
+            then its time against the plain loop's at B=64, T'=110, L=40
+            (CUDA events, in turns), a call to a synchronize, and at
+            TURN_SHAPES its device time in turns with the parent's kernel
+            beside its chain floor and bound, as in kernel-beam.
 3c. kernel-beam  ctc_beam (csrc/ctc_beam.cu) against
             decode/beam_jit.beam_search_batch on the card: profile-evaluate's
             shape (B=64, T'=110, K=10, C=43) with and without a bigram LM
@@ -78,9 +85,10 @@ lstm_scan_bwd once a train step):
             their times at B=64, T'=110, L=40 against the plain versions'
             and F.ctc_loss's (the yardstick: forward, and forward +
             backward, its host syncs included), in turns, the bound and us
-            a frame; ctc_beta_grad at TURN_SHAPES in turns with the
-            parent's kernel beside its chain floor and bound, and
-            ctc_alpha's device time, as in kernel-beam.
+            a frame; ctc_alpha's nll and every row's alphas equal to the
+            parent tree's kernel's bit for bit where there is one; both
+            kernels at TURN_SHAPES in turns with the parent's beside
+            their chain floors and bounds, as in kernel-beam.
 3e. kernel-scan  lstm_scan_fwd and lstm_scan_bwd (csrc/lstm_scan.cu:
             mdd_tpu/ops/lstm.py's bilstm and JAX's autodiff of it, the
             bfloat16 text BiLSTM's route) against ops/lstm_cuda's plain
@@ -533,7 +541,7 @@ def phase_build() -> None:
 
     t0 = time.time()
     sources = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    # and the variants phases kernel-beam and kernel-ctc time: the chain
+    # and the variants phases kernel-wer, -beam and -ctc time: the chain
     # floors' skeleton builds, the parent tree's kernels
     parent = parent_tree()
     variants = []
@@ -759,6 +767,10 @@ WER_CASES = [("train T'=110 L=40", 64, 110, 40, 0, "random"),
              ("pred_len 0 (no frames)", 16, 60, 24, 4, "no-frames"),
              ("target_sizes 0", 16, 60, 24, 5, "no-targets"),
              ("all-blank rows", 16, 60, 24, 6, "all-blank"),
+             ("ids and targets outside the kernel's table", 64, 110, 40, 8,
+              "wide-ids"),
+             ("L=64, one word of the bit-vectors", 16, 110, 64, 9, "random"),
+             ("L=65, two words", 16, 110, 65, 10, "random"),
              ("the largest L the wrapper takes", 8, 300, 1023, 7, "random")]
 #: phase kernel-beam: (name, B, T', C, K, seed, LM, case)
 BEAM_CASES = [("profile-evaluate", 64, 110, 43, 10, 0, False, "random"),
@@ -779,7 +791,7 @@ BEAM_CASES = [("profile-evaluate", 64, 110, 43, 10, 0, False, "random"),
 BEAM_IDENTICAL = 0.99   # kernel vs plain, share of identical sequences
 BEAM_TOKEN_ERR = 0.002  # kernel vs plain, edits over the plain's tokens
 HOST_ROWS = 16          # kernel vs the host beam (decode/beam.py, Python)
-#: phases kernel-beam and kernel-ctc: (B, T') at which the kernel is timed
+#: phases kernel-wer, -beam and -ctc: (B, T') at which a kernel is timed
 #: in turns with the parent tree's (serving, the main path's batch,
 #: benchmark's 512 x 80)
 TURN_SHAPES = [(1, 110), (BATCH, 110), (512, 80)]
@@ -810,7 +822,7 @@ def parent_tree() -> Path | None:
 
 
 def frame_turns(name: str, parent, card: str) -> dict:
-    """frame_stamps' kernel `name` ("beam" or "beta_grad") at TURN_SHAPES:
+    """frame_stamps' kernel `name` (a key of its KERNELS) at TURN_SHAPES:
     device times (CUDA-graph replays) in turns with the parent tree's
     kernel (parent, tree, tree, parent) where there is one, its chain floor
     (the skeleton build) and its bound; -> "B=b T'=t" -> those numbers."""
@@ -880,7 +892,9 @@ def host_ms(fn, iters: int) -> float:
 def wer_inputs(torch, b: int, t: int, l: int, seed: int, case: str):
     """Seeded greedy-WER inputs on the card: argmax-like ids over 43
     classes (a third blank), frames in [1, t], targets of 1-42, sizes in
-    [0, l], a sixth of the rows invalid."""
+    [0, l], a sixth of the rows invalid; "wide-ids" moves the odd classes
+    to 1000 times their id and class 4 to -4 in ids and targets alike
+    (outside the kernel's table of ids [0, 128))."""
     g = torch.Generator().manual_seed(SEED + 100 + seed)
     ids = torch.randint(0, 43, (b, t), generator=g)
     ids[torch.rand((b, t), generator=g) < 0.33] = 0
@@ -896,6 +910,10 @@ def wer_inputs(torch, b: int, t: int, l: int, seed: int, case: str):
         sizes[: b // 2] = 0
     if case == "all-blank":
         ids[: b // 2] = 0
+    if case == "wide-ids":
+        ids, targets = (torch.where(x == 4, -4, torch.where(x % 2 == 1,
+                                                           x * 1000, x))
+                        for x in (ids, targets))
     ids = ids.cuda()
     if case == "strided":       # the train step's argmax(-1).transpose(0, 1)
         ids = ids.t().contiguous().t()
@@ -903,26 +921,39 @@ def wer_inputs(torch, b: int, t: int, l: int, seed: int, case: str):
 
 
 def phase_kernel_wer(torch, card: str) -> dict:
-    """greedy_wer against ops/wer.greedy_wer_counts on the card, exactly;
-    its time against the plain loop's at B=64, T'=110, L=40."""
-    from mdd_tpu_torch.ops import wer_cuda
+    """greedy_wer against ops/wer.greedy_wer_counts on the card, exactly,
+    and against the parent tree's kernel (distances and counts) where
+    there is one; its time against the plain loop's at B=64, T'=110,
+    L=40, and its device time at TURN_SHAPES in turns with the parent's."""
+    from mdd_tpu_torch.ops import frame_stamps, wer_cuda
     from mdd_tpu_torch.ops.wer import greedy_wer_counts
 
     kernel = wer_cuda.greedy_wer_kernel
+    parent = parent_tree()
+    parent_kernel = parent and frame_stamps.binding(
+        "wer", frame_stamps.parent_source("wer", parent))
     for name, b, t, l, seed, case in WER_CASES:
         args = wer_inputs(torch, b, t, l, seed, case)
         before = kernel.launches
         dist, counts = kernel(*args)
-        again = kernel(*args)[1]
+        dist2, again = kernel(*args)
         torch.cuda.synchronize()
         want = [int(v) for v in greedy_wer_counts(*args)]
         got = [int(v) for v in counts]
+        same_parent = parent_kernel is None or all(
+            torch.equal(x, y) for x, y in zip((dist, counts),
+                                              parent_kernel(*args)))
         log(f"[kernel-wer] {name} (B={b}, T'={t}, L={l}): errors, tokens "
-            f"{got} kernel, {want} plain")
+            f"{got} kernel, {want} plain; " + (
+                "no parent tree" if parent_kernel is None else
+                f"distances and counts = the parent's kernel's: "
+                f"{same_parent}"))
         if got != want or not torch.equal(counts, again) \
+                or not torch.equal(dist, dist2) or not same_parent \
                 or kernel.launches != before + 2:
             raise AssertionError(f"greedy_wer {name}: kernel {got} (again "
-                                 f"{again.tolist()}), plain {want}")
+                                 f"{again.tolist()}), plain {want}, the "
+                                 f"parent's bits {same_parent}")
     b, t, l = BATCH, 110, 40
     args = wer_inputs(torch, b, t, l, 0, "random")
     kern = lambda: wer_cuda.greedy_wer(*args)
@@ -938,10 +969,15 @@ def phase_kernel_wer(torch, card: str) -> dict:
         f"plain {times['plain']} ms (CUDA events, in turns), the kernel's "
         f"call {host:.4f} ms to a synchronize; bound {least:.6f} ms "
         f"({by}); {ms / t * 1e3:.3f} us a frame ({card})")
+    turns = frame_turns("wer", parent, card)
+    main = turns[f"B={b} T'={t}"]
     return {"max_abs_err": 0, "shape": f"B={b} T'={t} L={l} int64",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": least,
             "bound_by": by, "library_ms": None, "ms_per_frame": ms / t,
-            "call_ms": host}
+            "call_ms": host, "device_ms": min(main["ms"]),
+            "chain_floor_ms": main["chain_floor_ms"],
+            "parent_ms": main["parent_ms"] and min(main["parent_ms"]),
+            "turns": turns}
 
 
 #: phase kernel-ctc: (name, B, T', L, seed, case); T' 47-110 and L 16-40
@@ -1031,6 +1067,8 @@ def phase_kernel_ctc(torch, card: str) -> dict:
     parent = parent_tree()
     parent_grad = parent and frame_stamps.binding(
         "beta_grad", frame_stamps.parent_source("beta_grad", parent))
+    parent_alpha = parent and frame_stamps.binding(
+        "alpha", frame_stamps.parent_source("alpha", parent))
     worst = {"nll": 0.0, "nll_rel": 0.0, "grad": 0.0}
     for name, b, t, l, seed, case in CTC_CASES:
         args = ctc_inputs(torch, b, t, l, seed, case)
@@ -1059,15 +1097,24 @@ def phase_kernel_ctc(torch, card: str) -> dict:
         worst["grad"] = max(worst["grad"], grad_err)
         same_parent = parent_grad is None or torch.equal(
             grad, parent_grad(*args, alphas, nll, g))
+        same_alpha = True
+        if parent_alpha is not None:
+            # the frames each kernel writes: t < max(input length, 1)
+            old_nll, old_alphas = parent_alpha(*args)
+            written = torch.arange(t, device="cuda")[:, None] < \
+                args[1].clamp(1, t)[None]
+            same_alpha = torch.equal(nll, old_nll) and torch.equal(
+                alphas[written], old_alphas[written])
         log(f"[kernel-ctc] {name} (B={b}, T'={t}, L={l}): nll rel err "
             f"{nll_rel:.2e}, alphas {alpha_err:.2e}, dlog_probs abs err "
             f"{grad_err:.2e}; {int((~feasible).sum())} row(s) no alignment "
             f"fits; " + ("no parent tree" if parent_grad is None else
                          f"dlog_probs = the parent's kernel's bit for bit: "
-                         f"{same_parent}"))
-        if not same_parent:
-            raise AssertionError(f"ctc_beta_grad {name}: not the parent "
-                                 "kernel's bits")
+                         f"{same_parent}, nll and alphas: {same_alpha}"))
+        if not (same_parent and same_alpha):
+            raise AssertionError(f"ctc kernels {name}: not the parent "
+                                 f"kernels' bits (gradient {same_parent}, "
+                                 f"alphas {same_alpha})")
         if not (nll_rel <= CTC_NLL_RTOL and alpha_err <= CTC_NLL_RTOL
                 and grad_err <= CTC_GRAD_ATOL
                 and torch.isfinite(grad).all()):
@@ -1130,10 +1177,13 @@ def phase_kernel_ctc(torch, card: str) -> dict:
     out["ctc_beta_grad"].update(
         chain_floor_ms=main["chain_floor_ms"], device_ms=min(main["ms"]),
         parent_ms=main["parent_ms"] and min(main["parent_ms"]), turns=turns)
-    # ctc_alpha's device time the same way (CUDA-graph replays, the
-    # wrapper's host work left out), for the two chains' us a frame
-    alpha_dev = frame_stamps.graph_ms(lambda: alpha_k(*args))
-    out["ctc_alpha"]["device_ms"] = alpha_dev
+    alpha_turns = frame_turns("alpha", parent, card)
+    alpha_main = alpha_turns[f"B={b} T'={t}"]
+    alpha_dev = min(alpha_main["ms"])
+    out["ctc_alpha"].update(
+        chain_floor_ms=alpha_main["chain_floor_ms"], device_ms=alpha_dev,
+        parent_ms=alpha_main["parent_ms"] and min(alpha_main["parent_ms"]),
+        turns=alpha_turns)
     log(f"[kernel-ctc] device time (CUDA-graph replays) at B={b} T'={t} "
         f"L={l}: ctc_alpha {alpha_dev:.4f} ms, {alpha_dev / t * 1e3:.3f} us "
         f"a frame; ctc_beta_grad {min(main['ms']):.4f} ms, "

@@ -23,16 +23,34 @@
 // Lengths are clamped to [0, T] and [0, L]; an id outside [0, C) emits 0
 // (mdd_tpu's one-hot row of zeros).  Accurate expf / logf, no fast math.
 //
-// Design.  One block an utterance, a thread a slot, its frame loop inside.
-//   - ctc_alpha: alpha double-buffered in shared memory, one barrier a
-//     frame, the loop run only to the row's own input length; each frame's
-//     alphas written to (T, B, S) for the backward, nll by thread 0.  The
-//     next frame's emission is loaded before the current frame's sum.
+// Design.
+//   - ctc_alpha: one warp a row (four rows a block), P = ceil(S / 32)
+//     consecutive slots a lane in registers (a template on P; the lanes
+//     past slot S - 1 leave), no shared memory and no barrier.  Slots
+//     s - 1 and s - 2 of a lane's first two slots come from the lane
+//     below by two shuffles of its last two; the P logsumexps of a frame
+//     are written stage by stage side by side so that their chains
+//     interleave, and the loop-invariant flags (skip, valid slot, an
+//     emitting id) are bit masks for bitwise selects, not predicates:
+//     with P = 3 they left the logf calls' scratch predicates one
+//     register, which serialised the three logs.  Each slot's emissions
+//     sit in a ring of registers kAlphaAhead frames ahead: frame t + K's
+//     are loaded, right after frame t's step, into the registers frame t's
+//     left (a load issued before their last use needs a copy at the loop's
+//     end that waits for it).  Each frame's alphas go to (T, B, S) for the
+//     backward, the loop run only to the row's own input length; the last
+//     lane's slots past S - 1 store to S - 1 before the slot that owns it,
+//     so no store needs a predicate.  nll comes from the lane that holds
+//     slot 2l.
+//     Each slot's arithmetic is that of the kernel it replaced (a block a
+//     row, a thread a slot, alpha double-buffered in shared memory, one
+//     barrier a frame, the emission one frame ahead; measured in
+//     PERF.md), so nll and the alphas are its bits.
 //   - ctc_beta_grad: first, once a row, the slots of each class in slot
 //     order (a slot's place among its class's, an integer count a class,
 //     a warp scan).  Then the chain, t from len-1 down to 0: beta
-//     double-buffered in shared memory, one barrier a frame, as in
-//     ctc_alpha; each frame's posterior weights w_t(s) go to a (T, B, S)
+//     double-buffered in shared memory, one barrier a frame (a block
+//     a row); each frame's posterior weights w_t(s) go to a (T, B, S)
 //     float32 scratch that the wrapper allocates (the saved alphas are not
 //     reused: autograd may read them again under retain_graph), and the
 //     emissions and alphas are loaded two frames ahead into a ring of
@@ -46,17 +64,26 @@
 // What bounds it on an H100: neither bytes nor operations.  At the train
 // cell (B=64, T' <= 110, L <= 40) each kernel moves ~2-5 MB and does ~10^7
 // float operations, a microsecond or two either way; the time is the chain
-// of dependent frames a row and the launch.  One block a row keeps the
-// whole chain on one SM with no grid-wide barrier; 64 rows fill half the
-// SMs.  ctc_beta_grad's chain once waited each frame for one thread a
-// class to sum its class over all S slots: 79% of a frame's 5,014 SM
-// cycles by its stamps (-DMDD_CTC_LOSS_STAMPS, python -m
+// of dependent frames a row and the launch.  ctc_beta_grad keeps a row's
+// chain in one block, on one SM, with no grid-wide barrier; 64 rows fill
+// half the SMs.  Its chain once waited each frame for one thread a class
+// to sum its class over all S slots: 79% of a frame's 5,014 SM cycles by
+// its stamps (-DMDD_CTC_LOSS_STAMPS, python -m
 // mdd_tpu_torch.ops.frame_stamps --kernel beta_grad), 0.2026 ms at B=64,
 // T'=110, L=40 (NVIDIA H100 80GB HBM3, 700.00 W, SM clock 1980 MHz).
 // Without the sums on it the chain's frame is ~600 cycles, most of it the
 // beta step's logsumexp and weight; its floor, the same loop with its
 // barrier and shared-memory round trip and no arithmetic
-// (-DMDD_CTC_LOSS_SKELETON), ~0.08 us a frame.
+// (-DMDD_CTC_LOSS_SKELETON), ~0.08 us a frame.  ctc_alpha's frame is one
+// lse3's dependent chain (accurate expf, then logf, then the adds and
+// selects) and the emission load: the block-a-row kernel took 0.02617 ms
+// at B=64, T'=110, L=40, 496 cycles a frame by the same stamps (python -m
+// mdd_tpu_torch.ops.frame_stamps --kernel alpha: its step and store 64%,
+// the wait for the emission loaded a frame ahead 30%, the barrier 5%);
+// this one 0.0259 ms in turns with it (0.0261), 0.0195 against 0.0227 at
+// B=512, T'=80: the barrier is gone, the chain is not.  Its emissions K
+// frames ahead gave 0.0550, 0.0370, 0.0279, 0.0259, 0.0266 and 0.0258 ms
+// at B=64 for K = 1, 2, 3, 4, 6 and 8 (H100 80GB HBM3, 700.00 W).
 //
 // Tried and dropped for ctc_beta_grad: a thread a (frame, class) pair
 // reading the weights from the scratch (the blank class's 41 dependent
@@ -79,14 +106,18 @@ constexpr int kGradThreads = 512;   // ctc_beta_grad's least block: its
                                     // class sums run a warp a frame
 constexpr int kSumBatch = 8;        // a class's weights loaded at once
 constexpr int kAhead = 2;           // frames ctc_beta_grad loads ahead
+constexpr int kAlphaWarps = 4;      // ctc_alpha's rows a block
+constexpr int kAlphaAhead = 4;      // frames ctc_alpha loads ahead
 constexpr size_t kSmemBytes = 48 * 1024;  // without an opt-in
 
 // Built with -DMDD_CTC_LOSS_STAMPS, thread MDD_STAMP_THREAD (0 unless
-// given) of ctc_beta_grad's block 0 sums clock64() differences per phase
-// in registers and adds them to g_stamps when it leaves (python -m
-// mdd_tpu_torch.ops.frame_stamps reads them).
+// given) of block 0 of each kernel sums clock64() differences per phase
+// in registers and adds them to its kernel's counters when it leaves:
+// g_stamps for ctc_beta_grad, g_alpha_stamps for ctc_alpha (python -m
+// mdd_tpu_torch.ops.frame_stamps --kernel beta_grad|alpha reads them).
 #ifdef MDD_CTC_LOSS_STAMPS
 __device__ long long g_stamps[8];
+__device__ long long g_alpha_stamps[8];
 #ifndef MDD_STAMP_THREAD
 #define MDD_STAMP_THREAD 0
 #endif
@@ -101,15 +132,15 @@ __device__ long long g_stamps[8];
     stamp_sum[p] += now - stamp_last;                   \
     stamp_last = now;                                   \
   } while (0)
-#define STAMP_END                                       \
+#define STAMP_END(counters)                             \
   do {                                                  \
     if (stamping)                                       \
-      for (int p = 0; p < 8; ++p) g_stamps[p] += stamp_sum[p]; \
+      for (int p = 0; p < 8; ++p) counters[p] += stamp_sum[p]; \
   } while (0)
 #else
 #define STAMP_START
 #define STAMP(p)
-#define STAMP_END
+#define STAMP_END(counters)
 #endif
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
@@ -150,69 +181,169 @@ __device__ __forceinline__ long long ext_at(const long long* labels,
   return (s & 1) ? labels[b * lab_sb + (s >> 1) * lab_sl] : blank;
 }
 
-__global__ void ctc_alpha_kernel(
+// mask ? a : b, for a mask of all ones or all zeros: a bitwise select,
+// which takes no predicate register (the loop keeps its predicates for the
+// logf calls, whose scratch predicates then do not serialise them)
+__device__ __forceinline__ float pick(unsigned mask, float a, float b) {
+  return __int_as_float((__float_as_int(a) & mask) |
+                        (__float_as_int(b) & ~mask));
+}
+
+__device__ __forceinline__ unsigned mask_of(bool x) { return x ? ~0u : 0u; }
+
+// P slots a lane (s = lane * P + p), the lanes past slot S - 1 gone; the
+// frames' emissions K ahead (fewer registers for the larger P)
+template <int P>
+__global__ void __launch_bounds__(kAlphaWarps * 32)
+ctc_alpha_kernel(
     const float* __restrict__ lp, long long lp_st, long long lp_sb,
     const long long* __restrict__ input_lengths,
     const long long* __restrict__ labels, long long lab_sb, long long lab_sl,
     const long long* __restrict__ label_lengths, int T, int B, int C, int L,
     long long blank, float* __restrict__ alphas, float* __restrict__ nll) {
-  extern __shared__ float buf[];        // 2 S floats: alpha, double-buffered
+  constexpr int K = P <= 4 ? kAlphaAhead : 1;
   const int S = 2 * L + 1;
-  const int b = blockIdx.x;
-  const int s = threadIdx.x;
-  const bool in_s = s < S;
-  float* const buf0 = buf;
-  float* const buf1 = buf + S;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kAlphaWarps + (threadIdx.x >> 5);
+  const int s0 = lane * P;
+  if (b >= B || s0 >= S) return;   // whole warps, and the idle lanes
+  const int held = (S + P - 1) / P;        // the lanes that hold slots
+  const unsigned lanes = held >= 32 ? 0xffffffffu : (1u << held) - 1u;
   const long long len = clamp_len(input_lengths[b], T);
   const long long ll = clamp_len(label_lengths[b], L);
-
-  long long ext = blank;
-  bool can_skip = false;
-  if (in_s) {
-    ext = ext_at(labels, lab_sb, lab_sl, b, s, blank);
-    const long long ext_m2 = s >= 2 ? ext_at(labels, lab_sb, lab_sl, b, s - 2,
-                                             blank)
-                                    : blank;
-    can_skip = ext != blank && ext != ext_m2 && s >= 2;
-  }
-  const bool valid = s < 2 * ll + 1;
   const float* lp_b = lp + b * lp_sb;
   float* out = alphas + static_cast<size_t>(b) * S;
   const size_t out_st = static_cast<size_t>(B) * S;
 
-  if (in_s) {
-    float a = kLogEps;
-    if (s == 0 || (s == 1 && ll > 0)) a = emission(lp_b, ext, C);
-    buf0[s] = a;
-    out[s] = a;
+  // per slot: its class (0 for an id that emits 0, with emit_m clear),
+  // masks for the skip, the valid slots and the emission; where frames
+  // store it (a slot past S - 1 of the last lane stores to S - 1 first,
+  // and the slot that owns it overwrites that later in program order)
+  int cls[P], dst[P];
+  unsigned skip_m[P], valid_m[P], emit_m[P];
+  float a[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int s = s0 + p;
+    const bool in_s = s < S;
+    const long long ext = in_s ? ext_at(labels, lab_sb, lab_sl, b, s, blank)
+                               : blank;
+    const long long ext_m2 =
+        (in_s && s >= 2) ? ext_at(labels, lab_sb, lab_sl, b, s - 2, blank)
+                         : blank;
+    skip_m[p] = mask_of(in_s && ext != blank && ext != ext_m2 && s >= 2);
+    valid_m[p] = mask_of(s < 2 * ll + 1);
+    emit_m[p] = mask_of(in_s && ext >= 0 && ext < C);
+    cls[p] = emit_m[p] ? static_cast<int>(ext) : 0;
+    dst[p] = in_s ? s : S - 1;
+    a[p] = kLogEps;
+    if (s == 0 || (s == 1 && ll > 0))
+      a[p] = pick(emit_m[p], lp_b[cls[p]], 0.f);
   }
-  float e_next = (in_s && len > 1) ? emission(lp_b + lp_st, ext, C) : 0.f;
-  __syncthreads();
-  for (long long t = 1; t < len; ++t) {
-    const float* cur = (t & 1) ? buf0 : buf1;   // frame t - 1
-    float* nxt = (t & 1) ? buf1 : buf0;
-    const float e = e_next;
-    if (in_s && t + 1 < len) e_next = emission(lp_b + (t + 1) * lp_st, ext, C);
-    if (in_s) {
-      const float x0 = cur[s];
-      const float x1 = s >= 1 ? cur[s - 1] : kLogEps;
-      const float x2 = can_skip ? cur[s - 2] : kLogEps;
-      const float v = valid ? lse3(x0, x1, x2) + e : kLogEps;
-      nxt[s] = v;
-      out[t * out_st + s] = v;
+#pragma unroll
+  for (int p = P - 1; p >= 0; --p) out[dst[p]] = a[p];
+  const unsigned below_m = mask_of(lane >= 1);   // slot s0 - 1 exists
+  float ring[K][P];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const float* lp_t = lp_b + (1 + u < T ? 1 + u : T - 1) * lp_st;
+#pragma unroll
+    for (int p = 0; p < P; ++p) ring[u][p] = lp_t[cls[p]];
+  }
+  STAMP_START;
+  for (long long t0 = 1; t0 < len; t0 += K) {
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const long long t = t0 + u;
+      if (t >= len) break;             // uniform over the warp
+      // slots s0 - 1 and s0 - 2: the lane below's last two (two lanes
+      // below at P = 1)
+      const float up1 = __shfl_up_sync(lanes, a[P - 1], 1);
+      const float up2 = P >= 2
+                            ? __shfl_up_sync(lanes, a[P >= 2 ? P - 2 : 0], 1)
+                            : __shfl_up_sync(lanes, a[0], 2);
+      STAMP(1);
+      // the P slots' lse3 side by side, stage by stage (each slot's float
+      // steps are lse3's), so that their chains interleave
+      float x0[P], x1[P], x2[P], m[P], v[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        x0[p] = a[p];
+        x1[p] = p >= 1 ? a[p >= 1 ? p - 1 : 0] : pick(below_m, up1, kLogEps);
+        x2[p] = pick(skip_m[p], p >= 2 ? a[p >= 2 ? p - 2 : 0]
+                                : p == 1 ? up1 : up2, kLogEps);
+        m[p] = fmaxf(fmaxf(x0[p], x1[p]), x2[p]);
+      }
+#ifdef MDD_CTC_LOSS_SKELETON
+#pragma unroll
+      for (int p = 0; p < P; ++p) v[p] = x1[p];
+#else
+      float ea[P], eb[P], ec[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) ea[p] = expf(x0[p] - m[p]);
+#pragma unroll
+      for (int p = 0; p < P; ++p) eb[p] = expf(x1[p] - m[p]);
+#pragma unroll
+      for (int p = 0; p < P; ++p) ec[p] = expf(x2[p] - m[p]);
+#pragma unroll
+      for (int p = 0; p < P; ++p) v[p] = logf((ea[p] + eb[p]) + ec[p]);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float out_v = m[p] + v[p];
+        const float l = m[p] <= kFloorCut ? kLogEps : out_v;
+        v[p] = pick(valid_m[p], l + pick(emit_m[p], ring[u][p], 0.f),
+                    kLogEps);
+      }
+#endif
+      STAMP(2);
+#pragma unroll
+      for (int p = P - 1; p >= 0; --p) {
+        a[p] = v[p];
+        out[t * out_st + dst[p]] = v[p];
+      }
+      STAMP(3);
+      // frame t + K's emissions into the registers frame t's just left
+      // (a load before their last use would need a copy at the loop's
+      // end, which waits for it); past the row's frames a frame in bounds
+      // is read and not used
+      const float* lp_t = lp_b + (t + K < T ? t + K : T - 1) * lp_st;
+#pragma unroll
+      for (int p = 0; p < P; ++p) ring[u][p] = lp_t[cls[p]];
+      STAMP(0);
     }
-    __syncthreads();
   }
-  if (s == 0) {
-    const float* fin = (len >= 2 && ((len - 1) & 1)) ? buf1 : buf0;
-    const int end = static_cast<int>(2 * ll);
-    const float last = fin[end];
-    const float second = end >= 1 ? fin[end - 1] : kLogEps;
+  // nll from the lanes that hold slots 2l and 2l - 1
+  const int end = static_cast<int>(2 * ll);
+  float last = kLogEps, second = kLogEps;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (s0 + p == end) last = a[p];
+    if (s0 + p == end - 1) second = a[p];
+  }
+  last = __shfl_sync(lanes, last, end / P);
+  second = end >= 1 ? __shfl_sync(lanes, second, (end - 1) / P) : kLogEps;
+  if (lane == 0) {
     const float m = fmaxf(last, second);
     float l = m + logf(expf(last - m) + expf(second - m));
     if (m <= kFloorCut) l = kLogEps;
     nll[b] = -l;
   }
+  STAMP(4);
+  STAMP_END(g_alpha_stamps);
+}
+
+template <int P>
+cudaError_t launch_alpha(const float* lp, long long lp_st, long long lp_sb,
+                         const long long* input_lengths,
+                         const long long* labels, long long lab_sb,
+                         long long lab_sl, const long long* label_lengths,
+                         int T, int B, int C, int L, long long blank,
+                         float* alphas, float* nll, cudaStream_t stream) {
+  const int blocks = (B + kAlphaWarps - 1) / kAlphaWarps;
+  ctc_alpha_kernel<P><<<blocks, kAlphaWarps * 32, 0, stream>>>(
+      lp, lp_st, lp_sb, input_lengths, labels, lab_sb, lab_sl, label_lengths,
+      T, B, C, L, blank, alphas, nll);
+  return cudaGetLastError();
 }
 
 __global__ void ctc_beta_grad_kernel(
@@ -384,7 +515,7 @@ __global__ void ctc_beta_grad_kernel(
     }
   }
   STAMP(2);
-  STAMP_END;
+  STAMP_END(g_stamps);
 }
 
 int threads_for(int n) { return (n + 31) / 32 * 32; }
@@ -413,12 +544,25 @@ int mdd_ctc_alpha(const float* lp, long long lp_st, long long lp_sb,
                   const long long* label_lengths, int T, int B, int C, int L,
                   long long blank, float* alphas, float* nll, void* stream) {
   if (!shapes_ok(T, B, C, L, blank)) return cudaErrorInvalidValue;
-  const int S = 2 * L + 1;
-  ctc_alpha_kernel<<<B, threads_for(S), 2 * S * sizeof(float),
-                     static_cast<cudaStream_t>(stream)>>>(
-      lp, lp_st, lp_sb, input_lengths, labels, lab_sb, lab_sl, label_lengths,
-      T, B, C, L, blank, alphas, nll);
-  return cudaGetLastError();
+  const int per_lane = (2 * L + 1 + 31) / 32;   // ceil(S / 32) <= 32
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MDD_ALPHA_LAUNCH(P)                                                \
+  if (per_lane <= P)                                                      \
+  return launch_alpha<P>(lp, lp_st, lp_sb, input_lengths, labels, lab_sb, \
+                         lab_sl, label_lengths, T, B, C, L, blank, alphas, \
+                         nll, s)
+  MDD_ALPHA_LAUNCH(1);
+  MDD_ALPHA_LAUNCH(2);
+  MDD_ALPHA_LAUNCH(3);
+  MDD_ALPHA_LAUNCH(4);
+  MDD_ALPHA_LAUNCH(6);
+  MDD_ALPHA_LAUNCH(8);
+  MDD_ALPHA_LAUNCH(12);
+  MDD_ALPHA_LAUNCH(16);
+  MDD_ALPHA_LAUNCH(24);
+  MDD_ALPHA_LAUNCH(32);
+#undef MDD_ALPHA_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 // The arguments of mdd_ctc_alpha, its alphas and nll, g: (B,) float32, the
@@ -458,15 +602,28 @@ const char* mdd_ctc_loss_stamp_names() {
   return "beta step,barrier,class sums (after the chain),slot lists";
 }
 
-// copies the cycle sums of ctc_beta_grad's block 0 into out[0 .. n) and
+// copies the cycle sums of a kernel's block 0 into out[0 .. n) and
 // zeroes them
-int mdd_ctc_loss_read_stamps(long long* out, int n) {
+static int read_stamps(const void* counters, long long* out, int n) {
   long long host[8] = {};
-  cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, sizeof(host));
+  cudaError_t err = cudaMemcpyFromSymbol(host, counters, sizeof(host));
   if (err != cudaSuccess) return err;
   for (int i = 0; i < n && i < 8; ++i) out[i] = host[i];
   const long long zero[8] = {};
-  return cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero));
+  return cudaMemcpyToSymbol(counters, zero, sizeof(zero));
+}
+
+int mdd_ctc_loss_read_stamps(long long* out, int n) {
+  return read_stamps(g_stamps, out, n);
+}
+
+const char* mdd_ctc_alpha_stamp_names() {
+  return "emission loads (issue),shuffles from the lane below,alpha step,"
+         "alpha stores,nll";
+}
+
+int mdd_ctc_alpha_read_stamps(long long* out, int n) {
+  return read_stamps(g_alpha_stamps, out, n);
 }
 #endif
 

@@ -13,129 +13,310 @@
 //   errors    = sum of dist over the valid rows
 //   tokens    = sum of target_sizes over the valid rows
 //
-// with target_sizes clamped to [0, L] where the distance is read, as
-// mdd_tpu's gather clamps.  Integers only, so the kernel equals the plain
-// version exactly.
+// with target_sizes clamped to [0, L] where the distance is read.  Integers
+// only, so the kernel equals the plain version exactly.
 //
-// Design.  One warp a row (4 rows a block), no block barrier anywhere.
-//   - The collapse walks the row's own frames (< frames, not the padded
-//     width) 32 at a time: a lane loads one id, its left neighbour comes
-//     by a shuffle (the chunk's first lane takes the previous chunk's
-//     last), a ballot gives the kept lanes, and each kept token is handed
-//     to the whole warp by a shuffle in frame order.  No compacted copy
-//     is stored.
-//   - The DP row of L + 1 cells lives in registers, P consecutive cells a
-//     lane (32 P >= L + 1; P = 1, 2, 4, ..., 32).  A token's update is
-//     cand[j] = min(row[j] + 1, row[j-1] + (target[j-1] != x)), whose left
-//     neighbour crosses lanes by one shuffle, then the insertion chain
-//     new[j] = min(cand[j], new[j-1] + 1) = min_{k<=j}(cand[k] - k) + j,
-//     a prefix-min: P - 1 mins in the lane, 5 shuffle steps across lanes.
-//   - Lane 0 writes the row's distance and adds the two counts with 64-bit
-//     integer atomics, exact in any order.
+// Design.  One warp a row, no block barrier anywhere.
+//   - The edit distance runs bit-parallel (Myers 1999, in Hyyro's form for
+//     the global distance; ops/wer_cuda.edit_distance_bits is its plain
+//     Python model).  After j kept tokens the distance column over the
+//     target rows i = 0 .. L is kept as its vertical steps D[i] - D[i-1]:
+//     VP (+1) and VN (-1), row i in bit i - 1.  Column 0 is D[i] = i: VP
+//     all ones, VN zero.  A kept token with match mask Eq (bit i - 1 set
+//     where target i - 1 is the token) costs ~15 word operations:
+//       Xv = Eq | VN;   Xh = (((Eq & VP) + VP) ^ VP) | Eq
+//       Ph = VN | ~(Xh | VP);   Mh = VP & Xh
+//       Ph = Ph << 1 | 1;   Mh = Mh << 1       (row 0 gains one a token)
+//       VP = Mh | ~(Xv | Ph);   VN = Ph & Xv
+//     The add's carry does the insertion chain that a prefix-min over the
+//     row did.  The distance at row `at` is pred_len + popc(VP & low(at))
+//     - popc(VN & low(at)).  Rows past `at` never reach it: carries and
+//     shifts only move up.
+//   - L <= 64: one 64-bit word, which every lane of the warp carries alike,
+//     so the token chain has no cross-lane step.  64 < L <= 1023: a word
+//     a lane (W = ceil(L / 64) <= 16 lanes); the add's carry crosses the
+//     words as a warp carry-lookahead (carry into word k = bit k of
+//     (G + (G | P)) ^ (P & ~G), G and P the ballots of the words' carry-out
+//     and all-ones sums) and the shifts' top bits by one shuffle.
+//   - The match masks are taken off the chain.  Each warp builds, once a
+//     row, a table in shared memory of the mask of every id in [0, 128)
+//     (shared atomics over the targets); an id outside it scans the
+//     targets itself.  The collapse walks the row's own frames in segments
+//     of four chunks of 32 frames: a lane loads an id of each chunk (the
+//     four loads in flight at once, the next segment's while this one's
+//     chain runs), its left neighbour comes by a shuffle, a ballot gives
+//     the kept lanes, and each kept lane copies its token's mask into the
+//     warp's stage at its rank among the segment's kept tokens.  The chain
+//     then reads the stage in order, unrolled by four (the reads ahead of
+//     the steps).
+//   - One launch a call: the last warp to finish (a ticket counter in the
+//     library's device memory, which that warp resets) sums the valid rows'
+//     distances and target sizes and writes the counts; the caller zeroes
+//     nothing.  So launches of this kernel on one device must not overlap:
+//     the port makes them from the train step's stream, one at a time.
 //
 // What bounds it on an H100: neither bytes nor operations.  At the train
-// cell (B=64, T' <= 110, L <= 40) it reads ~80 KB and does ~10^6 integer
-// operations, well under a microsecond either way; the time is the chain
-// of dependent DP steps a row (one a kept token, ~50 at T'=110), each a
-// few shuffles deep, and the launch.  One warp a row keeps every step
-// inside a warp (no __syncthreads) and the row in registers.
+// cell (B=64, T' <= 110, L <= 40) it reads ~80 KB and does ~10^5 integer
+// operations, well under a microsecond either way; the time is a row's
+// loads, its chain of dependent token steps (one a kept token, ~50 at
+// T'=110), the ticket's two round trips and the launch.  The kernel it
+// replaced kept the DP row of L + 1 cells in registers and spent 384
+// cycles a kept token, 221 of them in eight dependent shuffles (the
+// broadcast, the left neighbour, five prefix-min steps, the cell before),
+// and took a caller-zeroed counts buffer (a fill launch): 0.0140 ms at
+// B=64, T'=110, L=40 by CUDA-graph replays.  This one: 144 cycles a
+// kept token, 53 of them the chain, 0.0065 ms in turns with it (python -m
+// mdd_tpu_torch.ops.frame_stamps --kernel wer; H100 80GB HBM3, 700.00 W),
+// within 0.0011 ms of its chain floor (-DMDD_WER_SKELETON).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+typedef unsigned long long u64;
+
+constexpr int kWordWarps = 4;     // rows a block while L <= 64
+constexpr int kWordsWarps = 1;    // rows a block past it (W tables a warp)
+constexpr int kTable = 128;       // ids [0, kTable) have a table entry
+constexpr int kSegChunks = 4;     // chunks of 32 frames a segment
+constexpr int kStage = 32 * kSegChunks;   // a segment's kept tokens, at most
+constexpr int kMaxTarget = 1023;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int P>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__device__ unsigned int g_ticket;   // rows finished in the current launch
+
+// Built with -DMDD_WER_STAMPS, thread MDD_STAMP_THREAD (0 unless given)
+// of block 0 (a lane of row 0's warp) sums clock64() differences per
+// phase in registers and adds them to g_stamps when it leaves (python -m
+// mdd_tpu_torch.ops.frame_stamps --kernel wer reads them).
+#ifdef MDD_WER_STAMPS
+__device__ long long g_stamps[8];
+#ifndef MDD_STAMP_THREAD
+#define MDD_STAMP_THREAD 0
+#endif
+#define STAMP_START                                       \
+  const bool stamping =                                   \
+      blockIdx.x == 0 && threadIdx.x == MDD_STAMP_THREAD; \
+  long long stamp_sum[8] = {};                            \
+  long long stamp_last = clock64()
+#define STAMP(p)                                          \
+  do {                                                    \
+    const long long now = clock64();                      \
+    stamp_sum[p] += now - stamp_last;                     \
+    stamp_last = now;                                     \
+  } while (0)
+#define STAMP_END                                                 \
+  do {                                                            \
+    if (stamping)                                                 \
+      for (int p = 0; p < 8; ++p) g_stamps[p] += stamp_sum[p];    \
+  } while (0)
+#else
+#define STAMP_START
+#define STAMP(p)
+#define STAMP_END
+#endif
+
+// one kept token on one 64-bit word (every lane alike)
+__device__ __forceinline__ void word_step(u64& vp, u64& vn, u64 eq) {
+#ifdef MDD_WER_SKELETON
+  vp ^= eq;
+#else
+  const u64 xv = eq | vn;
+  const u64 xh = (((eq & vp) + vp) ^ vp) | eq;
+  u64 ph = vn | ~(xh | vp);
+  u64 mh = vp & xh;
+  ph = (ph << 1) | 1ull;
+  mh <<= 1;
+  vp = mh | ~(xv | ph);
+  vn = ph & xv;
+#endif
+}
+
+// one kept token on W words, word `lane` in this lane (lanes >= W carry
+// words that no lower word reads)
+__device__ __forceinline__ void words_step(u64& vp, u64& vn, u64 eq, int lane,
+                                           unsigned live) {
+#ifdef MDD_WER_SKELETON
+  const unsigned gen = __ballot_sync(kFull, (eq & 1) != 0) & live;
+  vp ^= eq ^ __shfl_up_sync(kFull, gen, 1);
+#else
+  const u64 x = eq & vp;
+  u64 add = x + vp;
+  const unsigned gen = __ballot_sync(kFull, add < x) & live;
+  const unsigned prop = __ballot_sync(kFull, add == ~0ull) & live;
+  const unsigned carry = (gen + (gen | prop)) ^ (prop & ~gen);
+  add += (carry >> lane) & 1u;
+  const u64 xv = eq | vn;
+  const u64 xh = (add ^ vp) | eq;
+  u64 ph = vn | ~(xh | vp);
+  u64 mh = vp & xh;
+  const unsigned top = static_cast<unsigned>(ph >> 63) |
+                       (static_cast<unsigned>(mh >> 63) << 1);
+  const unsigned below = __shfl_up_sync(kFull, top, 1);
+  ph = (ph << 1) | (lane == 0 ? 1ull : static_cast<u64>(below & 1u));
+  mh = (mh << 1) | (lane == 0 ? 0ull : static_cast<u64>(below >> 1));
+  vp = mh | ~(xv | ph);
+  vn = ph & xv;
+#endif
+}
+
+template <bool kWords>
+__global__ void __launch_bounds__((kWords ? kWordsWarps : kWordWarps) * 32)
 greedy_wer_kernel(const long long* __restrict__ ids, long long ids_sb,
                   long long ids_st, const long long* __restrict__ frames,
                   const long long* __restrict__ targets, long long tg_sb,
                   long long tg_st, const long long* __restrict__ target_sizes,
                   const bool* __restrict__ valid, int B, int T, int L,
                   long long blank, long long* __restrict__ dist,
-                  unsigned long long* __restrict__ counts) {
+                  long long* __restrict__ counts) {
+  // a warp's table (kTable ids x W words) and stage (kStage tokens x W
+  // words)
+  extern __shared__ u64 smem[];
+  constexpr int kWarps = kWords ? kWordsWarps : kWordWarps;
+  const int W = kWords ? (L + 63) / 64 : 1;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kWarps + warp;
   if (row >= B) return;  // the whole warp leaves together
-
-  // cells j = lane * P + p: row[j] and the target a cell compares with
-  int cell[P];
-  long long tgt[P];
+  u64* const table = smem + warp * (kTable + kStage) * W;
+  u64* const stage = table + kTable * W;
+  const long long* const tg = targets + row * tg_sb;
+  const long long* const id_row = ids + row * ids_sb;
+  // every load that does not wait for another goes out first: the first
+  // segment's ids (in bounds up to T), the frames and the target size
+  long long id_next[kSegChunks];
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const int j = lane * P + p;
-    cell[p] = j;
-    tgt[p] = (j >= 1 && j <= L) ? targets[row * tg_sb + (j - 1) * tg_st] : 0;
+  for (int c = 0; c < kSegChunks; ++c) {
+    const int t = 32 * c + lane;
+    id_next[c] = t < T ? id_row[t * ids_st] : blank;
   }
-
   long long n = frames[row];
+  const long long ts = target_sizes[row];
   n = n < 0 ? 0 : (n > T ? T : n);
-  const long long* id_row = ids + row * ids_sb;
+
+  STAMP_START;
+  for (int i = lane; i < kTable * W; i += 32) table[i] = 0;
+  __syncwarp();
+  for (int j = lane; j < L; j += 32) {
+    const long long y = tg[j * tg_st];
+    if (y >= 0 && y < kTable)
+      atomicOr(&table[y * W + (j >> 6)], 1ull << (j & 63));
+  }
+  __syncwarp();
+  STAMP(3);
+
+  const unsigned live = W >= 32 ? kFull : (1u << W) - 1u;
+  u64 vp = ~0ull, vn = 0;
+  long long pred_len = 0;
   long long prev_last = -1;  // the id of the frame before the chunk
-  for (long long t0 = 0; t0 < n; t0 += 32) {
-    const long long t = t0 + lane;
-    const long long id = t < n ? id_row[t * ids_st] : blank;
-    long long prev = __shfl_up_sync(kFull, id, 1);
-    if (lane == 0) prev = prev_last;
-    unsigned kept = __ballot_sync(kFull, t < n && id != blank && id != prev);
-    prev_last = __shfl_sync(kFull, id, 31);
-    while (kept) {
-      const int src = __ffs(kept) - 1;
-      kept &= kept - 1;
-      const long long x = __shfl_sync(kFull, id, src);
-      // cand[j] - j, then its prefix-min in the lane
-      const int left = __shfl_up_sync(kFull, cell[P - 1], 1);
-      int v[P];
+  for (long long seg = 0; seg < n; seg += kStage) {
+    long long id_seg[kSegChunks];
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const int j = lane * P + p;
-        const int diag = (p == 0 ? left : cell[p - 1]) + (tgt[p] != x);
-        v[p] = (j == 0 ? cell[p] + 1 : min(cell[p] + 1, diag)) - j;
+    for (int c = 0; c < kSegChunks; ++c) id_seg[c] = id_next[c];
+    int count = 0;
+#pragma unroll
+    for (int c = 0; c < kSegChunks; ++c) {
+      const long long t0 = seg + 32 * c;
+      if (t0 >= n) break;  // uniform over the warp
+      const long long t = t0 + lane;
+      const long long id = id_seg[c];
+      long long prev = __shfl_up_sync(kFull, id, 1);
+      if (lane == 0) prev = prev_last;
+      const bool keep = t < n && id != blank && id != prev;
+      const unsigned kept = __ballot_sync(kFull, keep);
+      prev_last = __shfl_sync(kFull, id, 31);
+      if (keep) {
+        u64* const out =
+            stage + (count + __popc(kept & ((1u << lane) - 1u))) * W;
+        if (id >= 0 && id < kTable) {
+          for (int w = 0; w < W; ++w) out[w] = table[id * W + w];
+        } else {  // no table entry: scan the targets
+          for (int w = 0; w < W; ++w) out[w] = 0;
+          for (int j = 0; j < L; ++j)
+            if (tg[j * tg_st] == id) out[j >> 6] |= 1ull << (j & 63);
+        }
       }
-#pragma unroll
-      for (int p = 1; p < P; ++p) v[p] = min(v[p - 1], v[p]);
-      // the prefix-min over the lanes before this one
-      int scan = v[P - 1];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_up_sync(kFull, scan, d);
-        if (lane >= d) scan = min(scan, o);
-      }
-      int before = __shfl_up_sync(kFull, scan, 1);
-      if (lane == 0) before = 0x3fffffff;
-#pragma unroll
-      for (int p = 0; p < P; ++p) cell[p] = min(before, v[p]) + lane * P + p;
+      count += __popc(kept);
     }
+    __syncwarp();
+    pred_len += count;
+    // the next segment's ids, in flight while this segment's chain runs
+    if (seg + kStage < n) {
+#pragma unroll
+      for (int c = 0; c < kSegChunks; ++c) {
+        const long long t = seg + kStage + 32 * c + lane;
+        id_next[c] = t < T ? id_row[t * ids_st] : blank;
+      }
+    }
+    STAMP(0);
+    if (kWords) {
+#pragma unroll 2
+      for (int k = 0; k < count; ++k)
+        words_step(vp, vn, lane < W ? stage[k * W + lane] : 0ull, lane, live);
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < count; ++k) word_step(vp, vn, stage[k]);
+    }
+    STAMP(1);
+    __syncwarp();  // the stage is read before the next segment writes it
   }
 
-  const long long ts = target_sizes[row];
   const int at = static_cast<int>(ts < 0 ? 0 : (ts > L ? L : ts));
-  int mine = 0;
-#pragma unroll
-  for (int p = 0; p < P; ++p)
-    if (at == lane * P + p) mine = cell[p];
-  const int d = __shfl_sync(kFull, mine, at / P);
+  int part;
+  if (kWords) {
+    const int k = at - 64 * lane;
+    const u64 low = k <= 0 ? 0ull : (k >= 64 ? ~0ull : (1ull << k) - 1ull);
+    part = lane < W ? __popcll(vp & low) - __popcll(vn & low) : 0;
+    part = __reduce_add_sync(kFull, part);
+  } else {
+    const u64 low = at >= 64 ? ~0ull : (1ull << at) - 1ull;
+    part = __popcll(vp & low) - __popcll(vn & low);
+  }
+  // the last warp to finish writes the counts
+  unsigned last = 0;
   if (lane == 0) {
-    dist[row] = d;
-    if (valid[row]) {
-      atomicAdd(counts, static_cast<unsigned long long>(d));
-      atomicAdd(counts + 1, static_cast<unsigned long long>(ts));
+    dist[row] = pred_len + part;
+    __threadfence();
+    last = atomicAdd(&g_ticket, 1u) == static_cast<unsigned>(B - 1);
+  }
+  if (__shfl_sync(kFull, last, 0)) {
+    __threadfence();
+    long long errors = 0, tokens = 0;
+    for (int r = lane; r < B; r += 32) {
+      if (valid[r]) {
+        errors += __ldcg(dist + r);
+        tokens += target_sizes[r];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      errors += __shfl_xor_sync(kFull, errors, o);
+      tokens += __shfl_xor_sync(kFull, tokens, o);
+    }
+    if (lane == 0) {
+      counts[0] = errors;
+      counts[1] = tokens;
+      g_ticket = 0;
     }
   }
+  STAMP(2);
+  STAMP_END;
 }
 
-template <int P>
+template <bool kWords>
 cudaError_t launch(const long long* ids, long long ids_sb, long long ids_st,
                    const long long* frames, const long long* targets,
                    long long tg_sb, long long tg_st,
                    const long long* target_sizes, const bool* valid, int B,
                    int T, int L, long long blank, long long* dist,
-                   unsigned long long* counts, cudaStream_t stream) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  greedy_wer_kernel<P><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+                   long long* counts, cudaStream_t stream) {
+  const int warps = kWords ? kWordsWarps : kWordWarps;
+  const int words = kWords ? (L + 63) / 64 : 1;
+  const int blocks = (B + warps - 1) / warps;
+  const size_t smem = static_cast<size_t>(warps) * (kTable + kStage) *
+                      words * sizeof(u64);
+  greedy_wer_kernel<kWords><<<blocks, warps * 32, smem, stream>>>(
       ids, ids_sb, ids_st, frames, targets, tg_sb, tg_st, target_sizes, valid,
       B, T, L, blank, dist, counts);
   return cudaGetLastError();
@@ -147,8 +328,8 @@ extern "C" {
 
 // ids: (B, T) int64 with element strides (ids_sb, ids_st); frames,
 // target_sizes: (B,) int64; targets: (B, L) int64 with strides (tg_sb,
-// tg_st); valid: (B,) bool.  dist: (B,) int64 out; counts: 2 int64 that
-// the caller zeroed, += (errors, tokens).  1 <= B, 0 <= T, 0 <= L <= 1023.
+// tg_st); valid: (B,) bool.  dist: (B,) int64 out; counts: 2 int64 out,
+// (errors, tokens), written by the kernel.  1 <= B, 0 <= T, 0 <= L <= 1023.
 // Returns a cudaError_t (0 = success).
 int mdd_greedy_wer(const long long* ids, long long ids_sb, long long ids_st,
                    const long long* frames, const long long* targets,
@@ -156,21 +337,32 @@ int mdd_greedy_wer(const long long* ids, long long ids_sb, long long ids_st,
                    const long long* target_sizes, const bool* valid, int B,
                    int T, int L, long long blank, long long* dist,
                    long long* counts, void* stream) {
-  if (B < 1 || T < 0 || L < 0 || L > 1023) return cudaErrorInvalidValue;
+  if (B < 1 || T < 0 || L < 0 || L > kMaxTarget) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned long long* c = reinterpret_cast<unsigned long long*>(counts);
-  const int cells = L + 1;
-#define MDD_WER_LAUNCH(P)                                                   \
-  return launch<P>(ids, ids_sb, ids_st, frames, targets, tg_sb, tg_st,      \
-                   target_sizes, valid, B, T, L, blank, dist, c, s)
-  if (cells <= 32) MDD_WER_LAUNCH(1);
-  if (cells <= 64) MDD_WER_LAUNCH(2);
-  if (cells <= 128) MDD_WER_LAUNCH(4);
-  if (cells <= 256) MDD_WER_LAUNCH(8);
-  if (cells <= 512) MDD_WER_LAUNCH(16);
-  MDD_WER_LAUNCH(32);
-#undef MDD_WER_LAUNCH
+  if (L <= 64)
+    return launch<false>(ids, ids_sb, ids_st, frames, targets, tg_sb, tg_st,
+                         target_sizes, valid, B, T, L, blank, dist, counts, s);
+  return launch<true>(ids, ids_sb, ids_st, frames, targets, tg_sb, tg_st,
+                      target_sizes, valid, B, T, L, blank, dist, counts, s);
 }
+
+#ifdef MDD_WER_STAMPS
+const char* mdd_wer_stamp_names() {
+  return "collapse and match masks,token chain,distance and counts,"
+         "match table (once a row)";
+}
+
+// copies the cycle sums of block 0's stamping thread into out[0 .. n) and
+// zeroes them
+int mdd_wer_read_stamps(long long* out, int n) {
+  long long host[8] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, sizeof(host));
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n && i < 8; ++i) out[i] = host[i];
+  const long long zero[8] = {};
+  return cudaMemcpyToSymbol(g_stamps, zero, sizeof(zero));
+}
+#endif
 
 const char* mdd_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

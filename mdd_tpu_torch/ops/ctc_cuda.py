@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from mdd_tpu_torch.ops.build import KernelBinding
 
 LOG_EPS = -1e30
-#: the kernels' limits: a thread a slot (S = 2L + 1) and one a class
+#: the kernels' limits: S = 2L + 1 extended slots (ctc_beta_grad's block
+#: holds a thread a slot, ctc_alpha's warp at most 32 a lane) and C classes
 MAX_SLOTS = 1023
 MAX_CLASSES = 1024
 MAX_FRAME_CLASSES = 2 ** 31 - 1
@@ -200,7 +201,7 @@ def _check(log_probs, input_lengths, labels, label_lengths, blank) -> None:
                              f"memory; pass {name}.contiguous()")
     if 2 * labels.shape[1] + 1 > MAX_SLOTS:
         raise ValueError(f"the CTC kernels take at most {MAX_SLOTS} extended "
-                         f"slots (a thread each): labels of at most "
+                         f"slots: labels of at most "
                          f"{(MAX_SLOTS - 1) // 2} columns, got "
                          f"{labels.shape[1]}")
     if c > MAX_CLASSES:

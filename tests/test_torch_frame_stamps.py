@@ -1,16 +1,18 @@
-"""The frame-stamp tool of the beam and CTC gradient kernels
+"""The frame-stamp tool of the beam, CTC and WER kernels
 (mdd_tpu_torch/ops/frame_stamps.py) where no card is needed: its shapes,
 the bindings it makes (stamped, skeleton and another tree's kernel, each
 its own library), the stamp and skeleton builds that its flags select in
-the sources, and its refusal without a card.  Its timings need the card
-(`python -m mdd_tpu_torch.ops.frame_stamps`, and chip_smoke.py)."""
+the sources, and its refusal without a card; and the WER wrapper's one
+launch a call (no zeroed counts).  Its timings need the card (`python -m
+mdd_tpu_torch.ops.frame_stamps`, and chip_smoke.py)."""
 
 import sys
 
 import pytest
 import torch
 
-from mdd_tpu_torch.ops import beam_cuda, build, ctc_cuda, frame_stamps
+from mdd_tpu_torch.ops import (beam_cuda, build, ctc_cuda, frame_stamps,
+                               wer_cuda)
 
 # the entry point of a gradient kernel that takes no weights scratch (the
 # one that summed the classes on its frame chain)
@@ -72,7 +74,8 @@ def test_the_kernels_argument_lists_match_their_entry_points():
     for source, kernel, entry in (
             ("ctc_loss.cu", ctc_cuda.CtcBetaGradKernel, "mdd_ctc_beta_grad"),
             ("ctc_loss.cu", ctc_cuda.CtcAlphaKernel, "mdd_ctc_alpha"),
-            ("ctc_beam.cu", beam_cuda.CtcBeamKernel, "mdd_ctc_beam")):
+            ("ctc_beam.cu", beam_cuda.CtcBeamKernel, "mdd_ctc_beam"),
+            ("wer.cu", wer_cuda.GreedyWerKernel, "mdd_greedy_wer")):
         text = (build.CSRC / source).read_text()
         assert len(kernel.argtypes) + 1 == _params(text, entry)
 
@@ -101,3 +104,42 @@ def test_the_tool_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["frame_stamps", "--kernel", "beam"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         frame_stamps.main()
+
+
+def test_another_trees_wer_kernel_gets_its_counts_zeroed(tmp_path):
+    """A WER source that adds its counts into a caller-zeroed buffer is
+    bound with a wrapper that zeroes them; this tree's kernel writes its
+    counts itself."""
+    old = tmp_path / "wer.cu"
+    old.write_text("atomicAdd(counts, d);\n")
+    kernel = frame_stamps.binding("wer", str(old))
+    assert type(kernel) is frame_stamps._ParentWer
+    assert kernel.source == str(old.resolve())
+    here = frame_stamps.binding("wer", str(build.CSRC / "wer.cu"))
+    assert type(here) is wer_cuda.GreedyWerKernel
+    assert "atomicAdd(counts" not in (build.CSRC / "wer.cu").read_text()
+
+
+def test_the_wer_wrapper_launches_once_and_zeroes_nothing(monkeypatch):
+    """`GreedyWerKernel.__call__` allocates its distances and counts
+    uninitialised and makes one launch: no torch.zeros (a fill kernel of
+    its own on the card) before it."""
+    def no_zeros(*_, **__):
+        raise AssertionError("the WER wrapper zeroed a buffer")
+
+    launches = []
+    kernel = wer_cuda.GreedyWerKernel()
+    monkeypatch.setattr(wer_cuda, "_check", lambda *_: None)
+    monkeypatch.setattr(torch, "zeros", no_zeros)
+    monkeypatch.setattr(kernel, "_launch",
+                        lambda device, *args: launches.append(args))
+    b, t, l = 3, 5, 4
+    dist, counts = kernel(torch.ones((b, t), dtype=torch.int64),
+                          torch.full((b,), t, dtype=torch.int64),
+                          torch.ones((b, l), dtype=torch.int64),
+                          torch.full((b,), l, dtype=torch.int64),
+                          torch.ones(b, dtype=torch.bool))
+    assert len(launches) == 1
+    assert dist.shape == (b,) and counts.shape == (2,)
+    assert launches[0][-2:] == (dist.data_ptr(), counts.data_ptr())
+    assert len(launches[0]) == len(wer_cuda.GreedyWerKernel.argtypes)
