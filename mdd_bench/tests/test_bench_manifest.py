@@ -1,0 +1,106 @@
+"""BENCHMARK.json against the contract's shape, and every file it names
+found by name; a configuration, a mix or a metric dropped in is taken up
+with no edit of a file that is there."""
+
+import json
+import re
+import shutil
+
+import pytest
+
+from mdd_bench import harness, manifest, trace
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+@pytest.fixture()
+def bench():
+    return manifest.load()
+
+
+def test_keys_and_names(bench):
+    assert set(bench) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert 1 <= bench["run_seconds"] <= 51
+    for c in bench["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and len(c["source"]) <= 200
+        assert c["file"] == f"mdd_bench/configs/{c['name']}.json"
+    for w in bench["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["name"] == f"{w['config']}.{w['traffic']}"
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    metrics = bench["end_to_end"] + bench["per_layer"]
+    assert len({m["name"] for m in metrics}) == len(metrics)
+    for m in metrics:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    assert {m["name"] for m in bench["end_to_end"]} >= {
+        "setup_s", "train_audio_s_per_s", "train_step_p95_ms"}
+    for m in bench["end_to_end"]:
+        assert 0.01 <= m["bound"] <= 0.25
+    for m in bench["per_layer"]:
+        assert m["moves"] in {e["name"] for e in bench["end_to_end"]}
+        assert m["layer"] and "\n" not in m["layer"]
+        if m["name"].endswith("_roofline"):
+            assert m["unit"] == "%"
+
+
+def test_every_cell_finds_its_files_by_name(bench):
+    used = set()
+    for w in bench["workloads"]:
+        cfg = manifest.config(w["config"])
+        assert cfg["name"] == w["config"]
+        assert manifest.traffic(w["traffic"])["batch_size"] > 0
+        assert set(manifest.limits(w["name"])) == {
+            "batch_mismatch", "wer_count_gap", "logprob_gap", "loss_gap",
+            "grad_gap", "update_gap"}
+        used.add(w["config"])
+        reported = manifest.per_layer_for(bench, w["name"])
+        assert reported, w["name"]
+        for m in reported:
+            assert callable(trace.load_reader(m["name"]))
+    assert used == {c["name"] for c in bench["configs"]}
+
+
+def test_a_dropped_in_file_is_found_with_no_edit(bench, tmp_path,
+                                                 monkeypatch):
+    here = tmp_path / "mdd_bench"
+    shutil.copytree(manifest.HERE, here,
+                    ignore=shutil.ignore_patterns("__pycache__", "_cache"))
+    cfg = json.loads((here / "configs" / "attention_aug.json").read_text())
+    cfg["name"] = "attention_aug_wide"
+    (here / "configs" / "attention_aug_wide.json").write_text(
+        json.dumps(cfg))
+    mix = json.loads((here / "traffic" / "train_b256.json").read_text())
+    mix["batch_size"] = 128
+    (here / "traffic" / "train_b128.json").write_text(json.dumps(mix))
+    (here / "limits" / "attention_aug_wide.train_b128.json").write_text(
+        (here / "limits" / "attention_aug.train_b256.json").read_text())
+    (here / "metrics" / "steps_seen.train.py").write_text(
+        "def read(rec):\n    return float(rec.steps)\n")
+    monkeypatch.setattr(manifest, "HERE", here)
+    cell = "attention_aug_wide.train_b128"
+    bench = dict(bench)
+    bench["configs"] = bench["configs"] + [dict(
+        bench["configs"][0], name="attention_aug_wide",
+        file="mdd_bench/configs/attention_aug_wide.json")]
+    bench["workloads"] = bench["workloads"] + [dict(
+        bench["workloads"][0], name=cell, config="attention_aug_wide",
+        traffic="train_b128")]
+    bench["per_layer"] = bench["per_layer"] + [
+        {"name": "steps_seen.train", "unit": "steps", "better": "higher",
+         "source": "program_counter", "layer": "data",
+         "moves": "train_audio_s_per_s", "workloads": [cell]}]
+    work = manifest.workload(bench, cell)
+    assert manifest.config(work["config"])["name"] == "attention_aug_wide"
+    assert manifest.traffic(work["traffic"])["batch_size"] == 128
+    assert manifest.limits(cell)
+    names = [m["name"] for m in manifest.per_layer_for(bench, cell)]
+    assert names == ["steps_seen.train"]
+    rec = trace.Record(cfg=cfg, stats=[harness.StepStat(
+        512, 4, 100, [50], [20], 0.001)] * 3, window_s=1.0, card="cpu",
+        cards=1, flops=0.0, peak_window_bytes=0, events=[], host=[])
+    got = trace.per_layer(bench, cell, rec)
+    assert got == {"steps_seen.train": {"value": 3.0, "unit": "steps"}}
