@@ -2645,14 +2645,22 @@ PACKAGE_KERNELS = ("lstm_", "dropout_kernel", "greedy_wer_kernel",
                    "scan_chain_kernel", "scan_z_kernel", "scan_dw")
 
 
+def device_ops(prof) -> list:
+    """A profile's device operations, averaged by name: the program's
+    spans (mdd_tpu_torch/utils/trace.py, on while a profiler records)
+    also show on the device's timeline as user annotations, and are no
+    operation of the device's."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
 def report_profile(prof, wall_us: float, tag: str, what: str,
                    card: str) -> int:
     """Device busy share of the wall clock and the top device ops; -> the
     count of device ops."""
-    from torch.autograd import DeviceType
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    events = device_ops(prof)
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -3677,7 +3685,6 @@ def compare_dropout_steps(torch, cfg, vocab, card: str) -> None:
     """Train steps at B=64 from the epoch's `latest`, with fused and with
     plain dropout in turns (plain, fused, fused, plain): each pass's median
     step time, and the device time of 3 profiled steps of each."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mdd_tpu_torch import cli
@@ -3711,8 +3718,7 @@ def compare_dropout_steps(torch, cfg, vocab, card: str) -> None:
             for padded, valid in batches[:3]:
                 acc = tr.train_step(tr.batch_arrays(padded, valid), acc)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+        events = device_ops(prof)
         busy[name] = (sum(e.self_device_time_total for e in events) / 3e3,
                       sum(e.count for e in events) // 3)
         if name == "fused":
@@ -4219,10 +4225,7 @@ def phase_profile_evaluate(torch, conf: str, train: tuple, card: str) -> None:
         decode()
         torch.cuda.synchronize()
         plain_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
-
-    ops = sum(e.count for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA)
+    ops = sum(e.count for e in device_ops(prof))
     ms = min(ways["decode_log"])
     log(f"[timing] device beam, B={BATCH} T'={t_out} K={width} C={n_class}, "
         f"in turns: decode_log on the kernel {ways['decode_log']} ms, the "

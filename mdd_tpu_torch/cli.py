@@ -240,18 +240,21 @@ def build_trainer(cfg, vocab, device: str, **model_overrides):
     mdd_tpu, where it is reached through ModelConfig only)."""
     import dataclasses
 
-    from mdd_tpu_torch.train.loop import Trainer
+    from mdd_tpu_torch.utils import trace
 
-    return Trainer(
-        dataclasses.replace(cfg.model_config(vocab.n_words),
-                            **model_overrides),
-        init_lr=cfg.init_lr, weight_decay=cfg.weight_decay,
-        lr_decay=cfg.lr_decay, end_adjust_acc=cfg.end_adjust_acc,
-        plateau_patience=cfg.plateau_patience,
-        max_adjust_times=cfg.max_adjust_times, seed=cfg.seed,
-        device=device, device_frontend=cfg.device_frontend,
-        left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
-        n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
+    with trace.span("setup.trainer"):
+        from mdd_tpu_torch.train.loop import Trainer
+
+        return Trainer(
+            dataclasses.replace(cfg.model_config(vocab.n_words),
+                                **model_overrides),
+            init_lr=cfg.init_lr, weight_decay=cfg.weight_decay,
+            lr_decay=cfg.lr_decay, end_adjust_acc=cfg.end_adjust_acc,
+            plateau_patience=cfg.plateau_patience,
+            max_adjust_times=cfg.max_adjust_times, seed=cfg.seed,
+            device=device, device_frontend=cfg.device_frontend,
+            left_ctx=cfg.left_ctx, right_ctx=cfg.right_ctx,
+            n_skip_frame=cfg.n_skip_frame, n_downsample=cfg.n_downsample)
 
 
 def cmd_train(args) -> int:
@@ -265,17 +268,19 @@ def cmd_train(args) -> int:
     with _rank(args) as device:
         vocab = Vocab.from_units_file(cfg.vocab_file)
         print(f"Vocabulary size is {vocab.n_words}")
-        trainer = build_trainer(cfg, vocab, device)
-        schedule = True if cfg.global_schedule else None
-        train_loader = _build_loader(cfg, vocab, cfg.train_scp_path,
-                                     cfg.train_lab_path, cfg.train_trans_path,
-                                     train=True, device=device,
-                                     global_schedule=schedule)
-        dev_loader = _build_loader(cfg, vocab, cfg.valid_scp_path,
-                                   cfg.valid_lab_path, cfg.valid_trans_path,
-                                   train=False, device=device,
-                                   global_schedule=schedule)
+        # the profile holds the set-up too: the Trainer's and the
+        # loaders' builds (setup.trainer, setup.device_cache)
         with _profiled(args.profile_dir, device):
+            trainer = build_trainer(cfg, vocab, device)
+            schedule = True if cfg.global_schedule else None
+            train_loader = _build_loader(
+                cfg, vocab, cfg.train_scp_path, cfg.train_lab_path,
+                cfg.train_trans_path, train=True, device=device,
+                global_schedule=schedule)
+            dev_loader = _build_loader(
+                cfg, vocab, cfg.valid_scp_path, cfg.valid_lab_path,
+                cfg.valid_trans_path, train=False, device=device,
+                global_schedule=schedule)
             summary = trainer.fit(train_loader, dev_loader,
                                   num_epochs=cfg.num_epoches,
                                   print_every=cfg.verbose_step,
@@ -292,7 +297,9 @@ def cmd_train(args) -> int:
 def _profiled(profile_dir: Optional[str], device: str):
     """torch.profiler over the block, its trace written to
     `<profile_dir>/trace_rank<r>.json` (mdd_tpu's `--profile-dir`: a device
-    trace of the whole run); nothing without a directory."""
+    trace of the whole run, its set-up included, with the program's spans,
+    utils/trace.py, on while the profiler records); nothing without a
+    directory."""
     if not profile_dir:
         yield
         return

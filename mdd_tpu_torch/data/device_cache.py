@@ -45,6 +45,14 @@ from mdd_tpu_torch.frontend import kaldi_io
 from mdd_tpu_torch.frontend.augment import (mutate_transcript,
                                             sample_spec_augment_params)
 from mdd_tpu_torch.parallel import mesh
+from mdd_tpu_torch.utils import trace
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array `a` put on `device` without waiting, its bytes counted
+    as `h2d_bytes`."""
+    trace.count("h2d_bytes", a.nbytes)
+    return torch.as_tensor(a).to(device, non_blocking=True)
 
 
 @dataclasses.dataclass
@@ -97,39 +105,40 @@ class DeviceFeatureCache:
             raise ValueError(
                 "DeviceFeatureCache needs a device_frontend dataset: the "
                 "cache holds raw features, spliced on the device")
-        self.ds = dataset
-        self.device = torch.device(device)
-        self.process_index = process_index if shard_rows else 0
-        self.process_count = process_count if shard_rows else 1
-        skip = max(dataset.n_skip_frame, 1)
-        self.raw_quantum = _round_up(time_quantum * skip,
-                                     skip * dataset.n_downsample)
-        dtype = resolve_wire_dtype(wire_dtype)
-        feats = kaldi_io.bulk_load([rx for _, rx, _, _ in dataset.items])
-        self.feat_dim = feats[0].shape[1]
-        self.lengths = np.asarray([f.shape[0] for f in feats], np.int32)
-        self.bucket_items: Dict[int, List[int]] = {}
-        self.row_of = np.zeros(len(feats), np.int32)
-        for i, t in enumerate(self.lengths):
-            rows = self.bucket_items.setdefault(
-                _round_up(int(t), self.raw_quantum), [])
-            self.row_of[i] = len(rows)
-            rows.append(i)
-        self.buckets: Dict[int, torch.Tensor] = {}
-        self.bytes = self.bytes_per_device = 0
-        n, r = self.process_count, self.process_index
-        for b, rows in self.bucket_items.items():
-            # pad rows never appear in row_of, so they are never gathered
-            m = -(-len(rows) // n)
-            mine = rows[r * m:(r + 1) * m]
-            # rounded to the wire dtype row by row (bf16: to nearest even,
-            # as the streaming loader's wire), then one upload a bucket
-            arr = torch.zeros((m, b, self.feat_dim), dtype=dtype)
-            for k, i in enumerate(mine):
-                arr[k, :feats[i].shape[0]] = torch.from_numpy(feats[i])
-            self.bytes_per_device += arr.numel() * arr.element_size()
-            self.bytes += n * arr.numel() * arr.element_size()
-            self.buckets[b] = arr.to(self.device)
+        with trace.span("setup.device_cache"):
+            self.ds = dataset
+            self.device = torch.device(device)
+            self.process_index = process_index if shard_rows else 0
+            self.process_count = process_count if shard_rows else 1
+            skip = max(dataset.n_skip_frame, 1)
+            self.raw_quantum = _round_up(time_quantum * skip,
+                                         skip * dataset.n_downsample)
+            dtype = resolve_wire_dtype(wire_dtype)
+            feats = kaldi_io.bulk_load([rx for _, rx, _, _ in dataset.items])
+            self.feat_dim = feats[0].shape[1]
+            self.lengths = np.asarray([f.shape[0] for f in feats], np.int32)
+            self.bucket_items: Dict[int, List[int]] = {}
+            self.row_of = np.zeros(len(feats), np.int32)
+            for i, t in enumerate(self.lengths):
+                rows = self.bucket_items.setdefault(
+                    _round_up(int(t), self.raw_quantum), [])
+                self.row_of[i] = len(rows)
+                rows.append(i)
+            self.buckets: Dict[int, torch.Tensor] = {}
+            self.bytes = self.bytes_per_device = 0
+            n, r = self.process_count, self.process_index
+            for b, rows in self.bucket_items.items():
+                # pad rows never appear in row_of, so they are never gathered
+                m = -(-len(rows) // n)
+                mine = rows[r * m:(r + 1) * m]
+                # rounded to the wire dtype row by row (bf16: to nearest even,
+                # as the streaming loader's wire), then one upload a bucket
+                arr = torch.zeros((m, b, self.feat_dim), dtype=dtype)
+                for k, i in enumerate(mine):
+                    arr[k, :feats[i].shape[0]] = torch.from_numpy(feats[i])
+                self.bytes_per_device += arr.numel() * arr.element_size()
+                self.bytes += n * arr.numel() * arr.element_size()
+                self.buckets[b] = arr.to(self.device)
 
     def __len__(self) -> int:
         return len(self.ds)
@@ -141,7 +150,7 @@ class DeviceFeatureCache:
         Only the index and length vectors cross to the device, and with
         the rows sharded over several processes the batch's payload once
         between the ranks."""
-        put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
+        put = lambda a: to_device(a, self.device)
         shard = self.buckets[batch.bucket]
         if self.process_count == 1:
             inputs = shard.index_select(0, put(batch.idx).long())
@@ -237,7 +246,9 @@ class CachedLoader:
         epoch = self._epoch
         self._epoch += 1
         for b, chunk in self.schedule(epoch):
-            yield self._make_batch(b, chunk, epoch)
+            with trace.span("data.make_batch"):
+                batch = self._make_batch(b, chunk, epoch)
+            yield batch
 
     def _make_batch(self, bucket: int, chunk: Sequence[int],
                     epoch: int) -> CachedBatch:

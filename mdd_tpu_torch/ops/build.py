@@ -28,6 +28,8 @@ from typing import Dict
 
 import torch
 
+from mdd_tpu_torch.utils import trace
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -110,7 +112,8 @@ def finish_host_build(target: str, proc: subprocess.Popen | None) -> Path:
     """Wait for `start_host_build`'s compile; returns the built file."""
     out = host_path(target)
     if proc is not None:
-        log, _ = proc.communicate()
+        with trace.span("kernel.build"):
+            log, _ = proc.communicate()
         if proc.returncode != 0:
             _tmp_path(out).unlink(missing_ok=True)
             raise RuntimeError(f"g++ failed on {target}:\n{log}")
@@ -154,7 +157,8 @@ def finish_build(source: str, proc: subprocess.Popen | None,
     out = library_path(source, extra)
     if proc is None:
         return ""
-    log, _ = proc.communicate()
+    with trace.span("kernel.build"):
+        log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{log}")
     os.replace(_tmp_path(out), out)

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from mdd_tpu_torch.data.dataset import Batch, pad_batch_to
-from mdd_tpu_torch.data.device_cache import CachedBatch
+from mdd_tpu_torch.data.device_cache import CachedBatch, to_device
 from mdd_tpu_torch.frontend.augment import apply_spec_augment_masks
 from mdd_tpu_torch.frontend.splice import batched_splice_skip
 from mdd_tpu_torch.models.ctc_model import CTCAttentionModel, ModelConfig
@@ -60,6 +60,7 @@ from mdd_tpu_torch.train.checkpoint import (checkpoint_format,
                                             load_optimizer_state,
                                             load_snapshots, save_checkpoint)
 from mdd_tpu_torch.train.plateau import PlateauAction, PlateauScheduler
+from mdd_tpu_torch.utils import trace
 from mdd_tpu_torch.utils.precision import strict_float32, tf32_flags
 
 
@@ -151,35 +152,41 @@ class Trainer:
         left out of the batch statistics, the loss and the WER."""
         inputs, fracs, targets, tsizes, trans, trsizes, mask = arrays
         model_frames = None
-        if self.device_frontend:
-            raw_len = torch.round(fracs * inputs.shape[1]).long()
-            inputs, model_frames = batched_splice_skip(
-                inputs, raw_len, self.left_ctx, self.right_ctx,
-                self.n_skip_frame, self.n_downsample)
-        if inputs.shape[-1] != self.model_cfg.input_dim:
-            raise ValueError(
-                f"spliced feature dim {inputs.shape[-1]} != model input_dim "
-                f"{self.model_cfg.input_dim}: the splice geometry "
-                "(left_ctx/right_ctx) disagrees between loader and Trainer")
-        log_probs = self.model(inputs, trans, trsizes, train=train,
-                               sample_mask=mask,
-                               generator=self.generator if train else None)
-        out_len = log_probs.shape[0]
-        if model_frames is not None:
-            input_sizes = exact_output_sizes(model_frames, out_len,
-                                             inputs.shape[1])
-        else:
-            # host-spliced path: floor(frac * out_len), the reference's
-            # length bookkeeping (train_ctc.py:68)
-            input_sizes = (fracs * out_len).long()
-        nll = ctc_loss(log_probs, input_sizes, targets, tsizes)
-        maskf = mask.to(nll.dtype)
-        # CTCLoss(sum) / true batch size — reference train_ctc.py:72-74 —
-        # over the global batch: this rank's share of the global loss
-        count = mesh.all_reduce_sum(maskf.sum().detach())
-        loss = (nll * maskf).sum() / count.clamp_min(1.0)
-        ids = log_probs.detach().argmax(dim=-1).transpose(0, 1)
-        errs, tokens = greedy_wer(ids, input_sizes, targets, tsizes, mask)
+        with trace.span("step.forward"):
+            if self.device_frontend:
+                raw_len = torch.round(fracs * inputs.shape[1]).long()
+                inputs, model_frames = batched_splice_skip(
+                    inputs, raw_len, self.left_ctx, self.right_ctx,
+                    self.n_skip_frame, self.n_downsample)
+            if inputs.shape[-1] != self.model_cfg.input_dim:
+                raise ValueError(
+                    f"spliced feature dim {inputs.shape[-1]} != model "
+                    f"input_dim {self.model_cfg.input_dim}: the splice "
+                    "geometry (left_ctx/right_ctx) disagrees between "
+                    "loader and Trainer")
+            log_probs = self.model(inputs, trans, trsizes, train=train,
+                                   sample_mask=mask,
+                                   generator=self.generator if train
+                                   else None)
+        with trace.span("step.loss"):
+            out_len = log_probs.shape[0]
+            if model_frames is not None:
+                input_sizes = exact_output_sizes(model_frames, out_len,
+                                                 inputs.shape[1])
+            else:
+                # host-spliced path: floor(frac * out_len), the
+                # reference's length bookkeeping (train_ctc.py:68)
+                input_sizes = (fracs * out_len).long()
+            nll = ctc_loss(log_probs, input_sizes, targets, tsizes)
+            maskf = mask.to(nll.dtype)
+            # CTCLoss(sum) / true batch size — reference
+            # train_ctc.py:72-74 — over the global batch: this rank's
+            # share of the global loss
+            count = mesh.all_reduce_sum(maskf.sum().detach())
+            loss = (nll * maskf).sum() / count.clamp_min(1.0)
+            ids = log_probs.detach().argmax(dim=-1).transpose(0, 1)
+            errs, tokens = greedy_wer(ids, input_sizes, targets, tsizes,
+                                      mask)
         return loss, errs, tokens
 
     @staticmethod
@@ -192,12 +199,16 @@ class Trainer:
     def train_step(self, arrays, acc: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a batch from `batch_arrays`; returns the
         updated metric accumulator."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, errs, tokens = self._loss_and_out(arrays, train=True)
-        loss.backward()
-        self.all_reduce_gradients()
-        self.optimizer.step()
-        return self._acc_update(acc, loss, errs, tokens)
+        with trace.span(trace.STEP):
+            with trace.span("step.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            loss, errs, tokens = self._loss_and_out(arrays, train=True)
+            with trace.span("step.backward"):
+                loss.backward()
+                self.all_reduce_gradients()
+            with trace.span("step.optimizer"):
+                self.optimizer.step()
+                return self._acc_update(acc, loss, errs, tokens)
 
     def all_reduce_gradients(self) -> None:
         """Sum the ranks' parameter gradients (each is a partial sum of
@@ -219,11 +230,12 @@ class Trainer:
         fracs, targets, target sizes, trans, trans sizes, valid)."""
         if valid is None:
             valid = np.ones(batch.size, bool)
-        put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
-        return (put(batch.inputs), put(batch.input_fracs),
-                put(batch.targets).long(), put(batch.target_sizes).long(),
-                put(batch.trans).long(), put(batch.trans_sizes).long(),
-                put(np.asarray(valid, bool)))
+        put = lambda a: to_device(a, self.device)
+        with trace.span("data.gather"):
+            return (put(batch.inputs), put(batch.input_fracs),
+                    put(batch.targets).long(), put(batch.target_sizes).long(),
+                    put(batch.trans).long(), put(batch.trans_sizes).long(),
+                    put(np.asarray(valid, bool)))
 
     def cached_arrays(self, cache, batch: CachedBatch):
         """The arrays of `batch_arrays` for a batch of the device-resident
@@ -232,18 +244,20 @@ class Trainer:
         if not self.device_frontend:
             raise ValueError("the device cache holds raw features; build "
                              "the Trainer with device_frontend=True")
-        put = lambda a: torch.as_tensor(a).to(self.device, non_blocking=True)
-        inputs, fracs = cache.gather(batch)
-        return (apply_spec_augment_masks(inputs, put(batch.aug)), fracs,
-                put(batch.targets).long(), put(batch.target_sizes).long(),
-                put(batch.trans).long(), put(batch.trans_sizes).long(),
-                put(batch.valid))
+        put = lambda a: to_device(a, self.device)
+        with trace.span("data.gather"):
+            inputs, fracs = cache.gather(batch)
+            return (apply_spec_augment_masks(inputs, put(batch.aug)), fracs,
+                    put(batch.targets).long(), put(batch.target_sizes).long(),
+                    put(batch.trans).long(), put(batch.trans_sizes).long(),
+                    put(batch.valid))
 
     def _fetch(self, acc: torch.Tensor):
         """-> (mean loss, WER, batches) of the accumulator: the loss
         shares and WER counts summed over the ranks."""
-        vals = acc.detach().to("cpu", copy=True).numpy()   # not a view
-        vals[:3] = mesh.all_reduce_metrics(vals[:3])
+        with trace.span("loop.fetch"):
+            vals = acc.detach().to("cpu", copy=True).numpy()   # not a view
+            vals[:3] = mesh.all_reduce_metrics(vals[:3])
         loss_sum, errs, tokens, n_b = (float(v) for v in vals)
         return loss_sum / max(1.0, n_b), errs / max(1.0, tokens), n_b
 
@@ -271,31 +285,32 @@ class Trainer:
                 "a multi-process epoch over a loader without the global "
                 "schedule: per-rank shards can differ in steps or shapes "
                 "and deadlock the collectives")
-        acc = torch.zeros(4, dtype=torch.float32, device=self.device)
-        for i, batch in enumerate(loader):
-            if isinstance(batch, CachedBatch):
-                arrays = self.cached_arrays(cache, batch)
-            else:
-                target_b = (full_b if full_b and batch.size <= full_b
-                            else batch.size)
-                padded, valid = pad_batch_to(batch, target_b)
-                if padded.score_mask is not None:
-                    # rows run for equal shapes (tail padding, wrap-around
-                    # duplicates) count nowhere
-                    valid = valid & padded.score_mask
-                arrays = self.batch_arrays(padded, valid)
-            if train:
-                acc = self.train_step(arrays, acc)
-            else:
-                acc = self.eval_step(arrays, acc)
-            if train and (i + 1) % print_every == 0:
-                avg, wer, _ = self._fetch(acc)
-                log("Epoch = %d, step = %d, total_loss = %.4f, "
-                    "total_wer = %.4f" % (epoch, i + 1, avg, wer))
-        avg_loss, wer, _ = self._fetch(acc)
-        log("Epoch %d %s done, total_loss: %.4f, total_wer: %.4f"
-            % (epoch, "Train" if train else "Valid", avg_loss, wer))
-        return 1.0 - wer, avg_loss
+        with trace.span("loop.epoch"):
+            acc = torch.zeros(4, dtype=torch.float32, device=self.device)
+            for i, batch in enumerate(loader):
+                if isinstance(batch, CachedBatch):
+                    arrays = self.cached_arrays(cache, batch)
+                else:
+                    target_b = (full_b if full_b and batch.size <= full_b
+                                else batch.size)
+                    padded, valid = pad_batch_to(batch, target_b)
+                    if padded.score_mask is not None:
+                        # rows run for equal shapes (tail padding, wrap-around
+                        # duplicates) count nowhere
+                        valid = valid & padded.score_mask
+                    arrays = self.batch_arrays(padded, valid)
+                if train:
+                    acc = self.train_step(arrays, acc)
+                else:
+                    acc = self.eval_step(arrays, acc)
+                if train and (i + 1) % print_every == 0:
+                    avg, wer, _ = self._fetch(acc)
+                    log("Epoch = %d, step = %d, total_loss = %.4f, "
+                        "total_wer = %.4f" % (epoch, i + 1, avg, wer))
+            avg_loss, wer, _ = self._fetch(acc)
+            log("Epoch %d %s done, total_loss: %.4f, total_wer: %.4f"
+                % (epoch, "Train" if train else "Valid", avg_loss, wer))
+            return 1.0 - wer, avg_loss
 
     # ------------------------------------------------------------------
     def _device_snapshot(self):
