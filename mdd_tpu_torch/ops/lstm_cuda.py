@@ -38,7 +38,7 @@ import ctypes
 import torch
 
 from mdd_tpu_torch.ops import build
-from mdd_tpu_torch.ops.lstm import input_projections
+from mdd_tpu_torch.ops.lstm import projections
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -599,12 +599,7 @@ def _bilstm(recurrence, x, w_ih_fwd, w_hh_fwd, w_ih_bwd, w_hh_bwd, b_fwd,
             b_bwd) -> torch.Tensor:
     """(T, B, D) -> (T, B, 2H): the two directions' projections stacked
     along axis 1, `recurrence` over them, the backward half flipped back."""
-    xf, xb = input_projections(x, w_ih_fwd, w_ih_bwd)
-    if b_fwd is not None:
-        xf = xf + b_fwd
-    if b_bwd is not None:
-        xb = xb + b_bwd
-    x_proj = torch.stack([xf, xb], dim=1).to(x.dtype)
+    x_proj = projections(x, w_ih_fwd, w_ih_bwd, b_fwd, b_bwd)
     hs = recurrence(x_proj, torch.stack([w_hh_fwd, w_hh_bwd]))
     return torch.cat([hs[:, 0], torch.flip(hs[:, 1], (0,))],
                      dim=-1).to(x.dtype)

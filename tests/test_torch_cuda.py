@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (the LSTM recurrences under both
 contracts, the fused dropout, the train WER, the beam and the CTC loss):
 against their plain versions, the refusals of the wrappers, and autograd
-through the backward kernels.
+through the backward kernels; and the bfloat16 BiLSTMs' input projections
+on cuBLAS's tensor cores against the float32 products they replaced.
 Marked `cuda`; skips where there is no card.
 No JAX here, so the file runs on a GPU machine without it:
 
@@ -1103,3 +1104,142 @@ def test_float32_kernel_model_runs_every_lstm_and_the_ctc_on_kernels(cuda):
         assert [k.launches - n for k, n in zip(kernels, before)] == [
             lstm, lstm, 1, 1, scan, scan], dtype
         assert math.isfinite(acc[0].item())
+
+
+# ------------------------------ the bfloat16 BiLSTMs' input projections
+def _f32_sum_tol(a, b):
+    """How far two float32 products of the same exact bfloat16 x bfloat16
+    products may lie apart when only the order of their K float32 adds
+    differs: 2^-24 (float32's unit roundoff) x sqrt(K) (rounding errors
+    that add like a random walk) x (|a| @ |b|) (the size of the partial
+    sums), with 16 for both results' share and the tensor cores' truncating
+    adds.  A result rounded to bfloat16 (2^-9) lies far outside it."""
+    k = a.shape[1]
+    return 16 * k ** 0.5 * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+
+
+def _bf16_ulp(v):
+    """One bfloat16 ulp at |v| (8 significant bits)."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def _rounded_close(got, want, f32_tol, *parts) -> bool:
+    """Two bfloat16 roundings of float32 values at most `f32_tol` apart
+    differ by at most that plus one ulp of each rounding: the result's
+    and, for a sum of rounded values, each of `parts`' (float32)."""
+    got, want = got.float(), want.float()
+    tol = f32_tol + _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    for p in parts:
+        tol = tol + _bf16_ulp(p)
+    return bool(((got - want).abs() <= tol).all())
+
+
+def _old_projections(x, w_f, w_b, b_f, b_b):
+    """The float32 SGEMM graph the bfloat16 recurrences took before."""
+    xf, xb = input_projections(x, w_f, w_b)
+    if b_f is not None:
+        xf, xb = xf + b_f, xb + b_b
+    return torch.stack([xf, xb], dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("d,bias", [(1952, False), (768, False),
+                                    (512, True)])
+def test_bf16_projections_on_tensor_cores_match_the_sgemm_graph(cuda, d,
+                                                                bias):
+    """At the flagship's widths (layer 1, layers 2-4, the text BiLSTM with
+    its bias; H=384) and a small T x B: each product of Bf16Projections
+    (forward, dX, dW_ih) in float32 within `_f32_sum_tol` of the SGEMM,
+    and x_proj, dX, dW_ih and the bias gradients within `_rounded_close`
+    of the SGEMM graph's."""
+    from mdd_tpu_torch.ops import lstm
+
+    t, b, h = 7, 5, 384
+    g = torch.Generator().manual_seed(d)
+    s = h ** -0.5
+    leaves = [torch.randn((b, t, d), generator=g)] + [
+        (torch.rand((d, 4 * h), generator=g) * 2 - 1) * s for _ in range(2)]
+    leaves += [(torch.rand(4 * h, generator=g) * 2 - 1) * s
+               for _ in range(2 if bias else 0)]
+    leaves = [a.to("cuda").requires_grad_() for a in leaves]
+    args = [leaves[0].to(torch.bfloat16).transpose(0, 1)] + [
+        a.to(torch.bfloat16) for a in leaves[1:]]
+    if not bias:
+        args += [None, None]
+    x, w_f, w_b = args[:3]
+    cot = torch.randn((t, 2, b, 4 * h), generator=g).to("cuda",
+                                                        torch.bfloat16)
+    rows = x.reshape(t * b, d)
+    rows_rev = torch.flip(rows.view(t, b, d), (0,)).reshape(t * b, d)
+    gf, gb = (cot[:, k].reshape(t * b, 4 * h) for k in range(2))
+    tol = {}
+    for name, a, m in (("xf", rows, w_f), ("xb", rows_rev, w_b),
+                       ("dxf", gf, w_f.t()), ("dxb", gb, w_b.t()),
+                       ("dwf", rows.t(), gf), ("dwb", rows_rev.t(), gb)):
+        got = lstm._mm_f32(a, m)
+        want = a.float() @ m.float()
+        tol[name] = _f32_sum_tol(a, m)
+        assert got.dtype == torch.float32
+        assert ((got - want).abs() <= tol[name]).all(), name
+
+    new = lstm.projections(*args)
+    old = _old_projections(*args)
+    assert new.dtype == old.dtype == torch.bfloat16
+    assert new.grad_fn.__class__.__name__ == "Bf16ProjectionsBackward"
+    assert _rounded_close(new, old, torch.stack(
+        [tol["xf"].view(t, b, -1), tol["xb"].view(t, b, -1)], dim=1))
+    got = torch.autograd.grad(new, leaves, cot)
+    want = torch.autograd.grad(old, leaves, cot)
+    # dX: each direction's product rounded, then their bfloat16 sum
+    parts = [(a.float() @ m.float()).view(t, b, d)
+             for a, m in ((gf, w_f.t()), (gb, w_b.t()))]
+    flip = lambda v: torch.flip(v.view(t, b, d), (0,))  # noqa: E731
+    to_bt = lambda v: v.transpose(0, 1)  # noqa: E731
+    assert _rounded_close(got[0], want[0],
+                          to_bt(tol["dxf"].view(t, b, d) + flip(tol["dxb"])),
+                          to_bt(parts[0]), to_bt(flip(parts[1])))
+    assert _rounded_close(got[1], want[1], tol["dwf"])
+    assert _rounded_close(got[2], want[2], tol["dwb"])
+    for g_got, g_want in zip(got[3:], want[3:]):
+        assert _rounded_close(g_got, g_want, 0.0)
+
+
+def test_bf16_step_of_the_baseline_runs_no_float32_product(cuda):
+    """A profiled bfloat16 Trainer step of the baseline model (the
+    flagship's acoustic encoder, no text branch) launches no float32
+    product: no cuBLAS kernel named `f32f32_f32f32`, no CUTLASS or cuBLAS
+    `sgemm` (cuDNN's `implicit_convolve_sgemm<__nv_bfloat16, ...>` is the
+    bfloat16 convolution, not one)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mdd_tpu_torch.data.dataset import Batch
+    from mdd_tpu_torch.models.ctc_model import ModelConfig
+    from mdd_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(9)
+    b, t, l = 8, 120, 12
+    batch = Batch(
+        inputs=rng.standard_normal((b, t, 243)).astype(np.float32),
+        input_fracs=np.ones(b, np.float32),
+        targets=rng.integers(2, 43, (b, l)).astype(np.int32),
+        target_sizes=np.full(b, l, np.int32),
+        trans=rng.integers(2, 43, (b, l)).astype(np.int32),
+        trans_sizes=np.full(b, l, np.int32),
+        utt_ids=[f"u{i}" for i in range(b)])
+    cfg = ModelConfig(use_text_attention=False, use_pallas_lstm=True,
+                      compute_dtype="bfloat16")
+    trainer = Trainer(cfg, device="cuda")
+    arrays = trainer.batch_arrays(batch, np.ones(b, bool))
+    acc = torch.zeros(4, device="cuda")
+    trainer.train_step(arrays, acc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(arrays, acc)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("lstm_bwd" in n for n in names)
+    assert not [n for n in names if re.search(
+        r"(?<!implicit_convolve_)sgemm|f32f32_f32f32", n)]
