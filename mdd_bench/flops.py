@@ -1,11 +1,14 @@
 """The yardstick's arithmetic: the train step's FLOP count, the acoustic
 recurrence's least work, and the card's published peaks.
 
-`train_step_flops` is a frozen copy of `mdd_tpu_torch/bench.py`'s count
-(the matrix work of the forward, times 3 for forward and backward); here it
-is summed over a batch's real rows, each at its own frame count and
+`train_step_flops` is three times the forward's matrix work, which the
+configuration's family counts (`families/<family>.py`'s `row_flops`; for
+`cnn_bilstm` a frozen copy of `mdd_tpu_torch/bench.py`'s count); the
+harness sums it over a batch's real rows, each at its own frame count and
 transcript length, so padding counts as no work.
 
+`recurrence_steps`, `lstm_fwd_work` and `lstm_bwd_work` belong to the
+`cnn_bilstm` family's LSTM rooflines (`trace.Record.lstm_roofline`):
 `lstm_fwd_work` and `lstm_bwd_work` are the operations and bytes of one
 layer's two-direction recurrence under the contract of mdd_tpu's Pallas
 kernels (`_fwd_kernel`, `_bwd_kernel` in mdd_tpu/ops/lstm_pallas.py),
@@ -21,6 +24,8 @@ float32 dW_hh.
 from __future__ import annotations
 
 from typing import Optional
+
+from mdd_bench import manifest
 
 # Dense peaks of one card by torch.cuda.get_device_name and dtype: NVIDIA's
 # H100 SXM data sheet at its 700 W limit (bf16 on the tensor cores;
@@ -42,35 +47,11 @@ def peak_bytes_s(card: str) -> Optional[float]:
 def train_step_flops(cfg: dict, batch: int, frames: int,
                      label_len: int) -> float:
     """Analytic FLOPs of one training step of `batch` rows of `frames`
-    spliced input frames and `label_len` transcript phones."""
-    t, f = frames, cfg["feature_dim"] * (cfg["left_ctx"] + 1
-                                         + cfg["right_ctx"])
-    flops = 0.0
-    cin = 1
-    for (kt, kf), (st, sf), (pt, pf), (_, ch) in zip(
-            cfg["kernel_size"], cfg["stride"], cfg["padding"],
-            cfg["channel"]):
-        t = (t + 2 * pt - kt) // st + 1
-        f = (f + 2 * pf - kf) // sf + 1
-        flops += 2.0 * t * f * ch * kt * kf * cin
-        cin = ch
-    t_out = t
-    h = cfg["rnn_hidden_size"]
-    d_in = f * cin
-    for layer in range(cfg["rnn_layers"]):
-        d = d_in if layer == 0 else 2 * h
-        flops += 2.0 * t_out * 2 * (d * 4 * h + h * 4 * h)
-    if cfg["use_text_attention"]:
-        le = label_len
-        e = cfg["text_embed_size"]
-        flops += 2.0 * le * 2 * (e * 4 * h + h * 4 * h)
-        flops += 2.0 * le * (2 * h) * (2 * h)
-        flops += 2.0 * t_out * le * (2 * h) * 2
-        head_in = 4 * h
-    else:
-        head_in = 2 * h
-    flops += 2.0 * t_out * head_in * (len(cfg["units"]) + 2)
-    return 3.0 * batch * flops
+    spliced input frames and `label_len` transcript phones: three times
+    the forward's matrix work (the family's `row_flops`), for the forward
+    and the backward's two products a forward product."""
+    return 3.0 * batch * manifest.family(cfg).row_flops(cfg, frames,
+                                                        label_len)
 
 
 def model_frames(cfg: dict, raw_len: int) -> int:

@@ -214,7 +214,7 @@ def _port_config(cfg: dict, mix: dict, seed: int, paths: dict):
     port = Config()
     for k, v in cfg.items():
         if hasattr(port, k):
-            if k in ("channel", "kernel_size", "stride", "padding"):
+            if isinstance(getattr(port, k), tuple):
                 v = tuple(tuple(e) for e in v)
             setattr(port, k, v)
     port.batch_size = mix["batch_size"]

@@ -9,14 +9,16 @@ timed path derives:
   mutation (the recipe's `augment_mode` 2), the rows padded to the batch
   size, the label widths, the bfloat16 wire, the masks, the context splice
   and frame skip;
-* the model: convolutions, masked BatchNorm (the statistics of the real
-  rows only), the BiLSTMs (gate order i, f, g, o), the canonical-phone
-  encoder and its masked dot attention, the head and the log-softmax;
+* the model: the forward of the configuration's family
+  (`families/<family>.py`, through `manifest.family`), which builds on the
+  shared parts here: masked BatchNorm (the statistics of the real rows
+  only) and the ranks' dropout;
 * the dropout masks, drawn as the recipe draws them: `torch.rand` of each
   site's shape from a Generator on the run's device seeded
   (seed + 1) mod 2**32, in the order of the forward;
-* the CTC loss (torch's, in float64), its mean over the real rows, the
-  gradients (autograd) and Adam with coupled L2 weight decay.
+* the CTC loss (torch's, in float64) over the family's CTC input sizes,
+  its mean over the real rows, the gradients (autograd) and Adam with
+  coupled L2 weight decay.
 
 It runs in float32 with TF32 off.  `precision="fp8"` is the control: every
 product's operands (and the gradient flowing into it) rounded to float8
@@ -32,6 +34,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mdd_bench import manifest
 
 BN_EPS = 1e-5
 ADAM_BETAS = (0.9, 0.999)
@@ -88,62 +92,10 @@ def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-# ---------------------------------------------------------------- shapes
-
-def conv_out(cfg: dict, t: int, f: int):
-    """(time, freq) after the convolutions."""
-    for (kt, kf), (st, sf), (pt, pf) in zip(cfg["kernel_size"],
-                                            cfg["stride"], cfg["padding"]):
-        t = (t + 2 * pt - kt) // st + 1
-        f = (f + 2 * pf - kf) // sf + 1
-    return t, f
-
-
-def input_dim(cfg: dict) -> int:
-    return cfg["feature_dim"] * (cfg["left_ctx"] + 1 + cfg["right_ctx"])
-
+# ---------------------------------------------------------------- classes
 
 def n_classes(cfg: dict) -> int:
     return len(cfg["units"]) + 2          # blank, UNK, the units
-
-
-def param_shapes(cfg: dict) -> Dict[str, tuple]:
-    """The model's parameters by their published (flax path) names."""
-    h = cfg["rnn_hidden_size"]
-    shapes: Dict[str, tuple] = {}
-    c_in = 1
-    for i, ((_, ch), (kt, kf)) in enumerate(zip(cfg["channel"],
-                                                cfg["kernel_size"])):
-        shapes[f"conv.conv{i}.kernel"] = (ch, c_in, kt, kf)
-        shapes[f"conv.conv{i}.bias"] = (ch,)
-        shapes[f"conv.bn{i}.scale"] = (ch,)
-        shapes[f"conv.bn{i}.bias"] = (ch,)
-        c_in = ch
-    _, f = conv_out(cfg, 1, input_dim(cfg))
-    d_in = f * c_in
-    for i in range(cfg["rnn_layers"]):
-        if i > 0:
-            shapes[f"rnn{i}.bn.scale"] = (d_in,)
-            shapes[f"rnn{i}.bn.bias"] = (d_in,)
-        for d in ("fwd", "bwd"):
-            shapes[f"rnn{i}.w_ih_{d}"] = (d_in, 4 * h)
-            shapes[f"rnn{i}.w_hh_{d}"] = (h, 4 * h)
-        d_in = 2 * h
-    head_in = 2 * h
-    if cfg["use_text_attention"]:
-        e = cfg["text_embed_size"]
-        shapes["text.embed.embedding"] = (max(45, n_classes(cfg) + 2), e)
-        for d in ("fwd", "bwd"):
-            shapes[f"text.lstm.w_ih_{d}"] = (e, 4 * h)
-            shapes[f"text.lstm.w_hh_{d}"] = (h, 4 * h)
-        for d in ("fwd", "bwd"):
-            shapes[f"text.lstm.b_{d}"] = (4 * h,)
-        shapes["text.key_proj.kernel"] = (2 * h, 2 * h)
-        head_in *= 2
-    shapes["head_bn.scale"] = (head_in,)
-    shapes["head_bn.bias"] = (head_in,)
-    shapes["head.kernel"] = (head_in, n_classes(cfg))
-    return shapes
 
 
 # ---------------------------------------------------------------- batches
@@ -358,73 +310,6 @@ def dropout(x, rate: float, gens: List[torch.Generator]):
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def bilstm(q, x, w_ih_f, w_hh_f, w_ih_b, w_hh_b, b_f=None, b_b=None):
-    """(T, B, D) -> (T, B, 2H): a forward LSTM and one over the reversed
-    sequence, gates (i, f, g, o), zero initial state."""
-    outs = []
-    for w_ih, w_hh, bias, rev in ((w_ih_f, w_hh_f, b_f, False),
-                                  (w_ih_b, w_hh_b, b_b, True)):
-        xs = torch.flip(x, (0,)) if rev else x
-        proj = q(xs) @ q(w_ih)
-        if bias is not None:
-            proj = proj + bias
-        h_dim = w_hh.shape[0]
-        h = x.new_zeros((x.shape[1], h_dim))
-        c = x.new_zeros((x.shape[1], h_dim))
-        wq = q(w_hh)
-        hs = []
-        for t in range(x.shape[0]):
-            gates = proj[t] + q(h) @ wq
-            i, f, g, o = gates.split(h_dim, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            hs.append(h)
-        hs = torch.stack(hs)
-        outs.append(torch.flip(hs, (0,)) if rev else hs)
-    return torch.cat(outs, dim=-1)
-
-
-def forward(P: Dict[str, torch.Tensor], cfg: dict, x, trans, trsizes,
-            valid, gens, q):
-    """(B, T, 243) spliced features -> (T', B, C) log-probs, train mode."""
-    rate = cfg["drop_out"]
-    x = x[:, None]
-    for i, (s, p) in enumerate(zip(cfg["stride"], cfg["padding"])):
-        x = F.conv2d(q(x), q(P[f"conv.conv{i}.kernel"]), None,
-                     stride=tuple(s), padding=tuple(p)) \
-            + P[f"conv.conv{i}.bias"].view(-1, 1, 1)
-        x = F.relu(batch_norm(x, P[f"conv.bn{i}.scale"],
-                              P[f"conv.bn{i}.bias"], 1, valid))
-        x = dropout(x, rate, gens)
-    b, c, t, f = x.shape
-    x = x.permute(0, 2, 3, 1).reshape(b, t, f * c)
-    for i in range(cfg["rnn_layers"]):
-        if i > 0:
-            x = batch_norm(x, P[f"rnn{i}.bn.scale"], P[f"rnn{i}.bn.bias"],
-                           -1, valid)
-        y = bilstm(q, x.transpose(0, 1), P[f"rnn{i}.w_ih_fwd"],
-                   P[f"rnn{i}.w_hh_fwd"], P[f"rnn{i}.w_ih_bwd"],
-                   P[f"rnn{i}.w_hh_bwd"])
-        x = dropout(y.transpose(0, 1), rate, gens)
-    if cfg["use_text_attention"]:
-        mask = (torch.arange(trans.shape[1], device=trans.device)[None]
-                < trsizes[:, None])
-        emb = P["text.embed.embedding"][trans] * mask[..., None]
-        values = bilstm(q, emb.transpose(0, 1), P["text.lstm.w_ih_fwd"],
-                        P["text.lstm.w_hh_fwd"], P["text.lstm.w_ih_bwd"],
-                        P["text.lstm.w_hh_bwd"], P["text.lstm.b_fwd"],
-                        P["text.lstm.b_bwd"]).transpose(0, 1)
-        keys = q(values) @ q(P["text.key_proj.kernel"])
-        scores = torch.einsum("btd,bld->btl", q(x), q(keys))
-        scores = scores.masked_fill(~mask[:, None, :], -1e30)
-        context = torch.einsum("btl,blv->btv", torch.softmax(scores, -1),
-                               q(values))
-        x = torch.cat([x, context], dim=-1)
-    x = batch_norm(x, P["head_bn.scale"], P["head_bn.bias"], -1, valid)
-    logits = q(x) @ q(P["head.kernel"])
-    return torch.log_softmax(logits, dim=-1).transpose(0, 1)
-
-
 @contextlib.contextmanager
 def strict_float32():
     """TF32 off for the block (a float32 product may otherwise run at
@@ -461,6 +346,7 @@ def run_steps(corpus, cfg: dict, batches: List[RefBatch],
     lr = cfg["init_lr"] if lr is None else lr
     wd = cfg["weight_decay"] if weight_decay is None else weight_decay
     q = quantizer(precision)
+    family = manifest.family(cfg)
     P = {k: v.detach().to(device, torch.float32).clone().requires_grad_()
          for k, v in weights.items()}
     p0 = {k: v.detach().clone() for k, v in P.items()}
@@ -476,8 +362,8 @@ def run_steps(corpus, cfg: dict, batches: List[RefBatch],
             valid = torch.as_tensor(batch.valid, device=device)
             trans = torch.as_tensor(batch.trans, device=device)
             trsizes = torch.as_tensor(batch.trans_sizes, device=device)
-            lp = forward(P, cfg, x, trans, trsizes, valid, gens, q)
-            sizes = frames * lp.shape[0] // x.shape[1]
+            lp = family.forward(P, cfg, x, trans, trsizes, valid, gens, q)
+            sizes = family.ctc_sizes(cfg, frames, x.shape[1], lp.shape[0])
             tg = torch.as_tensor(batch.targets, device=device)
             ts = torch.as_tensor(batch.target_sizes, device=device)
             nll = F.ctc_loss(lp.double(), tg, sizes, ts, blank=0,

@@ -20,8 +20,8 @@ def test_train_step_flops_is_the_ports():
 
 
 def test_a_tiny_step_by_hand():
-    cfg = {"feature_dim": 1, "left_ctx": 0, "right_ctx": 0,
-           "kernel_size": [[1, 1]], "stride": [[1, 1]],
+    cfg = {"family": "cnn_bilstm", "feature_dim": 1, "left_ctx": 0,
+           "right_ctx": 0, "kernel_size": [[1, 1]], "stride": [[1, 1]],
            "padding": [[0, 0]], "channel": [[1, 1]], "rnn_hidden_size": 1,
            "rnn_layers": 1, "use_text_attention": False, "units": ["a"]}
     # conv 2*t*f*ch*kt*kf*cin = 2*2; one BiLSTM layer 2*t*2*(1*4 + 1*4) =

@@ -7,9 +7,12 @@ import pathlib
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "mdd_tpu"}
-# the reference, the traffic, the weights, the arithmetic and the judge
+# the reference, the traffic, the weights, the arithmetic and the judge,
+# and the model families they call
 YARDSTICK = ("reference.py", "corpus.py", "weights.py", "flops.py",
              "compare.py")
+FAMILIES = sorted(p.relative_to(BENCH).as_posix()
+                  for p in (BENCH / "families").glob("*.py"))
 
 
 def top_level_imports(path: pathlib.Path) -> set:
@@ -56,8 +59,10 @@ def imported_modules(path: pathlib.Path) -> set:
 
 
 def test_the_yardstick_imports_nothing_of_the_program():
-    own = {f"mdd_bench.{n[:-3]}" for n in YARDSTICK} | {"mdd_bench.ranks"}
-    for name in YARDSTICK:
+    own = {f"mdd_bench.{n[:-3]}" for n in YARDSTICK} | {
+        "mdd_bench.ranks", "mdd_bench.manifest"}
+    assert "families/cnn_bilstm.py" in FAMILIES
+    for name in YARDSTICK + tuple(FAMILIES):
         for mod in imported_modules(BENCH / name):
             assert not mod.startswith("mdd_tpu"), (name, mod)
             if mod.startswith("mdd_bench"):

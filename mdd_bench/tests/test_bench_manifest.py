@@ -104,3 +104,41 @@ def test_a_dropped_in_file_is_found_with_no_edit(bench, tmp_path,
         cards=1, flops=0.0, peak_window_bytes=0, events=[], host=[])
     got = trace.per_layer(bench, cell, rec)
     assert got == {"steps_seen.train": {"value": 3.0, "unit": "steps"}}
+
+
+# the four-card cell's files, kept for its entries in BENCHMARK.json
+# (PERF.md: left out for its spread)
+FOUR = "attention_aug.train_dp4_b1024"
+
+
+def test_the_four_card_files_are_the_flagships_at_4x_the_batch():
+    mix, one = manifest.traffic("train_dp4_b1024"), manifest.traffic(
+        "train_b256")
+    assert mix["batch_size"] == 4 * one["batch_size"] == 1024
+    assert {k: v for k, v in mix.items() if k not in ("batch_size", "why")} \
+        == {k: v for k, v in one.items() if k not in ("batch_size", "why")}
+    assert manifest.limits(FOUR) == manifest.limits(
+        "attention_aug.train_b256")
+    assert callable(trace.load_reader("allreduce_ms_per_step.train"))
+
+
+def _record(events, steps=4):
+    return trace.Record(
+        cfg={}, stats=[harness.StepStat(512, 256, 100, [50], [20], 0.001)]
+        * steps, window_s=1.0, card="NVIDIA H100 80GB HBM3", cards=4,
+        flops=0.0, peak_window_bytes=0, events=events, host=[])
+
+
+def test_the_nccl_reader_counts_nccl_kernels_a_step():
+    read = trace.load_reader("allreduce_ms_per_step.train")
+    ms = 1_000_000
+    events = [
+        ("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevComm*)", 0, 3 * ms),
+        ("ncclKernel_ReduceScatter_RING_LL_Sum_uint8", 5 * ms, 6 * ms),
+        ("lstm_fwd_kernel", 6 * ms, 20 * ms),
+        ("Memcpy DtoD (Device -> Device)", 20 * ms, 21 * ms),
+        ("void at::native::vectorized_elementwise_kernel", 21 * ms, 30 * ms)]
+    assert read(_record(events)) == pytest.approx(4.0 / 4)
+    assert read(_record(events, steps=2)) == pytest.approx(4.0 / 2)
+    assert read(_record(events[2:])) is None
+    assert read(_record(events, steps=0)) is None

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import importlib.util
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -178,13 +177,9 @@ class Record:
 
 def load_reader(name: str):
     """metrics/<name>.py's `read`."""
-    path = manifest.metric_file(name)
-    spec = importlib.util.spec_from_file_location(
-        "mdd_bench_metric_" + name.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return manifest.load_module(
+        manifest.metric_file(name),
+        "mdd_bench_metric_" + name.replace(".", "_").replace("-", "_")).read
 
 
 def per_layer(bench: dict, cell: str, rec: Record) -> dict:
